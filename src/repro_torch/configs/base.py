@@ -1,0 +1,132 @@
+"""Architecture / quantization config schema (port of ``repro.configs.base``).
+
+A copy, not an import: the port never imports the JAX package.  Field names
+and defaults match the reference so one config means the same model on
+both sides.  This slice serves dense GQA decoders (block kind ``"g"``);
+the MLA / MoE / SSM / encoder sub-configs of the reference are not ported
+yet, so their fields are absent here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import fnmatch
+from typing import Dict, Tuple
+
+__all__ = ["QuantConfig", "ArchConfig", "register", "get_config"]
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    """BETA quantization spec: which QMMs are quantized and how.
+
+    ``backend`` names an integer-MM backend of the PORT's registry
+    (``repro_torch.core.backend_registry``).  The names are the reference's,
+    so one string selects the same path on both sides:
+
+    * ``"mxu"``    -- plain PyTorch integer product (exact), the default;
+    * ``"pallas"`` -- the staged hand-written kernel: ``binary_qmm`` (K1)
+      returns the integer product and the affine epilogue runs after it;
+    * ``"fused"``  -- the hand-written ``fused_qmm`` kernel (K2): bit-serial
+      AND-popcount core plus the affine epilogue in one launch.
+    """
+
+    enabled: bool = True
+    weight_bits: int = 1
+    act_bits: int = 8
+    attn_act_bits: int = 8
+    quantize_attention: bool = True
+    kv_cache_bits: int = 8
+    backend: str = "mxu"
+    # ((fnmatch pattern over the site name, backend), ...): first match wins.
+    backend_overrides: Tuple[Tuple[str, str], ...] = ()
+
+    @staticmethod
+    def known_backends() -> Tuple[str, ...]:
+        from repro_torch.core import backend_registry
+
+        return backend_registry.backend_names()
+
+    def __post_init__(self):
+        known = self.known_backends()
+        if self.backend not in known:
+            raise ValueError(f"unknown backend {self.backend!r}; valid: {known}")
+        for pattern, b in self.backend_overrides:
+            if b not in known:
+                raise ValueError(
+                    f"backend_overrides[{pattern!r}] names unknown backend "
+                    f"{b!r}; valid: {known}"
+                )
+
+    def backend_for(self, layer_name: str = "") -> str:
+        """Backend for a named site ("ffn.up", "attn.o", ...)."""
+        if layer_name:
+            for pattern, b in self.backend_overrides:
+                if fnmatch.fnmatchcase(layer_name, pattern):
+                    return b
+        return self.backend
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: int = 0  # 0 -> d_model // n_heads
+    pattern_period: Tuple[str, ...] = ("g",)
+    prefix_layers: Tuple[str, ...] = ()
+    window_size: int = 0
+    qk_norm: bool = False
+    ffn_type: str = "silu_glu"  # "gelu" | "silu_glu" | "gelu_glu"
+    rope_theta: float = 10000.0
+    pos_embedding: str = "rope"
+    causal: bool = True
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-6
+    quant: QuantConfig = QuantConfig()
+    max_seq: int = 131072
+    source: str = ""
+
+    def __post_init__(self):
+        if self.d_head == 0:
+            object.__setattr__(self, "d_head", self.d_model // self.n_heads)
+        n_pattern = self.n_layers - len(self.prefix_layers)
+        if n_pattern < 0 or (
+            len(self.pattern_period) and n_pattern % len(self.pattern_period)
+        ):
+            raise ValueError(
+                f"{self.name}: {self.n_layers} layers does not decompose into "
+                f"prefix {self.prefix_layers} + k * period {self.pattern_period}"
+            )
+
+    @property
+    def n_periods(self) -> int:
+        return (self.n_layers - len(self.prefix_layers)) // len(self.pattern_period)
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        return self.prefix_layers + self.pattern_period * self.n_periods
+
+
+_REGISTRY: Dict[str, ArchConfig] = {}
+
+
+def register(cfg: ArchConfig) -> ArchConfig:
+    if cfg.name in _REGISTRY:
+        raise ValueError(f"duplicate arch config {cfg.name}")
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ArchConfig:
+    from repro_torch import configs as _pkg  # noqa: F401  (registers every config)
+
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}") from None

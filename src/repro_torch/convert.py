@@ -1,0 +1,55 @@
+"""Carry params of the JAX reference across to the port, as numpy trees.
+
+The caller turns the reference's params into numpy first (for example
+``jax.tree.map(np.asarray, params)``), so this module imports no JAX.  The
+reference stacks the repeated ``period`` of layers on a leading scan axis;
+the port keeps one dict per layer, so the stack is cut apart in
+``cfg.layer_kinds`` order (prefix layers first, then each period in turn).
+
+Leaves are converted bit for bit: ``uint32`` packed words become ``int32``
+tensors holding the same bits, ``bfloat16`` arrays keep their bits, and
+everything else keeps its dtype.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+
+__all__ = ["to_tensor", "from_reference"]
+
+
+def to_tensor(a: Any, device="cuda") -> torch.Tensor:
+    """One numpy leaf -> tensor with identical bits."""
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        return torch.from_numpy(a.view(np.int32).copy()).to(device)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(a.view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def _leaves(node, fn):
+    if isinstance(node, dict):
+        return {k: _leaves(v, fn) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_leaves(v, fn) for v in node]
+    return fn(node)
+
+
+def from_reference(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
+    """Reference params (``init_params`` latents or ``prepare_serving_params``
+    output, as numpy) -> the port's ``{"embedding", "final_norm", "layers"}``."""
+    stack = tree["stack"]
+    layers = [_leaves(p, lambda a: to_tensor(a, device)) for p in stack["prefix"]]
+    for i in range(cfg.n_periods):
+        for stacked in stack["period"]:
+            layers.append(_leaves(stacked, lambda a: to_tensor(np.asarray(a)[i], device)))
+    out = {k: to_tensor(v, device) for k, v in tree.items() if k != "stack"}
+    out["layers"] = layers
+    return out

@@ -1,0 +1,95 @@
+"""Plain PyTorch versions of the kernels (port of ``repro.kernels.ref``).
+
+Each states the kernel's semantics in straightforward tensor code.  The
+kernel wrappers fall to these only for CPU tensors; the tests hold them
+against the reference oracles, and ``chip_smoke.py`` holds each CUDA kernel
+against them on the card.  They run on any device.
+
+Packed operands are int32 words carrying the reference's uint32 bits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import packing
+from repro_torch.core.flow_abstraction import exact_int_matmul
+
+__all__ = ["binary_qmm_ref", "fused_qmm_ref", "fused_qmm_epilogue"]
+
+
+def _check_packed(name: str, x: torch.Tensor, k: int, dim: int) -> None:
+    if x.dtype != torch.int32:
+        raise TypeError(f"{name}: packed operand must be int32 words, got {x.dtype}")
+    if x.shape[dim] != packing.packed_len(k, 1):
+        raise ValueError(
+            f"{name}: packed dim {dim} has {x.shape[dim]} words, "
+            f"expected ceil({k}/32) = {packing.packed_len(k, 1)}"
+        )
+
+
+def binary_qmm_ref(a: torch.Tensor, w_packed: torch.Tensor, k: int) -> torch.Tensor:
+    """``a (M, K) int8 @ unpack(w_packed) (K, N)`` -> int32 ``(M, N)``.
+
+    ``w_packed`` is ``(ceil(K/32), N)``: 1-bit mantissas {0, 1} packed along
+    the reduction axis.
+    """
+    if a.dtype != torch.int8 or a.ndim != 2 or a.shape[-1] != k:
+        raise ValueError(f"binary_qmm_ref: a must be int8 (M, {k}), got {a.dtype} {tuple(a.shape)}")
+    if w_packed.ndim != 2:
+        raise ValueError(f"binary_qmm_ref: w_packed must be rank 2, got {w_packed.ndim}")
+    _check_packed("binary_qmm_ref", w_packed, k, 0)
+    w = packing.unpack_bits(w_packed, 1, k, axis=0, dtype=torch.int8)
+    return exact_int_matmul(a, w, 128 * k).to(torch.int32)
+
+
+def _plane_value(planes: torch.Tensor, k: int, dim: int) -> torch.Tensor:
+    """``sum_i 2**i * unpack(planes[i])`` as int64: the unsigned mantissa."""
+    total = None
+    for i in range(planes.shape[0]):
+        part = packing.unpack_bits(planes[i], 1, k, axis=dim, dtype=torch.int64) << i
+        total = part if total is None else total + part
+    return total
+
+
+def fused_qmm_epilogue(xy, row, col, a_scale, a_offset, w_scale, w_offset, k):
+    """The fused kernel's float32 epilogue in its exact order:
+    ``((t0 + t1) + t2) + t3`` with every product rounded on its own."""
+    f32 = torch.float32
+    a1, g1 = a_scale.to(f32), a_offset.to(f32)
+    a2, g2 = w_scale.to(f32), w_offset.to(f32)
+    t0 = xy.to(f32) * (a1 * a2)
+    t1 = (a1 * g2) * row.to(f32)
+    t2 = (g1 * a2) * col.to(f32)
+    t3 = g1 * g2 * torch.tensor(float(k), dtype=f32, device=xy.device)
+    return ((t0 + t1) + t2) + t3
+
+
+def fused_qmm_ref(
+    a_planes: torch.Tensor,
+    b_planes: torch.Tensor,
+    a_scale: torch.Tensor,
+    a_offset: torch.Tensor,
+    w_scale: torch.Tensor,
+    w_offset: torch.Tensor,
+    k: int,
+) -> torch.Tensor:
+    """Bit-serial integer core plus affine epilogue -> float32 ``(M, N)``.
+
+    ``a_planes`` ``(a_bits, M, Kw)`` and ``b_planes`` ``(b_bits, Kw, N)`` are
+    unsigned mantissa bit-planes.  The integer part
+    ``sum_ij 2**(i+j) A_i @ B_j`` equals ``X @ W`` for the mantissas
+    ``X = sum_i 2**i A_i``, ``W = sum_j 2**j B_j``, which is how it is computed
+    here; ``rowsum(X)`` and ``colsum(W)`` come from the same mantissas.
+    """
+    if a_planes.ndim != 3 or b_planes.ndim != 3:
+        raise ValueError("fused_qmm_ref: plane stacks must be rank 3 (bits, ., .)")
+    _check_packed("fused_qmm_ref", a_planes, k, 2)
+    _check_packed("fused_qmm_ref", b_planes, k, 1)
+    x = _plane_value(a_planes, k, -1)  # (M, K)
+    w = _plane_value(b_planes, k, 0)  # (K, N)
+    bound = k * (2 ** a_planes.shape[0] - 1) * (2 ** b_planes.shape[0] - 1)
+    xy = exact_int_matmul(x, w, bound).to(torch.int32)
+    row = x.sum(dim=-1, keepdim=True).to(torch.int32)
+    col = w.sum(dim=0, keepdim=True).to(torch.int32)
+    return fused_qmm_epilogue(xy, row, col, a_scale, a_offset, w_scale, w_offset, k)

@@ -1,0 +1,235 @@
+"""GQA attention with the int8 KV cache, serve mode (port of the
+``kind="g"`` int8-cache path of ``repro.models.attention``).
+
+QK^T and PV run as activation x activation integer products through the
+flow abstraction, grouped over kv heads; softmax stays float32.  The cache
+holds re-centered int8 mantissas with per-row (per-slot) affines and
+cursors, so co-batched requests never share a quantization grid.
+
+Unlike the reference, the cache is updated IN PLACE (``index_copy_`` /
+``index_put_``): prefill and decode return the same dict they were given.
+
+Not ported yet: the windowed ring buffer (``"l"`` layers), bitwise (binary)
+scores, MLA, float caches and cross-attention.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import quantization as Q
+from repro_torch.models import layers as L
+
+__all__ = ["init_attention", "init_kv_cache", "attention"]
+
+_NEG_INF = -1e30
+
+
+def init_attention(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    h, kvh, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
+    return {
+        "q": L.init_linear(gen, d, h * dh),
+        "k": L.init_linear(gen, d, kvh * dh),
+        "v": L.init_linear(gen, d, kvh * dh),
+        "o": L.init_linear(gen, h * dh, d, scale=0.5),
+    }
+
+
+def _check_supported(cfg: ArchConfig, kind: str) -> None:
+    q = cfg.quant
+    if kind != "g":
+        raise NotImplementedError(f"attention kind {kind!r} is not ported yet (only 'g')")
+    if not (q.enabled and q.quantize_attention and q.kv_cache_bits in (4, 8)):
+        raise NotImplementedError("only the quantized int8 KV-cache path is ported")
+    if cfg.qk_norm or cfg.pos_embedding != "rope":
+        raise NotImplementedError("qk_norm and non-rope positions are not ported yet")
+
+
+def init_kv_cache(
+    batch: int, max_len: int, cfg: ArchConfig, kind: str = "g", device="cuda"
+) -> dict:
+    """int8 KV cache with per-row ``pos`` cursors and calibration affines."""
+    _check_supported(cfg, kind)
+    kvh, dh = cfg.n_kv_heads, cfg.d_head
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "k": torch.zeros((batch, max_len, kvh, dh), dtype=torch.int8, device=device),
+        "v": torch.zeros((batch, max_len, kvh, dh), dtype=torch.int8, device=device),
+        "k_scale": torch.ones((batch,), **f32),
+        "k_offset": torch.zeros((batch,), **f32),
+        "v_scale": torch.ones((batch,), **f32),
+        "v_offset": torch.zeros((batch,), **f32),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def _per_row(s: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Broadcast a per-row ``(B,)`` affine against a rank-``ndim`` operand."""
+    return s.reshape(s.shape + (1,) * (ndim - 1))
+
+
+def _calibrate_rows(x: torch.Tensor):
+    """Per-row min / (max-min)/255 over every axis but the batch row."""
+    x32 = x.to(torch.float32).reshape(x.shape[0], -1)
+    off = x32.amin(dim=-1)
+    sc = torch.clamp((x32.amax(dim=-1) - off) / 255.0, min=1e-8)
+    return sc, off
+
+
+def _quantize_to_cache(x: torch.Tensor, scale, offset) -> torch.Tensor:
+    """Quantize with a fixed (prefill-calibrated) affine, re-centered int8."""
+    scale = _per_row(scale, x.ndim)
+    offset = _per_row(offset, x.ndim)
+    q = torch.clamp(torch.round((x.to(torch.float32) - offset) / scale), 0.0, 255.0)
+    return (q - 128.0).to(torch.int8)
+
+
+def _int_einsum(spec: str, a: torch.Tensor, b: torch.Tensor, k: int) -> torch.Tensor:
+    """int8 x int8 einsum with exact integer results (int32).
+
+    Runs in float64 (CUDA has no integer einsum, and float32 is exact only
+    below 2**24: PV partial sums reach ``t * 2**14``, past 2**24 beyond
+    t = 1024).  ``k`` is the contraction length; the bound is asserted.
+    """
+    bound = k * 2**14
+    if bound > 2**53:
+        raise ValueError(f"int einsum bound {bound} exceeds 2**53")
+    out = torch.einsum(spec, a.to(torch.float64), b.to(torch.float64))
+    return out.to(torch.int32)
+
+
+def _scores_int(q, k_mantissa, k_scale, k_offset, attn_bits: int):
+    """Integer QK^T, grouped over kv heads.
+
+    q: (B,S,H,dh) float, quantized per row.  k_mantissa: (B,T,kvH,dh) int8
+    re-centered cache mantissas.  Returns float32 (B,H,S,T).
+    """
+    b, s, h, dh = q.shape
+    t, kvh = k_mantissa.shape[1], k_mantissa.shape[2]
+    g = h // kvh
+    qq = Q.quantize_activation(q.to(torch.float32), attn_bits, per_channel_axis=0)
+    qr = Q.recenter(qq)
+    x1 = qr.mantissa.reshape(b, s, kvh, g, dh)
+    x2 = k_mantissa
+    xy = _int_einsum("bskgd,btkd->bkgst", x1, x2, dh).to(torch.float32)
+    a1 = qr.scale.reshape(b, 1, 1, 1, 1)
+    g1 = qr.offset.reshape(b, 1, 1, 1, 1)
+    a2 = _per_row(k_scale, 5)
+    g2 = _per_row(k_offset, 5) + 128.0 * a2  # cache mantissa re-centered by 128
+    row = torch.sum(x1, dim=-1, dtype=torch.int32).to(torch.float32)  # (B,S,kvH,G)
+    row = row.permute(0, 2, 3, 1)[..., None]  # (B,kvH,G,S,1)
+    col = torch.sum(x2, dim=-1, dtype=torch.int32).to(torch.float32)  # (B,T,kvH)
+    col = col.permute(0, 2, 1)[:, :, None, None, :]  # (B,kvH,1,1,T)
+    out = xy * (a1 * a2) + (a1 * g2) * row + (g1 * a2) * col + g1 * g2 * dh
+    return out.reshape(b, h, s, t)
+
+
+def _pv_int(p_probs, v_mantissa, v_scale, v_offset):
+    """Integer P @ V, grouped over kv heads.  Probabilities are quantized
+    exactly onto the W8 grid (scale 1/255, offset 0)."""
+    b, h, s, t = p_probs.shape
+    kvh, dh = v_mantissa.shape[2], v_mantissa.shape[3]
+    g = h // kvh
+    pm = torch.clamp(torch.round(p_probs * 255.0), 0, 255.0)
+    x1 = (pm - 128.0).to(torch.int8).reshape(b, kvh, g, s, t)
+    dev = p_probs.device
+    a1 = torch.tensor(1.0 / 255.0, dtype=torch.float32, device=dev)
+    g1 = torch.tensor(128.0 / 255.0, dtype=torch.float32, device=dev)
+    x2 = v_mantissa
+    a2 = _per_row(v_scale, 5)
+    g2 = _per_row(v_offset, 5) + 128.0 * a2
+    xy = _int_einsum("bkgst,btkd->bkgsd", x1, x2, t).to(torch.float32)
+    row = torch.sum(x1, dim=-1, dtype=torch.int32)[..., None].to(torch.float32)
+    col = torch.sum(x2, dim=1, dtype=torch.int32).to(torch.float32)  # (B,kvH,dh)
+    col = col[:, :, None, None, :]
+    out = xy * (a1 * a2) + (a1 * g2) * row + (g1 * a2) * col + g1 * g2 * t
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh)
+
+
+def _mask(s_q: int, s_k: int, causal: bool, device) -> torch.Tensor:
+    """(s_q, s_k) additive mask for a prefill starting at position 0."""
+    qi = torch.arange(s_q, device=device)[:, None]
+    kj = torch.arange(s_k, device=device)[None, :]
+    ok = torch.ones((s_q, s_k), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kj <= qi
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return torch.where(ok, zero, torch.full_like(zero, _NEG_INF))
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def _write_prefill_cache(cache, k_m, v_m, s, k_sc, k_off, v_sc, v_off) -> None:
+    """Write prefilled rows at ``[pos, pos + s)`` of every batch row, in place.
+    All rows share row 0's cursor (prefill runs on a freshly reset cache)."""
+    idx = cache["pos"][0].to(torch.int64) + torch.arange(s, device=k_m.device)
+    cache["k"].index_copy_(1, idx, k_m)
+    cache["v"].index_copy_(1, idx, v_m)
+    cache["pos"] += s
+    for key, val in (("k_scale", k_sc), ("k_offset", k_off), ("v_scale", v_sc), ("v_offset", v_off)):
+        cache[key].copy_(val)
+
+
+def attention(
+    p: dict,
+    x: torch.Tensor,
+    cfg: ArchConfig,
+    kind: str,
+    positions: torch.Tensor,
+    cache: dict,
+) -> Tuple[torch.Tensor, dict]:
+    """One GQA mixer application over the int8 cache.
+
+    x: (B, S, D); positions: (B, S) absolute positions.  ``S > 1`` is a
+    prefill from an empty cache; ``S == 1`` a decode step at each row's own
+    cursor.  Returns (out (B, S, D), cache), the cache updated in place.
+    """
+    _check_supported(cfg, kind)
+    quant = cfg.quant
+    h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    b, s, _ = x.shape
+    bits = quant.attn_act_bits
+
+    q = L.qlinear(p["q"], x, quant, name="attn.q").reshape(b, s, h, dh)
+    k = L.qlinear(p["k"], x, quant, name="attn.k").reshape(b, s, kvh, dh)
+    v = L.qlinear(p["v"], x, quant, name="attn.v").reshape(b, s, kvh, dh)
+    q = L.rope(q, positions, cfg.rope_theta)
+    k = L.rope(k, positions, cfg.rope_theta)
+    sqrt_dh = torch.sqrt(torch.tensor(float(dh), dtype=torch.float32, device=x.device))
+
+    if s > 1:
+        k_sc, k_off = _calibrate_rows(k)
+        v_sc, v_off = _calibrate_rows(v)
+        k_m = _quantize_to_cache(k, k_sc, k_off)
+        v_m = _quantize_to_cache(v, v_sc, v_off)
+        scores = _scores_int(q, k_m, k_sc, k_off, bits)
+        mask = _mask(s, s, cfg.causal, x.device)
+        probs = _softmax(scores / sqrt_dh + mask[None, None])
+        ctx = _pv_int(probs, v_m, v_sc, v_off)
+        _write_prefill_cache(cache, k_m, v_m, s, k_sc, k_off, v_sc, v_off)
+    else:
+        # each row writes at, and attends up to, its own cursor
+        pos = cache["pos"].to(torch.int64)  # a copy: the cursor advances below
+        k_sc, k_off = cache["k_scale"], cache["k_offset"]
+        v_sc, v_off = cache["v_scale"], cache["v_offset"]
+        rows = torch.arange(b, device=x.device)
+        cache["k"].index_put_((rows, pos), _quantize_to_cache(k, k_sc, k_off)[:, 0])
+        cache["v"].index_put_((rows, pos), _quantize_to_cache(v, v_sc, v_off)[:, 0])
+        cache["pos"] += 1
+        t = cache["k"].shape[1]
+        valid = torch.arange(t, device=x.device)[None, :] <= pos[:, None]
+        scores = _scores_int(q, cache["k"], k_sc, k_off, bits) / sqrt_dh
+        scores = torch.where(
+            valid[:, None, None, :], scores, torch.full_like(scores, _NEG_INF)
+        )
+        probs = _softmax(scores)
+        ctx = _pv_int(probs, cache["v"], v_sc, v_off)
+
+    ctx = ctx.reshape(b, s, h * dh).to(x.dtype)
+    return L.qlinear(p["o"], ctx, quant, name="attn.o"), cache

@@ -1,0 +1,145 @@
+"""Quantization-aware building blocks, serve mode (port of ``repro.models.layers``).
+
+Serving params are plain dicts of tensors: a packed linear is
+``{"w_packed", "w_scale", "w_offset", "w_colsum"}`` and a latent one
+``{"w"}``.  Every cast of the reference is mirrored (float32 before
+quantizing, back to the activation dtype after each product).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import QuantConfig
+from repro_torch.core import flow_abstraction as FA
+from repro_torch.core import qmm as QE
+from repro_torch.core import quantization as Q
+
+__all__ = [
+    "init_linear",
+    "pack_linear_for_serving",
+    "qlinear",
+    "rmsnorm",
+    "rope",
+    "ffn",
+    "init_ffn",
+    "embed",
+    "unembed",
+]
+
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int, scale: float = 1.0) -> dict:
+    """Latent float32 weight ``(d_in, d_out)``, std ``scale / sqrt(d_in)``,
+    on the generator's device."""
+    std = scale / (d_in**0.5)
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32, device=gen.device)
+    return {"w": w * std}
+
+
+def pack_linear_for_serving(p: dict, quant: QuantConfig) -> dict:
+    """Offline weight pipeline: binarize, bit-pack along K, precompute colsum."""
+    if not quant.enabled:
+        raise NotImplementedError("float (unquantized) serving is not ported yet")
+    wq = Q.quantize_weight(p["w"], quant.weight_bits)
+    colsum = FA.weight_corrections(wq)
+    packed = wq.pack(axis=0)
+    return {
+        "w_packed": packed.mantissa,  # int32 words (K/32, N)
+        "w_scale": packed.scale.to(torch.float32),  # (1, N)
+        "w_offset": packed.offset.to(torch.float32),
+        "w_colsum": colsum.to(torch.int32),  # (N,)
+    }
+
+
+def qlinear(
+    p: dict,
+    x: torch.Tensor,
+    quant: QuantConfig,
+    *,
+    act_bits: Optional[int] = None,
+    name: str = "",
+) -> torch.Tensor:
+    """``x (..., K) @ W (K, N)`` on the serving datapath.
+
+    Per-token calibration on the flattened ``(M, K)`` view keeps co-batched
+    slots numerically independent; ``name`` selects per-site backend
+    overrides.
+    """
+    bits = act_bits or quant.act_bits
+    k = x.shape[-1]
+    wq = Q.QuantTensor(
+        mantissa=p["w_packed"],
+        scale=p["w_scale"],
+        offset=p["w_offset"],
+        bits=quant.weight_bits,
+        packed=True,
+        packed_axis=0,
+        length=k,
+    )
+    lead = x.shape[:-1]
+    xq = Q.quantize_activation(x.to(torch.float32).reshape(-1, k), bits, per_channel_axis=0)
+    out = QE.qmm(xq, wq, backend=quant.backend_for(name), w_colsum=p.get("w_colsum"))
+    return out.reshape(*lead, -1).to(x.dtype)
+
+
+def rmsnorm(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * (1.0 + g.to(torch.float32))).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding.  x: ``(..., S, H, D)`` or ``(..., S, D)``; positions ``(..., S)``."""
+    d = x.shape[-1]
+    half = d // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exps)
+    angles = positions.to(torch.float32)[..., None] * freqs
+    if x.ndim == angles.ndim + 1:  # head axis present
+        angles = angles[..., None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    """``silu(x) = x * sigmoid(x)`` with the sigmoid expanded as
+    ``1 / (1 + exp(-x))`` and every step rounded to ``x.dtype``: that is how
+    the reference's compiled bf16 logistic evaluates it, and a bf16 silu
+    rounded once differs from it in about a third of the elements."""
+    if not name.startswith("silu"):
+        raise NotImplementedError(f"activation of ffn_type {name!r} is not ported yet")
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def init_ffn(gen: torch.Generator, ffn_type: str, d_model: int, d_ff: int) -> dict:
+    p = {
+        "up": init_linear(gen, d_model, d_ff),
+        "down": init_linear(gen, d_ff, d_model, scale=0.5),
+    }
+    if ffn_type.endswith("glu"):
+        p["gate"] = init_linear(gen, d_model, d_ff)
+    return p
+
+
+def ffn(p: dict, x: torch.Tensor, ffn_type: str, quant: QuantConfig, name: str = "ffn"):
+    up = qlinear(p["up"], x, quant, name=f"{name}.up")
+    if ffn_type.endswith("glu"):
+        gate = qlinear(p["gate"], x, quant, name=f"{name}.gate")
+        h = _act(ffn_type, gate) * up
+    else:
+        h = _act(ffn_type, up)
+    return qlinear(p["down"], h, quant, name=f"{name}.down")
+
+
+def embed(p: dict, tokens: torch.Tensor, d_model: int, dtype=torch.bfloat16) -> torch.Tensor:
+    scale = torch.tensor(d_model**0.5, dtype=dtype, device=tokens.device)
+    return p["embedding"][tokens].to(dtype) * scale
+
+
+def unembed(p: dict, x: torch.Tensor, tied: bool, dtype=torch.float32) -> torch.Tensor:
+    table = p["embedding"] if tied else p["unembedding"]
+    return torch.matmul(x.to(dtype), table.to(dtype).T)

@@ -1,0 +1,165 @@
+"""Public model API of the port (counterpart of ``repro.models.model_zoo``),
+serving subset for dense GQA decoders.
+
+Params are plain dicts: ``{"embedding", "final_norm", "layers": [block,
+...]}`` with one block per layer in ``cfg.layer_kinds`` order (the
+reference's scanned ``period`` stack, unstacked).  Caches are
+``{"layers": [kv_cache, ...]}``.
+
+Entry points:
+
+* ``init_params(seed, cfg)``           -- latent float32 params
+* ``prepare_serving_params(params)``   -- binarize, bit-pack, colsums
+* ``init_serving_params(seed, cfg)``   -- the two above one layer at a time,
+  so a full-width model never holds every latent weight at once
+* ``init_cache`` / ``init_slot_cache`` / ``cache_insert`` / ``cache_reset``
+* ``prefill`` (exact length) / ``decode_step``
+
+Caches are updated IN PLACE: ``prefill``, ``decode_step``, ``cache_insert``
+and ``cache_reset`` return the dict they were given, mutated.  Entry points
+that create tensors take ``device="cuda"`` unless the caller asks for the
+CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+__all__ = [
+    "init_params",
+    "prepare_serving_params",
+    "init_serving_params",
+    "init_cache",
+    "init_slot_cache",
+    "cache_insert",
+    "cache_reset",
+    "prefill",
+    "decode_step",
+]
+
+
+def _generator(seed: int, device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def _check_cfg(cfg: ArchConfig) -> None:
+    if not cfg.tie_embeddings:
+        raise NotImplementedError("untied unembeddings are not ported yet")
+
+
+def _init_top(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    emb = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen, device=gen.device)
+    return {
+        "embedding": emb * 0.02,
+        "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32, device=gen.device),
+    }
+
+
+def init_params(seed: int, cfg: ArchConfig, device="cuda") -> dict:
+    """Latent float32 params from ``torch.Generator(device).manual_seed(seed)``."""
+    _check_cfg(cfg)
+    gen = _generator(seed, device)
+    p = _init_top(gen, cfg)
+    p["layers"] = [T.init_block(gen, cfg, kind) for kind in cfg.layer_kinds]
+    return p
+
+
+def _pack_tree(node, cfg: ArchConfig):
+    if isinstance(node, dict):
+        if set(node) == {"w"}:
+            return L.pack_linear_for_serving(node, cfg.quant)
+        return {k: _pack_tree(v, cfg) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_pack_tree(v, cfg) for v in node]
+    return node
+
+
+def prepare_serving_params(params: dict, cfg: ArchConfig) -> dict:
+    """Binarize and bit-pack every linear; the embedding goes to bf16 and
+    norm gains stay float32, as in the reference."""
+    out = _pack_tree(params, cfg)
+    out["embedding"] = params["embedding"].to(torch.bfloat16)
+    return out
+
+
+def init_serving_params(seed: int, cfg: ArchConfig, device="cuda") -> dict:
+    """Serving params built one layer at a time: each layer's latent
+    weights are drawn, packed at once and freed, so the peak holds one
+    layer of float32 latents (about 0.9 GB at granite-8b width) besides the
+    packed model."""
+    _check_cfg(cfg)
+    gen = _generator(seed, device)
+    top = _init_top(gen, cfg)
+    out = {
+        "embedding": top["embedding"].to(torch.bfloat16),
+        "final_norm": top["final_norm"],
+        "layers": [],
+    }
+    del top
+    for kind in cfg.layer_kinds:
+        out["layers"].append(_pack_tree(T.init_block(gen, cfg, kind), cfg))
+    return out
+
+
+def init_cache(batch: int, max_len: int, cfg: ArchConfig, device="cuda") -> dict:
+    return {
+        "layers": [
+            A.init_kv_cache(batch, max_len, cfg, kind, device=device)
+            for kind in cfg.layer_kinds
+        ]
+    }
+
+
+def init_slot_cache(max_len: int, cfg: ArchConfig, device="cuda") -> dict:
+    """A batch-1 cache for ``cache_insert``; shares ``max_len`` with the
+    packed cache so every leaf lines up except the batch axis."""
+    return init_cache(1, max_len, cfg, device=device)
+
+
+def cache_insert(cache: dict, slot_cache: dict, slot: int) -> dict:
+    """Copy a batch-1 ``slot_cache`` into row ``slot`` of a packed cache, in
+    place -- including the per-row cursor and calibration affines."""
+    for dst, src in zip(cache["layers"], slot_cache["layers"]):
+        idx = torch.tensor([slot], device=dst["pos"].device)
+        for key, leaf in dst.items():
+            leaf.index_copy_(0, idx, src[key].to(leaf.dtype))
+    return cache
+
+
+def cache_reset(cache: dict, slot: int, cfg: ArchConfig, max_len: int) -> dict:
+    """Reset row ``slot`` (cursor 0, identity affines, zero mantissas)."""
+    device = cache["layers"][0]["pos"].device
+    return cache_insert(cache, init_slot_cache(max_len, cfg, device=device), slot)
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict) -> Tuple[torch.Tensor, dict]:
+    """Process whole prompts (exact length, no padding) from an empty cache.
+
+    tokens: (B, S) int.  Returns (last-position logits (B, V) float32, cache).
+    """
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).broadcast_to(b, s)
+    x = L.embed(params, tokens, cfg.d_model).to(torch.bfloat16)
+    x, _ = T.stack_apply(params["layers"], x, cfg, positions, cache["layers"])
+    x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return L.unembed(params, x, cfg.tie_embeddings)[:, 0], cache
+
+
+def decode_step(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict) -> Tuple[torch.Tensor, dict]:
+    """One decode step.  tokens (B,) -> logits (B, V) float32 + cache."""
+    b = tokens.shape[0]
+    # a copy: the first layer advances its cursor in place
+    positions = cache["layers"][0]["pos"].clone().reshape(b, 1)
+    x = L.embed(params, tokens[:, None], cfg.d_model).to(torch.bfloat16)
+    x, _ = T.stack_apply(params["layers"], x, cfg, positions, cache["layers"])
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.unembed(params, x, cfg.tie_embeddings)[:, 0], cache

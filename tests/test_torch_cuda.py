@@ -1,0 +1,102 @@
+"""Card-only tests of the port: each CUDA kernel against its plain PyTorch
+version on the card, and the serving path on the card against the same
+path on the CPU.  Marked ``cuda``; without a CUDA device (and ``nvcc``)
+they skip from inside the fixture.  This file imports no JAX, so it runs
+where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+K1 is integer (exact); K2 rounds every epilogue product and sum on its own
+in the plain version's order, so it is bitwise equal too.  The model check
+allows CROSS_DEVICE_TOL on logits: float functions (exp, rsqrt, the float32
+unembed) differ in their last bits between devices, which can flip a bf16
+rounding and one 8-bit bucket of the next per-token quantization.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.smoke import smoke_variant
+from repro_torch.core import packing
+from repro_torch.kernels import binary_qmm as K1
+from repro_torch.kernels import fused_qmm as K2
+from repro_torch.kernels import ref
+from repro_torch.models import model_zoo as Z
+
+CROSS_DEVICE_TOL = 0.03
+SHAPES = [(1, 32, 1), (4, 64, 48), (37, 300, 45), (130, 513, 129), (4, 4096, 14336), (128, 4096, 4096)]
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_binary_qmm_equals_plain(dev, m, k, n):
+    g = torch.Generator(device=dev).manual_seed(m * 7 + n)
+    a = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    wp = packing.pack_bits(torch.randint(0, 2, (k, n), generator=g, device=dev), 1, axis=0)
+    before = K1.binary_qmm.launches
+    got = K1.binary_qmm(a, wp, k)
+    assert K1.binary_qmm.launches == before + 1
+    assert torch.equal(got, ref.binary_qmm_ref(a, wp, k))
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+@pytest.mark.parametrize("a_bits,b_bits", [(8, 1), (4, 1), (8, 8)])
+def test_fused_qmm_bitwise_equals_plain(dev, m, k, n, a_bits, b_bits):
+    g = torch.Generator(device=dev).manual_seed(m * 5 + n + a_bits)
+    x = torch.randint(0, 2**a_bits, (m, k), generator=g, device=dev)
+    w = torch.randint(0, 2**b_bits, (k, n), generator=g, device=dev)
+    ap = packing.pack_bitplanes(x, a_bits, axis=-1)
+    bp = packing.pack_bitplanes(w, b_bits, axis=-2)
+    coeffs = [torch.randn(s, generator=g, device=dev) for s in ((m, 1), (m, 1), (1, n), (1, n))]
+    before = K2.fused_qmm.launches
+    got = K2.fused_qmm(ap, bp, *coeffs, k)
+    assert K2.fused_qmm.launches == before + 1
+    assert torch.equal(got, ref.fused_qmm_ref(ap, bp, *coeffs, k))
+
+
+def test_wrappers_refuse_mixed_devices(dev):
+    a = torch.zeros(2, 64, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="operands on"):
+        K1.binary_qmm(a, torch.zeros(2, 4, dtype=torch.int32), 64)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "fused"])
+def test_smoke_model_card_matches_cpu(dev, backend):
+    base = smoke_variant(get_config("granite-8b"))
+    cfg = dataclasses.replace(base, quant=dataclasses.replace(base.quant, backend=backend))
+    params = Z.init_serving_params(3, cfg, device="cpu")
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(0, 256, size=(1, 20)))
+    runs = []
+    for device, p in (("cpu", params), (dev, _to(params, dev))):
+        cache = Z.init_cache(1, 48, cfg, device=device)
+        logits, cache = Z.prefill(p, prompt.to(device), cfg, cache)
+        out, toks = [logits.cpu()], []
+        for _ in range(8):
+            toks.append(int(out[-1].argmax()))
+            logits, cache = Z.decode_step(p, torch.tensor([toks[-1]], device=device), cfg, cache)
+            out.append(logits.cpu())
+        runs.append((out, toks))
+    (want, want_toks), (got, got_toks) = runs
+    assert got_toks == want_toks
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= CROSS_DEVICE_TOL
