@@ -12,10 +12,12 @@ Phases (each prints its own lines):
 1. card and build -- ``nvidia-smi`` name and power limit; every kernel of
    ``src/repro_torch/csrc`` compiled at once by ``nvcc`` for ``sm_90a``.
 2. kernels against their plain PyTorch versions on the card, at the shapes
-   the main path gives them: ``binary_qmm`` (K1) equal int32,
-   ``fused_qmm`` (K2) bitwise-equal float32.  Each is timed on the device
-   (a replayed CUDA graph, weights rotated through more than the 50 MB L2,
-   as a decode finds them) and as issued eagerly from Python, beside its
+   the main paths give them: ``binary_qmm`` (K1) equal int32 (at
+   granite-8b's and bit-bert-base's sites), ``fused_qmm`` (K2)
+   bitwise-equal float32, ``popcount_qmm`` (K3) and
+   ``bitserial_qmm`` (K4) equal int32.  Each is timed on the device (a
+   replayed CUDA graph, weights rotated through more than the 50 MB L2, as
+   a decode finds them) and as issued eagerly from Python, beside its
    bound, its plain version and one PyTorch call computing the same
    function (``library_ms``; a yardstick the port never calls).
 3. main path: granite-8b at full width and depth (36 layers, random
@@ -28,7 +30,19 @@ Phases (each prints its own lines):
    and 8 decode ticks; K2 launched 7 x 36 times per forward; every step's
    logits bitwise equal with K2 swapped for its plain version on the same
    tokens; logits against the ``pallas`` pass.
-5. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and last
+5. bit-bert-base (W1A1) at full width (12 layers, d_model 768, random
+   weights from a seed) served through ``ServeEngine`` with the ``pallas``
+   backend: 4 slots, max_len 512, 8 requests of 64-128 prompt tokens, 16
+   new tokens each.  Checks: every request ``ok``; K3 launched 6 x 12
+   times per forward and K1, K2, K4 never; greedy tokens equal
+   ``serve_sequential``; one prefill and decode step bitwise equal with K3
+   swapped for its plain version.  Then one prefill and one decode step of
+   each of bit-bert-base-a2 / -a4 / -a8 (K1, 6 x 12 launches per forward),
+   each bitwise equal with K1 swapped for its plain version.
+6. act x act: ``qmm(x, y, backend="pallas")`` on two multi-bit activations
+   at BERT-base attention (per-head Q.K^T) and FFN shapes, through K4,
+   bitwise equal to the plain ``popcount`` backend.
+7. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -53,6 +67,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS_PER_S = 1979e12
 L2_BYTES = 50 * 2**20
 SITES_PER_LAYER = 7  # attn.q/k/v/o, ffn.up/gate/down
+BERT_SITES_PER_LAYER = 6  # attn.q/k/v/o, ffn.up/down (no gate: a plain gelu FFN)
 
 
 def log(*args) -> None:
@@ -121,7 +136,7 @@ def bound(nbytes: int, ops: int):
 # engine's batch) and prefill at a 128-token and a ragged 35-token prompt,
 # at granite-8b's q/o (4096x4096), k/v (4096x1024), up/gate (4096x14336)
 # and down (14336x4096) sites, plus a ragged shape.  The first is the
-# headline row of the JSON line.
+# headline row of the JSON line.  K1 and K2 run at each.
 KERNEL_SHAPES = [
     (4, 4096, 14336),
     (1, 4096, 14336),
@@ -133,10 +148,53 @@ KERNEL_SHAPES = [
     (35, 4096, 1024),
     (7, 100, 33),
 ]
+# K1 alone at bit-bert-base's sites, where the W1A2/A4/A8 ladder sends it:
+# attn.q/k/v/o (768x768), ffn.up (768x3072) and ffn.down (3072x768) at a
+# 128-token prefill and a batch-1 decode.
+BERT_K1_SHAPES = [
+    (128, 768, 3072),
+    (128, 768, 768),
+    (128, 3072, 768),
+    (1, 768, 3072),
+    (1, 768, 768),
+    (1, 3072, 768),
+]
 
 
 def _copies(nbytes: int) -> int:
     return max(1, min(16, -(-2 * L2_BYTES // max(nbytes, 1))))
+
+
+def _library_mm(a_i8: torch.Tensor, b_i8: torch.Tensor):
+    """One PyTorch call computing an integer product of the same shape on
+    unpacked int8 operands: cuBLASLt's int8 GEMM where it takes the shape,
+    else a float32 matmul (exact: every sum stays below 2**24)."""
+    m, k = a_i8.shape
+    n = b_i8.shape[1]
+    if m > 16 and k % 8 == 0 and n % 8 == 0:
+        b_cm = b_i8.t().contiguous().t()  # column-major, the int8 GEMM's layout
+        return "torch._int_mm (int8, pre-unpacked)", lambda: torch._int_mm(a_i8, b_cm)
+    a32, b32 = a_i8.float(), b_i8.float()
+    return "torch.matmul (float32, pre-unpacked)", lambda: a32 @ b32
+
+
+def _bit_row(shape, bits, got, want, ms_calls, plain_fn, nbytes, lib):
+    m, k, n = shape
+    nb, bb = bound(nbytes, 2 * m * k * n)
+    lib_name, lib_fn = lib
+    return dict(
+        shape=[m, k, n], bits=list(bits), max_abs_err=int((got - want).abs().max()),
+        ms=device_ms(ms_calls, 20 * len(ms_calls)), eager_ms=time_ms(ms_calls, 20 * len(ms_calls)),
+        plain_ms=time_ms([plain_fn], 3), bound_ms=nb, bound_by=bb,
+        library=lib_name, library_ms=device_ms([lib_fn], 20),
+    )
+
+
+def _log_row(name: str, r) -> None:
+    log(f"  {name:13s} {str(tuple(r['shape'])):18s} bits {r['bits']} equal "
+        f"ms={r['ms']:.4f} eager_ms={r['eager_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+        f"({r['bound_by']}) plain_ms={r['plain_ms']:.3f} library_ms={r['library_ms']:.4f} "
+        f"[{r['library']}]")
 
 
 def check_kernels(gen: torch.Generator):
@@ -147,7 +205,7 @@ def check_kernels(gen: torch.Generator):
 
     dev = gen.device
     rows = {"binary_qmm": [], "fused_qmm": []}
-    for m, k, n in KERNEL_SHAPES:
+    for m, k, n in KERNEL_SHAPES + BERT_K1_SHAPES:
         kw = packing.packed_len(k, 1)
         w_bytes = 4 * kw * n
         reps = _copies(w_bytes)
@@ -162,23 +220,16 @@ def check_kernels(gen: torch.Generator):
         if not torch.equal(got, want):
             raise AssertionError(f"binary_qmm != plain at {(m, k, n)}")
         w_i8 = packing.unpack_bits(wps[0], 1, k, axis=0, dtype=torch.int8)
-        if m > 16 and k % 8 == 0 and n % 8 == 0:
-            w_cm = w_i8.t().contiguous().t()  # column-major, the int8 GEMM's layout
-            lib_name, lib_fn = "torch._int_mm (int8, pre-unpacked weights)", lambda: torch._int_mm(a, w_cm)
-        else:
-            a32, w32 = a.float(), w_i8.float()  # exact: |sums| < 2**24
-            lib_name, lib_fn = "torch.matmul (float32, pre-unpacked weights)", lambda: a32 @ w32
-        lib_out = lib_fn()
-        if not torch.equal(lib_out.to(torch.int32), want):
-            raise AssertionError(f"{lib_name} disagrees with binary_qmm_ref at {(m, k, n)}")
-        nb, bb = bound(m * k + w_bytes + 4 * m * n, 2 * m * k * n)
-        rows["binary_qmm"].append(dict(
-            shape=[m, k, n], max_abs_err=int((got - want).abs().max()),
-            ms=device_ms([lambda w=w: binary_qmm(a, w, k) for w in wps], 20 * reps),
-            eager_ms=time_ms([lambda w=w: binary_qmm(a, w, k) for w in wps], 20 * reps),
-            plain_ms=time_ms([lambda: ref.binary_qmm_ref(a, wps[0], k)], 3),
-            bound_ms=nb, bound_by=bb, library=lib_name, library_ms=device_ms([lib_fn], 20),
-        ))
+        lib = _library_mm(a, w_i8)
+        if not torch.equal(lib[1]().to(torch.int32), want):
+            raise AssertionError(f"{lib[0]} disagrees with binary_qmm_ref at {(m, k, n)}")
+        rows["binary_qmm"].append(_bit_row(
+            (m, k, n), (8, 1), got, want, [lambda w=w: binary_qmm(a, w, k) for w in wps],
+            lambda: ref.binary_qmm_ref(a, wps[0], k), m * k + w_bytes + 4 * m * n, lib))
+        _log_row("binary_qmm", rows["binary_qmm"][-1])
+        if (m, k, n) in BERT_K1_SHAPES:
+            del wps, a
+            continue
         # ---- K2 at W1A8: 8 activation planes x 1 weight plane, arbitrary scales
         x = torch.randint(0, 256, (m, k), generator=gen, device=dev)
         ap = packing.pack_bitplanes(x, 8, axis=-1)
@@ -193,7 +244,7 @@ def check_kernels(gen: torch.Generator):
         wd = w_i8.float() * coeffs[2] + coeffs[3]
         nb, bb = bound(4 * (8 * m * kw + kw * n) + 8 * (m + n) + 4 * m * n, 2 * m * k * n)
         rows["fused_qmm"].append(dict(
-            shape=[m, k, n], max_abs_err=float((got - want).abs().max()),
+            shape=[m, k, n], bits=[8, 1], max_abs_err=float((got - want).abs().max()),
             ms=device_ms([lambda w=w: fused_qmm(ap, w[None], *coeffs, k) for w in wps], 10 * reps),
             eager_ms=time_ms([lambda w=w: fused_qmm(ap, w[None], *coeffs, k) for w in wps], 10 * reps),
             plain_ms=time_ms([lambda: ref.fused_qmm_ref(ap, wps[0][None], *coeffs, k)], 3),
@@ -201,13 +252,95 @@ def check_kernels(gen: torch.Generator):
             library="torch.matmul (float32, pre-dequantized operands)",
             library_ms=device_ms([lambda: xd @ wd], 20),
         ))
-        for name in rows:
-            r = rows[name][-1]
-            log(f"  {name:10s} {str(tuple(r['shape'])):20s} equal ms={r['ms']:.4f} eager_ms={r['eager_ms']:.4f} "
-                f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) plain_ms={r['plain_ms']:.3f} "
-                f"library_ms={r['library_ms']:.4f} [{r['library']}]")
+        _log_row("fused_qmm", rows["fused_qmm"][-1])
         del wps, a, x, ap
         torch.cuda.empty_cache()
+    return rows
+
+
+# K3 at bit-bert-base's sites -- attn.q/k/v/o (768x768), ffn.up (768x3072),
+# ffn.down (3072x768) -- at a 128-token prefill (MNLI's length) and a 4-slot
+# decode, plus a ragged shape.  The first is the headline row.
+POPCOUNT_SHAPES = [
+    (128, 768, 3072),
+    (128, 768, 768),
+    (128, 3072, 768),
+    (4, 768, 3072),
+    (4, 768, 768),
+    (4, 3072, 768),
+    (7, 100, 33),
+]
+# K4: BERT-base's per-head Q.K^T (d_head 64 over 128 tokens) at A4xA4 and
+# A8xA8, the FFN up shape at A4xA4, and ragged shapes.
+BITSERIAL_CASES = [
+    ((128, 64, 128), 4, 4),
+    ((128, 64, 128), 8, 8),
+    ((128, 768, 3072), 4, 4),
+    ((7, 100, 33), 4, 4),
+    ((7, 100, 33), 1, 4),
+]
+
+
+def check_bit_kernels(gen: torch.Generator):
+    """K3 and K4 against their plain versions (equal int32), timed."""
+    from repro_torch.core import packing
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bitserial_qmm import bitserial_qmm
+    from repro_torch.kernels.popcount_qmm import popcount_qmm
+
+    dev = gen.device
+    rows = {"popcount_qmm": [], "bitserial_qmm": []}
+    for m, k, n in POPCOUNT_SHAPES:
+        kw = packing.packed_len(k, 1)
+        a = torch.randint(0, 2, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        ap = packing.pack_bits(a, 1, axis=-1)
+        b = torch.randint(0, 2, (k, n), generator=gen, device=dev, dtype=torch.int8)
+        bps = [packing.pack_bits(b, 1, axis=0)] + [
+            packing.pack_bits(torch.randint(0, 2, (k, n), generator=gen, device=dev), 1, axis=0)
+            for _ in range(_copies(4 * kw * n) - 1)
+        ]
+        got, want = popcount_qmm(ap, bps[0]), ref.popcount_qmm_ref(ap, bps[0], k)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"popcount_qmm != plain at {(m, k, n)}")
+        lib = _library_mm(a, b)
+        if not torch.equal(lib[1]().to(torch.int32), want):
+            raise AssertionError(f"{lib[0]} disagrees with popcount_qmm_ref at {(m, k, n)}")
+        rows["popcount_qmm"].append(_bit_row(
+            (m, k, n), (1, 1), got, want, [lambda w=w: popcount_qmm(ap, w) for w in bps],
+            lambda: ref.popcount_qmm_ref(ap, bps[0], k), 4 * (m * kw + kw * n) + 4 * m * n, lib))
+        del bps, a, b
+    for (m, k, n), xb, yb in BITSERIAL_CASES:
+        kw = packing.packed_len(k, 1)
+        x = torch.randint(0, 2**xb, (m, k), generator=gen, device=dev)
+        y = torch.randint(0, 2**yb, (k, n), generator=gen, device=dev)
+        ap = packing.pack_bitplanes(x, xb, axis=-1)
+        bps = [packing.pack_bitplanes(y, yb, axis=-2)] + [
+            packing.pack_bitplanes(torch.randint(0, 2**yb, (k, n), generator=gen, device=dev), yb, axis=-2)
+            for _ in range(_copies(4 * yb * kw * n) - 1)
+        ]
+        got, want = bitserial_qmm(ap, bps[0]), ref.bitserial_qmm_ref(ap, bps[0], k)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"bitserial_qmm != plain at {(m, k, n)} A{xb}xA{yb}")
+        # the library call multiplies the re-centered int8 mantissas; the
+        # affine identity brings its result back to the unsigned product
+        cx, cy = 2 ** (xb - 1) if xb > 1 else 0, 2 ** (yb - 1) if yb > 1 else 0
+        xc, yc = (x - cx).to(torch.int8), (y - cy).to(torch.int8)
+        lib = _library_mm(xc, yc)
+        back = (lib[1]().to(torch.int64) + cy * xc.sum(-1, keepdim=True, dtype=torch.int64)
+                + cx * yc.sum(0, keepdim=True, dtype=torch.int64) + cx * cy * k)
+        if not torch.equal(back.to(torch.int32), want):
+            raise AssertionError(f"{lib[0]} disagrees with bitserial_qmm_ref at {(m, k, n)}")
+        rows["bitserial_qmm"].append(_bit_row(
+            (m, k, n), (xb, yb), got, want, [lambda w=w: bitserial_qmm(ap, w) for w in bps],
+            lambda: ref.bitserial_qmm_ref(ap, bps[0], k),
+            4 * (xb * m * kw + yb * kw * n) + 4 * m * n, lib))
+        del bps, x, y
+    for name, shapes in rows.items():
+        for r in shapes:
+            _log_row(name, r)
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -220,12 +353,12 @@ def with_backend(cfg, backend: str):
     return dataclasses.replace(cfg, quant=dataclasses.replace(cfg.quant, backend=backend))
 
 
-def make_requests(Request, n: int = 8, seed: int = 0):
+def make_requests(Request, vocab: int, n: int = 8, seed: int = 0, lo: int = 32, hi: int = 128):
     rng = np.random.default_rng(seed)
     temps = [0.0] * (n - 2) + [0.8, 0.8]
     return [
         Request(
-            prompt=rng.integers(0, 49152, size=(int(rng.integers(32, 129)),)).astype(np.int64),
+            prompt=rng.integers(0, vocab, size=(int(rng.integers(lo, hi + 1)),)).astype(np.int64),
             max_new_tokens=16,
             temperature=t,
         )
@@ -268,14 +401,188 @@ def profile_forward(fn):
     return wall, sum(by_kernel.values()), launches, by_kernel
 
 
-def report_profile(tag: str, wall, busy, launches, by_kernel) -> None:
-    k1 = sum(ms for k, ms in by_kernel.items() if "binary_qmm" in k)
-    k2 = sum(ms for k, ms in by_kernel.items() if "fused_qmm" in k)
+def report_profile(tag: str, wall, busy, launches, by_kernel, phase: int = 3) -> None:
+    ours = {name: sum(ms for k, ms in by_kernel.items() if name in k)
+            for name in ("binary_qmm", "fused_qmm", "popcount_qmm", "bitserial_qmm")}
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
-    log(f"[3] profile {tag}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+    log(f"[{phase}] profile {tag}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
         f"(idle share {1 - busy / wall:.3f}), {launches} kernel launches; "
-        f"binary_qmm {k1:.3f} ms, fused_qmm {k2:.3f} ms")
-    log(f"[3]   top kernels: " + "; ".join(f"{k[:60]} {ms:.3f} ms" for k, ms in top))
+        + ", ".join(f"{name} {ms:.3f} ms" for name, ms in ours.items()))
+    log(f"[{phase}]   top kernels: " + "; ".join(f"{k[:60]} {ms:.3f} ms" for k, ms in top))
+
+
+# ---------------------------------------------------------------------------
+# phase 5: bit-bert-base W1A1 (K3) and its precision ladder (K1)
+# ---------------------------------------------------------------------------
+
+
+def _zero(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def _counts(kernels):
+    return [k.launches for k in kernels]
+
+
+def serve_bitbert(Z, cfg_a1, device, Request, ServeEngine, serve_sequential, ops, ref, kernels) -> int:
+    """Serve bit-bert-base at full width through the engine; returns K3's
+    launches in the engine run."""
+    from repro_torch.configs import get_config
+
+    cfg = with_backend(cfg_a1, "pallas")
+    per_forward = BERT_SITES_PER_LAYER * cfg.n_layers
+    t = time.perf_counter()
+    params = Z.init_serving_params(0, cfg, device=device)
+    torch.cuda.synchronize()
+    log(f"[5] {cfg.name} (W1A{cfg.quant.act_bits}): {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, learned positions over {cfg.max_seq}, "
+        f"causal={cfg.causal}; serving params built on the card in {time.perf_counter() - t:.1f} s")
+
+    def requests(n=8, seed=0):
+        return make_requests(Request, n=n, seed=seed, vocab=cfg.vocab_size, lo=64, hi=128)
+
+    ServeEngine(cfg, params, batch_slots=4, max_len=512, seed=0, device=device).run(requests(n=2, seed=1))
+    engine = ServeEngine(cfg, params, batch_slots=4, max_len=512, seed=0, device=device)
+    torch.cuda.synchronize()
+    reqs = requests()
+    _zero(kernels)
+    t = time.perf_counter()
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    k1, k2, k3_main, k4 = _counts(kernels)
+    prefill_ms = [e["ms"] for e in engine.last_events if e["kind"] == "prefill"]
+    tick_ms = [e["ms"] for e in engine.last_events if e["kind"] == "decode_tick"]
+    forwards = len(prefill_ms) + len(tick_ms)
+    if not all(r.state == "ok" and len(r.output) == 16 for r in done):
+        raise AssertionError(f"bit-bert requests not ok: {[(r.state, len(r.output)) for r in done]}")
+    if (k1, k2, k4) != (0, 0, 0) or k3_main != per_forward * forwards:
+        raise AssertionError(f"bit-bert launches K1 {k1}, K2 {k2}, K3 {k3_main}, K4 {k4}; expected K3 = "
+                             f"{per_forward} x {forwards} forwards and no other")
+    n_tok = sum(len(r.output) for r in done)
+    plens = [len(r.prompt) for r in done]
+    log(f"[5] served {len(done)} requests (prompts {min(plens)}-{max(plens)} tokens, 16 new each, "
+        f"6 greedy + 2 at T=0.8) in {wall:.2f} s: {len(prefill_ms)} prefills, {len(tick_ms)} decode ticks")
+    log(f"[5] popcount_qmm launches {k3_main} = {per_forward} x {forwards} forwards; "
+        f"binary_qmm, fused_qmm, bitserial_qmm 0")
+    log(f"[5] prefill ms: mean {np.mean(prefill_ms):.1f} (per prompt: "
+        + ", ".join(f"{p}:{ms:.1f}" for p, ms in zip(plens, prefill_ms)) + ")")
+    log(f"[5] decode tick ms (4 slots): median {np.median(tick_ms):.2f} mean {np.mean(tick_ms):.2f}; "
+        f"{n_tok / wall:.1f} generated tokens/s end to end")
+
+    seq = serve_sequential(cfg, params, requests(), max_len=512, seed=0, device=device)
+    for got, want in zip(done, seq):
+        if got.temperature == 0 and got.output != want.output:
+            raise AssertionError(f"bit-bert engine greedy tokens {got.output} != sequential {want.output}")
+    sampled_same = sum(g.output == w.output for g, w in zip(done, seq) if g.temperature > 0)
+    log(f"[5] engine greedy tokens equal serve_sequential for all 6 greedy requests "
+        f"(sampled requests equal: {sampled_same}/2)")
+
+    cache = Z.init_cache(4, 512, cfg, device=device)
+    for i, r in enumerate(done[:4]):
+        slot = Z.init_slot_cache(512, cfg, device=device)
+        Z.prefill(params, torch.as_tensor(np.asarray(r.prompt)[None], device=device), cfg, slot)
+        Z.cache_insert(cache, slot, i)
+    step = torch.tensor([r.output[0] for r in done[:4]], device=device)
+    report_profile("decode tick (4 slots)", *profile_forward(
+        lambda: Z.decode_step(params, step, cfg, cache)), phase=5)
+    long = max(done, key=lambda r: len(r.prompt))
+    tokens = torch.as_tensor(np.asarray(long.prompt)[None], device=device)
+    report_profile(f"prefill ({len(long.prompt)} tokens)", *profile_forward(
+        lambda: Z.prefill(params, tokens, cfg, Z.init_slot_cache(512, cfg, device=device))), phase=5)
+    del cache
+
+    prompt = np.asarray(long.prompt)
+    kern, fed = greedy_steps(Z, cfg, params, prompt, 1, device)
+    plain = lambda a, b: ref.popcount_qmm_ref(a, b, 32 * a.shape[1])  # noqa: E731
+    with mock.patch.object(ops._pq, "popcount_qmm", plain):
+        plain_out, _ = greedy_steps(Z, cfg, params, prompt, 1, device, tokens=fed)
+    if not all(torch.equal(a, b) for a, b in zip(kern, plain_out)):
+        raise AssertionError("bit-bert logits differ with K3 swapped for its plain version")
+    if not all(bool(torch.isfinite(x).all()) and x.shape == (1, cfg.vocab_size) for x in kern):
+        raise AssertionError("bit-bert logits not finite or of the wrong shape")
+    log(f"[5] prefill ({len(prompt)} tokens) + decode logits bitwise equal with popcount_qmm "
+        f"swapped for popcount_qmm_ref on the same tensors")
+
+    # the precision ladder: the same weights (binarization does not depend on
+    # the activation precision, so init_serving_params(0, ...) would draw and
+    # pack exactly these), W1A2 / A4 / A8 activations, all through K1
+    for name in ("bit-bert-base-a2", "bit-bert-base-a4", "bit-bert-base-a8"):
+        lcfg = with_backend(get_config(name), "pallas")
+        greedy_steps(Z, lcfg, params, prompt, 1, device)  # warm-up
+        torch.cuda.synchronize()
+        _zero(kernels)
+        cache = Z.init_cache(1, 512, lcfg, device=device)
+        t = time.perf_counter()
+        logits, cache = Z.prefill(params, torch.as_tensor(prompt[None], device=device), lcfg, cache)
+        torch.cuda.synchronize()
+        t_pre = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        logits2, cache = Z.decode_step(params, logits.argmax(-1), lcfg, cache)
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t) * 1e3
+        k1, k2, k3, k4 = _counts(kernels)
+        if (k2, k3, k4) != (0, 0, 0) or k1 != 2 * per_forward:
+            raise AssertionError(f"{name} launches K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4}; expected K1 = "
+                                 f"{per_forward} x 2 forwards and no other")
+        if not all(bool(torch.isfinite(x).all()) and x.shape == (1, lcfg.vocab_size) for x in (logits, logits2)):
+            raise AssertionError(f"{name} logits not finite or of the wrong shape")
+        # the same prefill and decode step with K1 swapped for its plain
+        # version: every K1 call at this ladder's own shapes, held bitwise
+        with mock.patch.object(ops._bq, "binary_qmm", ref.binary_qmm_ref):
+            plain_out, _ = greedy_steps(Z, lcfg, params, prompt, 1, device,
+                                        tokens=[int(logits.argmax())])
+        if not (torch.equal(logits.float().cpu(), plain_out[0]) and torch.equal(logits2.float().cpu(), plain_out[1])):
+            raise AssertionError(f"{name} logits differ with K1 swapped for its plain version")
+        log(f"[5] {name} (W1A{lcfg.quant.act_bits}): prefill ({len(prompt)} tokens) {t_pre:.1f} ms, "
+            f"decode step (batch 1) {t_dec:.1f} ms; binary_qmm launches {k1} = {per_forward} x 2 forwards; "
+            f"logits bitwise equal with binary_qmm swapped for binary_qmm_ref")
+    del params, cache
+    torch.cuda.empty_cache()
+    return k3_main
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the QMM engine's act x act mode (K4)
+# ---------------------------------------------------------------------------
+
+# (M, K, N, bits): BERT-base's per-head Q.K^T (128 tokens, d_head 64) at
+# A4xA4 and A8xA8, and its FFN up shape at A4xA4
+ACT_ACT_CASES = [(128, 64, 128, 4), (128, 64, 128, 8), (128, 768, 3072, 4)]
+
+
+def act_act(device, gen, kernels) -> int:
+    """``qmm(x, y, backend="pallas")`` on two multi-bit activations; returns
+    K4's launches."""
+    from repro_torch.core import qmm as QE
+    from repro_torch.core import quantization as Q
+
+    ops_ = []
+    for m, k, n, bits in ACT_ACT_CASES:
+        x = torch.randn((m, k), generator=gen, device=device) * 2
+        y = torch.randn((k, n), generator=gen, device=device) * 2
+        ops_.append((Q.quantize_activation(x, bits, per_channel_axis=0),
+                     Q.quantize_activation(y, bits, per_channel_axis=-1)))
+    torch.cuda.synchronize()
+    _zero(kernels)
+    outs = [QE.qmm(x, y, backend="pallas") for x, y in ops_]
+    torch.cuda.synchronize()
+    k1, k2, k3, k4 = _counts(kernels)
+    if (k1, k2, k3) != (0, 0, 0) or k4 != len(ACT_ACT_CASES):
+        raise AssertionError(f"act x act launches K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4}; "
+                             f"expected K4 = {len(ACT_ACT_CASES)} and no other")
+    for (m, k, n, bits), (x, y), got in zip(ACT_ACT_CASES, ops_, outs):
+        want = QE.qmm(x, y, backend="popcount")
+        if not torch.equal(got, want):
+            raise AssertionError(f"act x act A{bits}xA{bits} {(m, k, n)}: pallas (K4) != popcount backend, "
+                                 f"max |diff| {(got - want).abs().max().item()}")
+        if not bool(torch.isfinite(got).all()) or got.shape != (m, n):
+            raise AssertionError(f"act x act {(m, k, n)}: output not finite or of the wrong shape")
+    log(f"[6] act x act qmm(backend='pallas'): bitserial_qmm launches {k4} = one per product; "
+        "bitwise equal to qmm(backend='popcount') at "
+        + ", ".join(f"A{b}xA{b} {(m, k, n)}" for m, k, n, b in ACT_ACT_CASES))
+    return k4
 
 
 def main() -> int:
@@ -284,14 +591,16 @@ def main() -> int:
         return 1
     from repro_torch.configs import get_config
 
-    return run(torch.device("cuda", 0), get_config("granite-8b"))
+    return run(torch.device("cuda", 0), get_config("granite-8b"), get_config("bit-bert-base"))
 
 
-def run(device: torch.device, model_cfg) -> int:
+def run(device: torch.device, model_cfg, bert_cfg) -> int:
     from repro_torch.kernels import binary_qmm as K1
+    from repro_torch.kernels import bitserial_qmm as K4
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import fused_qmm as K2
     from repro_torch.kernels import ops
+    from repro_torch.kernels import popcount_qmm as K3
     from repro_torch.models import model_zoo as Z
     from repro_torch.runtime.serve_loop import Request, ServeEngine, serve_sequential
 
@@ -309,6 +618,7 @@ def run(device: torch.device, model_cfg) -> int:
     gen.manual_seed(0)
     log("[2] kernels against their plain versions (M, K, N):")
     rows = check_kernels(gen)
+    rows.update(check_bit_kernels(gen))
 
     # ---- phase 3: main path, full width and depth
     cfg = with_backend(model_cfg, "pallas")
@@ -324,10 +634,10 @@ def run(device: torch.device, model_cfg) -> int:
     # numbers requests from 0, as serve_sequential does, so sampled requests
     # draw from the same default_rng([seed, rid]) streams
     ServeEngine(cfg, params, batch_slots=4, max_len=512, seed=0, device=device).run(
-        make_requests(Request, n=2, seed=1))
+        make_requests(Request, n=2, seed=1, vocab=cfg.vocab_size))
     engine = ServeEngine(cfg, params, batch_slots=4, max_len=512, seed=0, device=device)
     torch.cuda.synchronize()
-    reqs = make_requests(Request)
+    reqs = make_requests(Request, vocab=cfg.vocab_size)
     K1.binary_qmm.launches = K2.fused_qmm.launches = 0
     t = time.perf_counter()
     done = engine.run(reqs)
@@ -354,7 +664,7 @@ def run(device: torch.device, model_cfg) -> int:
     log(f"[3] decode tick ms (4 slots): median {np.median(tick_ms):.2f} mean {np.mean(tick_ms):.2f}; "
         f"{n_tok / wall:.1f} generated tokens/s end to end")
 
-    seq = serve_sequential(cfg, params, make_requests(Request), max_len=512, seed=0, device=device)
+    seq = serve_sequential(cfg, params, make_requests(Request, vocab=cfg.vocab_size), max_len=512, seed=0, device=device)
     for got, want in zip(done, seq):
         if got.temperature == 0 and got.output != want.output:
             raise AssertionError(f"engine greedy tokens {got.output} != sequential {want.output}")
@@ -412,10 +722,20 @@ def run(device: torch.device, model_cfg) -> int:
         f"max |logit - pallas logit| {fgap:.3g} (max |pallas logit| {scale:.3g}), "
         f"argmax equal at {same}/9 steps")
 
-    launches = {"binary_qmm": k1_main, "fused_qmm": k2_main}
+    del params
+    torch.cuda.empty_cache()
+
+    k3_main = serve_bitbert(Z, bert_cfg, device, Request, ServeEngine, serve_sequential, ops, ref,
+                            (K1.binary_qmm, K2.fused_qmm, K3.popcount_qmm, K4.bitserial_qmm))
+    k4_main = act_act(device, gen, (K1.binary_qmm, K2.fused_qmm, K3.popcount_qmm, K4.bitserial_qmm))
+
+    launches = {"binary_qmm": k1_main, "fused_qmm": k2_main, "popcount_qmm": k3_main,
+                "bitserial_qmm": k4_main}
     sources = {
         "binary_qmm": ("src/repro_torch/csrc/binary_qmm.cu", "src/repro/kernels/binary_qmm.py:95"),
         "fused_qmm": ("src/repro_torch/csrc/fused_qmm.cu", "src/repro/kernels/fused_qmm.py:180"),
+        "popcount_qmm": ("src/repro_torch/csrc/popcount_qmm.cu", "src/repro/kernels/popcount_qmm.py:95"),
+        "bitserial_qmm": ("src/repro_torch/csrc/bitserial_qmm.cu", "src/repro/kernels/bitserial_qmm.py:83"),
     }
     kernels = []
     for name, shapes in rows.items():
@@ -427,7 +747,7 @@ def run(device: torch.device, model_cfg) -> int:
             bound_by=head["bound_by"], library_ms=head["library_ms"], shape=head["shape"],
             shapes=shapes,
         ))
-    log(f"[5] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[7] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -25,8 +25,12 @@ class QuantConfig:
     so one string selects the same path on both sides:
 
     * ``"mxu"``    -- plain PyTorch integer product (exact), the default;
-    * ``"pallas"`` -- the staged hand-written kernel: ``binary_qmm`` (K1)
-      returns the integer product and the affine epilogue runs after it;
+    * ``"popcount"`` -- plain PyTorch bit-serial AND-popcount over packed
+      planes of the raw unsigned mantissas;
+    * ``"pallas"`` -- the staged hand-written kernels: ``popcount_qmm`` (K3)
+      at W1A1, ``binary_qmm`` (K1) at W1A2..A8, ``bitserial_qmm`` (K4) for
+      multi-bit act x act, each returning the integer product, and the
+      affine epilogue after it;
     * ``"fused"``  -- the hand-written ``fused_qmm`` kernel (K2): bit-serial
       AND-popcount core plus the affine epilogue in one launch.
     """

@@ -3,7 +3,8 @@
 
 A backend is a name plus a ``run(x, w, *, w_colsum, out_dtype)`` callable
 over :class:`~repro_torch.core.quantization.QuantTensor` operands.
-``repro_torch.core.qmm`` registers ``mxu``; ``repro_torch.kernels.ops``
+``repro_torch.core.qmm`` registers ``mxu`` and ``popcount``;
+``repro_torch.kernels.ops``
 registers ``pallas`` and ``fused``.  Enumeration imports both lazily, so
 the order of names is the same whichever module is imported first.
 """

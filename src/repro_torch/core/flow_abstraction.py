@@ -79,22 +79,28 @@ def qmm_flow(
     w_colsum: Optional[torch.Tensor] = None,
     out_dtype: torch.dtype = torch.float32,
     int_matmul: Optional[Callable[[QuantTensor, QuantTensor], torch.Tensor]] = None,
+    recenter: bool = True,
 ) -> torch.Tensor:
     """Affine x affine QMM via the flow abstraction.
 
     ``x`` is ``(..., M, K)`` with scalar or ``(..., M, 1)`` coefficients;
     ``w`` is ``(K, N)`` (or batched) with scalar or ``(1, N)`` coefficients.
-    Mantissas are re-centered to the signed range first (exact, absorbed
-    into the offsets); ``w_colsum`` is the colsum of the re-centered right
-    mantissa (``weight_corrections``; equal to the raw colsum at 1 bit).
-    ``int_matmul(x, w)`` returns the integer product of the re-centered
-    operands (default: ``default_int_matmul`` on their unpacked mantissas);
-    the ``pallas`` backend passes its kernel here, so every backend shares
-    this one epilogue.  The reference's ``recenter=False`` form serves its
-    popcount backend, which is not ported yet.
+    With ``recenter`` (the default) mantissas are shifted to the signed
+    range first (exact, absorbed into the offsets); without it the raw
+    unsigned mantissas go in, as the popcount and bit-serial cores consume
+    them, and the epilogue is the same.  ``w_colsum`` is the colsum of the
+    right mantissa as the integer product consumes it: re-centered
+    (``weight_corrections``) or raw, which coincide at 1 bit.
+    ``int_matmul(x, w)`` returns the integer product of the two operands as
+    given to it (default, with ``recenter`` only: ``default_int_matmul`` on
+    their unpacked mantissas); the kernel backends pass their kernels here,
+    so every backend shares this one epilogue.
     """
-    x = quantization.recenter(x)
-    w = quantization.recenter(w)
+    if recenter:
+        x = quantization.recenter(x)
+        w = quantization.recenter(w)
+    elif int_matmul is None:
+        raise ValueError("qmm_flow(recenter=False) needs an int_matmul for unsigned mantissas")
     x1 = x.unpack().mantissa
     k = x1.shape[-1]
     if w.logical_shape[-2] != k:

@@ -24,6 +24,7 @@ __all__ = [
     "to_bitplanes",
     "pack_bitplanes",
     "words_to_int32",
+    "popcount32",
 ]
 
 WORD_BITS = 32
@@ -59,9 +60,8 @@ def pack_bits(x: torch.Tensor, bits: int, axis: int = -1) -> torch.Tensor:
     if pad:
         x = torch.nn.functional.pad(x, (0, pad))
     x = x.reshape(*x.shape[:-1], n_words, vpw)
-    words = torch.zeros(x.shape[:-1], dtype=torch.int64, device=x.device)
-    for i in range(vpw):
-        words |= x[..., i] << (i * bits)
+    shifts = torch.arange(vpw, dtype=torch.int64, device=x.device) * bits
+    words = (x << shifts).sum(dim=-1)  # the fields do not overlap: sum == or
     return torch.movedim(words_to_int32(words), -1, axis).contiguous()
 
 
@@ -79,6 +79,16 @@ def unpack_bits(
     vals = (p[..., None] >> shifts) & ((1 << bits) - 1)
     vals = vals.reshape(*p.shape[:-1], p.shape[-1] * vpw)[..., :length]
     return torch.movedim(vals.to(dtype), -1, axis)
+
+
+def popcount32(words: torch.Tensor) -> torch.Tensor:
+    """Set bits of each 32-bit word (int32 words carrying uint32 bits) ->
+    int32, by the SWAR reduction: torch has no popcount."""
+    v = words.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
 
 
 def to_bitplanes(x: torch.Tensor, bits: int) -> torch.Tensor:

@@ -1,11 +1,20 @@
 """The QMM engine entry point (port of ``repro.core.qmm``).
 
 ``qmm(x, w, backend=...)`` resolves the backend through the port's
-registry and runs it.  This module registers ``mxu``: the plain PyTorch
-integer product under the flow abstraction.  The hand-written kernels
-register as ``pallas`` and ``fused`` in ``repro_torch.kernels.ops``.
-The reference's ``popcount`` backend and ``backend="auto"`` (measured
-dispatch) are not ported yet.
+registry and runs it.  This module registers the two plain PyTorch
+backends:
+
+* ``mxu``      -- integer product of the re-centered mantissas (float64,
+  exact) under the flow abstraction;
+* ``popcount`` -- AND-popcount over bit-packed planes of the raw unsigned
+  mantissas, bit-serial for multi-bit operands (``sum_ij 2**(i+j)
+  popcount-MM(X_i, Y_j)``), under the flow abstraction without
+  re-centering.  Plain tensor code in the reference too (jnp, not a
+  Pallas kernel).
+
+The hand-written kernels register as ``pallas`` and ``fused`` in
+``repro_torch.kernels.ops``.  ``backend="auto"`` (measured dispatch) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -14,11 +23,44 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import backend_registry, flow_abstraction
+from repro_torch.core import backend_registry, flow_abstraction, packing
 from repro_torch.core.precision import PrecisionMode
 from repro_torch.core.quantization import QuantTensor
 
-__all__ = ["qmm"]
+__all__ = ["qmm", "and_popcount_matmul", "popcount_int_matmul"]
+
+# Columns of the right operand per popcount sweep: bounds the broadcast
+# intermediate to ``M * 256 * Kw`` words, as in the reference.
+_POPCOUNT_N_CHUNK = 256
+
+
+def and_popcount_matmul(a_packed: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
+    """``out[..., m, n] = sum_w popcount(a[..., m, w] & b[..., w, n])`` -> int32.
+
+    ``a_packed`` is ``(..., M, Kw)`` and ``b_packed`` ``(..., Kw, N)``, int32
+    words packed along K.
+    """
+    n = b_packed.shape[-1]
+    chunks = []
+    for s in range(0, n, _POPCOUNT_N_CHUNK):
+        b_blk = b_packed[..., s : s + _POPCOUNT_N_CHUNK].transpose(-1, -2)
+        joint = a_packed[..., :, None, :] & b_blk[..., None, :, :]
+        chunks.append(packing.popcount32(joint).sum(dim=-1, dtype=torch.int32))
+    return torch.cat(chunks, dim=-1)
+
+
+def popcount_int_matmul(x: torch.Tensor, y: torch.Tensor, x_bits: int, y_bits: int) -> torch.Tensor:
+    """Integer MM of UNSIGNED unpacked mantissas ``x (..., M, K) @ y (..., K, N)``
+    from AND-popcount over bit-planes: ``sum_ij 2**(i+j) popcount-MM(X_i, Y_j)``,
+    accumulated in int32 as in the reference."""
+    a_planes = packing.pack_bitplanes(x, x_bits, axis=-1)
+    b_planes = packing.pack_bitplanes(y, y_bits, axis=-2)
+    total = None
+    for i in range(x_bits):
+        for j in range(y_bits):
+            part = and_popcount_matmul(a_planes[i], b_planes[j]) << (i + j)
+            total = part if total is None else total + part
+    return total
 
 
 def qmm(
@@ -51,5 +93,31 @@ backend_registry.register(
         name="mxu",
         run=_run_mxu,
         description="plain PyTorch integer product (float64, exact) + flow epilogue",
+    )
+)
+
+
+def _popcount_int(x: QuantTensor, w: QuantTensor) -> torch.Tensor:
+    return popcount_int_matmul(x.unpack().mantissa, w.unpack().mantissa, x.bits, w.bits)
+
+
+def _run_popcount(x: QuantTensor, w: QuantTensor, *, w_colsum=None, out_dtype=torch.float32):
+    # raw unsigned planes: a given colsum is valid only where re-centering
+    # is a no-op (1-bit weights)
+    return flow_abstraction.qmm_flow(
+        x,
+        w,
+        w_colsum=w_colsum if w.bits == 1 else None,
+        out_dtype=out_dtype,
+        int_matmul=_popcount_int,
+        recenter=False,
+    )
+
+
+backend_registry.register(
+    backend_registry.QMMBackend(
+        name="popcount",
+        run=_run_popcount,
+        description="plain PyTorch bit-serial AND-popcount over packed planes + flow epilogue",
     )
 )

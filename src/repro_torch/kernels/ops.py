@@ -15,9 +15,11 @@ import torch
 from repro_torch.core import backend_registry, flow_abstraction, packing
 from repro_torch.core.quantization import QuantTensor
 from repro_torch.kernels import binary_qmm as _bq
+from repro_torch.kernels import bitserial_qmm as _bs
 from repro_torch.kernels import fused_qmm as _fq
+from repro_torch.kernels import popcount_qmm as _pq
 
-__all__ = ["binary_qmm_int", "qmm_pallas", "qmm_fused"]
+__all__ = ["binary_qmm_int", "popcount_qmm_int", "bitserial_qmm_int", "qmm_pallas", "qmm_fused"]
 
 
 def binary_qmm_int(a: torch.Tensor, w_packed: torch.Tensor, k: int) -> torch.Tensor:
@@ -25,9 +27,27 @@ def binary_qmm_int(a: torch.Tensor, w_packed: torch.Tensor, k: int) -> torch.Ten
     return _bq.binary_qmm(a.contiguous(), w_packed.contiguous(), k)
 
 
+def popcount_qmm_int(a_packed: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
+    """Binary x binary over packed operands ``(M, Kw) x (Kw, N)`` -> int32."""
+    return _pq.popcount_qmm(a_packed.contiguous(), b_packed.contiguous())
+
+
+def bitserial_qmm_int(a_planes: torch.Tensor, b_planes: torch.Tensor) -> torch.Tensor:
+    """Multi-bit act x act from packed planes ``(a_bits, M, Kw) x (b_bits, Kw, N)``
+    -> int32."""
+    return _bs.bitserial_qmm(a_planes.contiguous(), b_planes.contiguous())
+
+
 def _rank2(name: str, x: QuantTensor, w: QuantTensor) -> None:
     if len(x.logical_shape) != 2 or len(w.logical_shape) != 2:
         raise ValueError(f"{name} expects rank-2 operands; flatten batch dims")
+
+
+def _popcount_int_matmul(x: QuantTensor, w: QuantTensor) -> torch.Tensor:
+    """K3 on 1-bit operands, fully packed along K."""
+    a_packed = x.mantissa if x.packed else packing.pack_bits(x.mantissa, 1, axis=-1)
+    b_packed = w.mantissa if w.packed else packing.pack_bits(w.mantissa, 1, axis=0)
+    return popcount_qmm_int(a_packed, b_packed)
 
 
 def _binary_int_matmul(x: QuantTensor, w: QuantTensor) -> torch.Tensor:
@@ -37,6 +57,13 @@ def _binary_int_matmul(x: QuantTensor, w: QuantTensor) -> torch.Tensor:
     return binary_qmm_int(a8, b_packed, x.logical_shape[-1])
 
 
+def _bitserial_int_matmul(x: QuantTensor, w: QuantTensor) -> torch.Tensor:
+    """K4 over the bit-planes of the raw unsigned mantissas."""
+    a_planes = packing.pack_bitplanes(x.unpack(dtype=torch.int32).mantissa, x.bits, axis=-1)
+    b_planes = packing.pack_bitplanes(w.unpack(dtype=torch.int32).mantissa, w.bits, axis=-2)
+    return bitserial_qmm_int(a_planes, b_planes)
+
+
 def qmm_pallas(
     x: QuantTensor,
     w: QuantTensor,
@@ -44,21 +71,30 @@ def qmm_pallas(
     w_colsum: Optional[torch.Tensor] = None,
     out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """The staged kernel path: K1 returns the integer product, then the
+    """The staged kernel path: a kernel returns the integer product, then the
     flow-abstraction epilogue (``qmm_flow``) runs in PyTorch.
 
-    Only the act x weight branch (1-bit weights, 2..8-bit activations) is
-    ported; the reference's W1A1 branch (``popcount_qmm``, K3) and multi-bit
-    act x act branch (``bitserial_qmm``, K4) are not yet.
+    Dispatch, in the reference's order (BETA's mode table, Fig. 4):
+
+    * 1-bit x 1-bit -> ``popcount_qmm`` (K3) on fully packed operands, the
+      epilogue on the un-re-centered operands;
+    * 1-bit weights, multi-bit activations -> ``binary_qmm`` (K1) on
+      re-centered int8 activations;
+    * anything else (multi-bit act x act) -> ``bitserial_qmm`` (K4) over the
+      bit-planes of the raw unsigned mantissas, un-re-centered.
+
+    A given ``w_colsum`` is used only for 1-bit ``w``, where re-centering is
+    a no-op; for K4 the raw colsum is counted here.
     """
     _rank2("qmm_pallas", x, w)
-    if w.bits != 1 or x.bits == 1:
-        raise NotImplementedError(
-            f"qmm_pallas: W{w.bits}A{x.bits} needs popcount_qmm (K3) or "
-            "bitserial_qmm (K4), which are not ported yet"
-        )
+    if x.bits == 1 and w.bits == 1:
+        int_matmul, recenter = _popcount_int_matmul, False
+    elif w.bits == 1:
+        int_matmul, recenter = _binary_int_matmul, True
+    else:
+        int_matmul, recenter, w_colsum = _bitserial_int_matmul, False, None
     return flow_abstraction.qmm_flow(
-        x, w, w_colsum=w_colsum, out_dtype=out_dtype, int_matmul=_binary_int_matmul
+        x, w, w_colsum=w_colsum, out_dtype=out_dtype, int_matmul=int_matmul, recenter=recenter
     )
 
 
@@ -105,7 +141,8 @@ backend_registry.register(
     backend_registry.QMMBackend(
         name="pallas",
         run=qmm_pallas,
-        description="staged hand-written CUDA kernel binary_qmm (K1) + PyTorch flow epilogue",
+        description="staged hand-written CUDA kernels popcount_qmm (K3), binary_qmm (K1), "
+        "bitserial_qmm (K4) + PyTorch flow epilogue",
     )
 )
 

@@ -15,7 +15,17 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.flow_abstraction import exact_int_matmul
 
-__all__ = ["binary_qmm_ref", "fused_qmm_ref", "fused_qmm_epilogue"]
+__all__ = [
+    "binary_qmm_ref",
+    "popcount_qmm_ref",
+    "bitserial_qmm_ref",
+    "bitserial_bound",
+    "fused_qmm_ref",
+    "fused_qmm_epilogue",
+]
+
+# The bit-serial kernels accumulate ``sum_ij 2**(i+j) popcount-MM`` in int32.
+_INT32_LIMIT = 2**31
 
 
 def _check_packed(name: str, x: torch.Tensor, k: int, dim: int) -> None:
@@ -41,6 +51,60 @@ def binary_qmm_ref(a: torch.Tensor, w_packed: torch.Tensor, k: int) -> torch.Ten
     _check_packed("binary_qmm_ref", w_packed, k, 0)
     w = packing.unpack_bits(w_packed, 1, k, axis=0, dtype=torch.int8)
     return exact_int_matmul(a, w, 128 * k).to(torch.int32)
+
+
+def popcount_qmm_ref(a_packed: torch.Tensor, b_packed: torch.Tensor, k: int) -> torch.Tensor:
+    """Binary x binary: ``out[m, n] = sum_j a[m, j] * b[j, n]`` with a, b in
+    {0, 1} -> int32 ``(M, N)``.
+
+    ``a_packed`` is ``(M, ceil(K/32))`` packed along its last axis,
+    ``b_packed`` ``(ceil(K/32), N)`` packed along its first.  Equal to
+    ``sum_w popcount(a[m, w] & b[w, n])`` over whole words when the bits past
+    K are zero, as packing leaves them.
+    """
+    if a_packed.ndim != 2 or b_packed.ndim != 2:
+        raise ValueError(
+            f"popcount_qmm_ref: operands must be rank 2, got {a_packed.ndim} and {b_packed.ndim}"
+        )
+    _check_packed("popcount_qmm_ref", a_packed, k, 1)
+    _check_packed("popcount_qmm_ref", b_packed, k, 0)
+    a = packing.unpack_bits(a_packed, 1, k, axis=-1, dtype=torch.int8)
+    b = packing.unpack_bits(b_packed, 1, k, axis=0, dtype=torch.int8)
+    return exact_int_matmul(a, b, k).to(torch.int32)
+
+
+def bitserial_bound(a_bits: int, b_bits: int, k: int) -> int:
+    """Largest possible ``sum_ij 2**(i+j) popcount-MM`` entry: ``K (2**a - 1)
+    (2**b - 1)``.  The bit-serial kernels (and this plain version) refuse
+    operands where it reaches 2**31, past which int32 accumulation wraps."""
+    bound = k * (2**a_bits - 1) * (2**b_bits - 1)
+    if bound >= _INT32_LIMIT:
+        raise ValueError(
+            f"bit-serial product of {a_bits} x {b_bits} planes over K={k} can reach "
+            f"{bound} >= 2**31: the int32 accumulator would wrap"
+        )
+    return bound
+
+
+def bitserial_qmm_ref(a_planes: torch.Tensor, b_planes: torch.Tensor, k: int) -> torch.Tensor:
+    """Multi-bit act x act from packed bit-planes -> int32 ``(M, N)``:
+    ``sum_ij 2**(i+j) A_i @ B_j``, which equals ``X @ W`` for the unsigned
+    mantissas ``X = sum_i 2**i A_i``, ``W = sum_j 2**j B_j``; computed so.
+
+    ``a_planes`` is ``(a_bits, M, ceil(K/32))`` packed along its last axis,
+    ``b_planes`` ``(b_bits, ceil(K/32), N)`` packed along axis 1.
+    """
+    if a_planes.ndim != 3 or b_planes.ndim != 3:
+        raise ValueError(
+            "bitserial_qmm_ref: plane stacks must be rank 3 (bits, ., .), got "
+            f"{a_planes.ndim} and {b_planes.ndim}"
+        )
+    _check_packed("bitserial_qmm_ref", a_planes, k, 2)
+    _check_packed("bitserial_qmm_ref", b_planes, k, 1)
+    bound = bitserial_bound(a_planes.shape[0], b_planes.shape[0], k)
+    x = _plane_value(a_planes, k, -1)  # (M, K)
+    w = _plane_value(b_planes, k, 0)  # (K, N)
+    return exact_int_matmul(x, w, bound).to(torch.int32)
 
 
 def _plane_value(planes: torch.Tensor, k: int, dim: int) -> torch.Tensor:

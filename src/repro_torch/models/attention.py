@@ -9,8 +9,10 @@ cursors, so co-batched requests never share a quantization grid.
 Unlike the reference, the cache is updated IN PLACE (``index_copy_`` /
 ``index_put_``): prefill and decode return the same dict they were given.
 
-Not ported yet: the windowed ring buffer (``"l"`` layers), bitwise (binary)
-scores, MLA, float caches and cross-attention.
+Positions are rotary or learned (added at the embedding, so nothing here);
+prefill is causal or not as ``cfg.causal`` says.  Not ported yet: the
+windowed ring buffer (``"l"`` layers), bitwise (binary) scores, MLA, float
+caches and cross-attention.
 """
 
 from __future__ import annotations
@@ -44,8 +46,8 @@ def _check_supported(cfg: ArchConfig, kind: str) -> None:
         raise NotImplementedError(f"attention kind {kind!r} is not ported yet (only 'g')")
     if not (q.enabled and q.quantize_attention and q.kv_cache_bits in (4, 8)):
         raise NotImplementedError("only the quantized int8 KV-cache path is ported")
-    if cfg.qk_norm or cfg.pos_embedding != "rope":
-        raise NotImplementedError("qk_norm and non-rope positions are not ported yet")
+    if cfg.qk_norm or cfg.pos_embedding not in ("rope", "learned"):
+        raise NotImplementedError("qk_norm and sinusoidal positions are not ported yet")
 
 
 def init_kv_cache(
@@ -104,8 +106,10 @@ def _int_einsum(spec: str, a: torch.Tensor, b: torch.Tensor, k: int) -> torch.Te
 def _scores_int(q, k_mantissa, k_scale, k_offset, attn_bits: int):
     """Integer QK^T, grouped over kv heads.
 
-    q: (B,S,H,dh) float, quantized per row.  k_mantissa: (B,T,kvH,dh) int8
-    re-centered cache mantissas.  Returns float32 (B,H,S,T).
+    q: (B,S,H,dh) float, quantized per row to ``attn_bits`` (at 1 bit the
+    {0, 1} mantissa passes re-centering unchanged).  k_mantissa:
+    (B,T,kvH,dh) int8 re-centered cache mantissas.  Returns float32
+    (B,H,S,T).
     """
     b, s, h, dh = q.shape
     t, kvh = k_mantissa.shape[1], k_mantissa.shape[2]
@@ -188,7 +192,10 @@ def attention(
 
     x: (B, S, D); positions: (B, S) absolute positions.  ``S > 1`` is a
     prefill from an empty cache; ``S == 1`` a decode step at each row's own
-    cursor.  Returns (out (B, S, D), cache), the cache updated in place.
+    cursor.  Prefill attends causally unless ``cfg.causal`` is False (an
+    encoder such as bit-bert-base); a decode step attends to every cached
+    position up to its own.  Returns (out (B, S, D), cache), the cache
+    updated in place.
     """
     _check_supported(cfg, kind)
     quant = cfg.quant
@@ -199,8 +206,9 @@ def attention(
     q = L.qlinear(p["q"], x, quant, name="attn.q").reshape(b, s, h, dh)
     k = L.qlinear(p["k"], x, quant, name="attn.k").reshape(b, s, kvh, dh)
     v = L.qlinear(p["v"], x, quant, name="attn.v").reshape(b, s, kvh, dh)
-    q = L.rope(q, positions, cfg.rope_theta)
-    k = L.rope(k, positions, cfg.rope_theta)
+    if cfg.pos_embedding == "rope":  # learned positions were added to x at the embedding
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
     sqrt_dh = torch.sqrt(torch.tensor(float(dh), dtype=torch.float32, device=x.device))
 
     if s > 1:

@@ -1,10 +1,12 @@
 """Public model API of the port (counterpart of ``repro.models.model_zoo``),
-serving subset for dense GQA decoders.
+serving subset for dense GQA decoders and bidirectional encoders
+(bit-bert-base: learned positions, non-causal prefill).
 
 Params are plain dicts: ``{"embedding", "final_norm", "layers": [block,
-...]}`` with one block per layer in ``cfg.layer_kinds`` order (the
-reference's scanned ``period`` stack, unstacked).  Caches are
-``{"layers": [kv_cache, ...]}``.
+...]}``, plus ``"unembedding"`` when the embeddings are untied and
+``"pos_embedding"`` ``(max_seq, d)`` for learned positions, with one block
+per layer in ``cfg.layer_kinds`` order (the reference's scanned ``period``
+stack, unstacked).  Caches are ``{"layers": [kv_cache, ...]}``.
 
 Entry points:
 
@@ -36,6 +38,7 @@ __all__ = [
     "init_params",
     "prepare_serving_params",
     "init_serving_params",
+    "check_max_len",
     "init_cache",
     "init_slot_cache",
     "cache_insert",
@@ -51,22 +54,49 @@ def _generator(seed: int, device) -> torch.Generator:
     return gen
 
 
-def _check_cfg(cfg: ArchConfig) -> None:
-    if not cfg.tie_embeddings:
-        raise NotImplementedError("untied unembeddings are not ported yet")
+#: top-level float tables, kept full precision and cast to bf16 for serving
+_TABLES = ("embedding", "unembedding", "pos_embedding")
+
+
+def check_max_len(cfg: ArchConfig, max_len: int) -> None:
+    """Learned positions index a ``(max_seq, d)`` table, so no cache may hold
+    more than ``cfg.max_seq`` positions: past it the reference's gather
+    clamps, and an index on the card faults."""
+    if cfg.pos_embedding == "learned" and max_len > cfg.max_seq:
+        raise ValueError(
+            f"max_len {max_len} exceeds {cfg.name}'s max_seq {cfg.max_seq} "
+            "(learned positions)"
+        )
 
 
 def _init_top(gen: torch.Generator, cfg: ArchConfig) -> dict:
-    emb = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen, device=gen.device)
-    return {
-        "embedding": emb * 0.02,
+    """Embedding, untied unembedding and learned positions (std 0.02 each,
+    drawn in that order) and the final norm gain."""
+    def table(rows: int) -> torch.Tensor:
+        return torch.randn((rows, cfg.d_model), generator=gen, device=gen.device) * 0.02
+
+    top = {
+        "embedding": table(cfg.vocab_size),
         "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32, device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        top["unembedding"] = table(cfg.vocab_size)
+    if cfg.pos_embedding == "learned":
+        top["pos_embedding"] = table(cfg.max_seq)
+    return top
+
+
+def _serving_top(params: dict) -> dict:
+    """The top-level leaves for serving: tables in bf16, the rest as they are."""
+    return {
+        k: v.to(torch.bfloat16) if k in _TABLES else v
+        for k, v in params.items()
+        if k != "layers"
     }
 
 
 def init_params(seed: int, cfg: ArchConfig, device="cuda") -> dict:
     """Latent float32 params from ``torch.Generator(device).manual_seed(seed)``."""
-    _check_cfg(cfg)
     gen = _generator(seed, device)
     p = _init_top(gen, cfg)
     p["layers"] = [T.init_block(gen, cfg, kind) for kind in cfg.layer_kinds]
@@ -84,10 +114,11 @@ def _pack_tree(node, cfg: ArchConfig):
 
 
 def prepare_serving_params(params: dict, cfg: ArchConfig) -> dict:
-    """Binarize and bit-pack every linear; the embedding goes to bf16 and
-    norm gains stay float32, as in the reference."""
-    out = _pack_tree(params, cfg)
-    out["embedding"] = params["embedding"].to(torch.bfloat16)
+    """Binarize and bit-pack every linear; the embedding, unembedding and
+    position tables go to bf16 and norm gains stay float32, as in the
+    reference."""
+    out = _serving_top(params)
+    out["layers"] = _pack_tree(params["layers"], cfg)
     return out
 
 
@@ -96,21 +127,16 @@ def init_serving_params(seed: int, cfg: ArchConfig, device="cuda") -> dict:
     weights are drawn, packed at once and freed, so the peak holds one
     layer of float32 latents (about 0.9 GB at granite-8b width) besides the
     packed model."""
-    _check_cfg(cfg)
     gen = _generator(seed, device)
-    top = _init_top(gen, cfg)
-    out = {
-        "embedding": top["embedding"].to(torch.bfloat16),
-        "final_norm": top["final_norm"],
-        "layers": [],
-    }
-    del top
+    out = _serving_top(_init_top(gen, cfg))
+    out["layers"] = []
     for kind in cfg.layer_kinds:
         out["layers"].append(_pack_tree(T.init_block(gen, cfg, kind), cfg))
     return out
 
 
 def init_cache(batch: int, max_len: int, cfg: ArchConfig, device="cuda") -> dict:
+    check_max_len(cfg, max_len)
     return {
         "layers": [
             A.init_kv_cache(batch, max_len, cfg, kind, device=device)
@@ -141,6 +167,16 @@ def cache_reset(cache: dict, slot: int, cfg: ArchConfig, max_len: int) -> dict:
     return cache_insert(cache, init_slot_cache(max_len, cfg, device=device), slot)
 
 
+def _embed_inputs(params: dict, tokens: torch.Tensor, cfg: ArchConfig, positions) -> torch.Tensor:
+    """Scaled bf16 token embedding plus, for learned positions, the bf16
+    position rows added in bf16 (``positions`` < ``cfg.max_seq``: the
+    caches are sized so)."""
+    x = L.embed(params, tokens, cfg.d_model)
+    if cfg.pos_embedding == "learned":
+        x = x + params["pos_embedding"][positions].to(x.dtype)
+    return x.to(torch.bfloat16)
+
+
 def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict) -> Tuple[torch.Tensor, dict]:
     """Process whole prompts (exact length, no padding) from an empty cache.
 
@@ -148,7 +184,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict) ->
     """
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).broadcast_to(b, s)
-    x = L.embed(params, tokens, cfg.d_model).to(torch.bfloat16)
+    x = _embed_inputs(params, tokens, cfg, positions)
     x, _ = T.stack_apply(params["layers"], x, cfg, positions, cache["layers"])
     x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return L.unembed(params, x, cfg.tie_embeddings)[:, 0], cache
@@ -158,8 +194,8 @@ def decode_step(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict
     """One decode step.  tokens (B,) -> logits (B, V) float32 + cache."""
     b = tokens.shape[0]
     # a copy: the first layer advances its cursor in place
-    positions = cache["layers"][0]["pos"].clone().reshape(b, 1)
-    x = L.embed(params, tokens[:, None], cfg.d_model).to(torch.bfloat16)
+    positions = cache["layers"][0]["pos"].to(torch.int64, copy=True).reshape(b, 1)
+    x = _embed_inputs(params, tokens[:, None], cfg, positions)
     x, _ = T.stack_apply(params["layers"], x, cfg, positions, cache["layers"])
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params, x, cfg.tie_embeddings)[:, 0], cache

@@ -109,6 +109,7 @@ class ServeEngine:
         self.max_len = max_len
         self.seed = seed
         self.device = torch.device(device)
+        Z.check_max_len(cfg, max_len)
         got = params["embedding"].device
         if got.type != self.device.type:
             raise ValueError(f"params live on {got}, engine device is {self.device}")
@@ -235,6 +236,7 @@ def serve_sequential(
 ) -> List[Request]:
     """One request at a time, batch 1, no slots: the oracle the engine is
     held to.  Shares ``_sample`` and the per-request RNG keying."""
+    Z.check_max_len(cfg, max_len)
     for rid, r in enumerate(requests):
         if len(r.prompt) + r.max_new_tokens > max_len:
             raise ValueError("request exceeds max_len")

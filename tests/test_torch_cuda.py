@@ -6,8 +6,8 @@ where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-K1 is integer (exact); K2 rounds every epilogue product and sum on its own
-in the plain version's order, so it is bitwise equal too.  The model check
+K1, K3 and K4 are integer (exact); K2 rounds every epilogue product and
+sum on its own in the plain version's order, so it is bitwise equal too.  The model check
 allows CROSS_DEVICE_TOL on logits: float functions (exp, rsqrt, the float32
 unembed) differ in their last bits between devices, which can flip a bf16
 rounding and one 8-bit bucket of the next per-token quantization.
@@ -22,8 +22,12 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.smoke import smoke_variant
 from repro_torch.core import packing
+from repro_torch.core import qmm as QE
+from repro_torch.core import quantization as Q
 from repro_torch.kernels import binary_qmm as K1
+from repro_torch.kernels import bitserial_qmm as K4
 from repro_torch.kernels import fused_qmm as K2
+from repro_torch.kernels import popcount_qmm as K3
 from repro_torch.kernels import ref
 from repro_torch.models import model_zoo as Z
 
@@ -66,10 +70,55 @@ def test_fused_qmm_bitwise_equals_plain(dev, m, k, n, a_bits, b_bits):
     assert torch.equal(got, ref.fused_qmm_ref(ap, bp, *coeffs, k))
 
 
+# bit-bert-base's sites (K = 768 / 3072) at prefill and decode, plus ragged
+POPCOUNT_SHAPES = [(1, 32, 1), (7, 100, 33), (130, 513, 129), (4, 768, 3072), (128, 3072, 768)]
+
+
+@pytest.mark.parametrize("m,k,n", POPCOUNT_SHAPES)
+def test_popcount_qmm_equals_plain(dev, m, k, n):
+    g = torch.Generator(device=dev).manual_seed(m * 3 + n)
+    ap = packing.pack_bits(torch.randint(0, 2, (m, k), generator=g, device=dev), 1, axis=-1)
+    bp = packing.pack_bits(torch.randint(0, 2, (k, n), generator=g, device=dev), 1, axis=0)
+    before = K3.popcount_qmm.launches
+    got = K3.popcount_qmm(ap, bp)
+    assert K3.popcount_qmm.launches == before + 1
+    assert torch.equal(got, ref.popcount_qmm_ref(ap, bp, k))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 32, 1), (7, 100, 33), (128, 64, 128), (128, 768, 3072)])
+@pytest.mark.parametrize("a_bits,b_bits", [(2, 2), (4, 4), (8, 8), (1, 4)])
+def test_bitserial_qmm_equals_plain(dev, m, k, n, a_bits, b_bits):
+    g = torch.Generator(device=dev).manual_seed(m * 11 + n + a_bits)
+    ap = packing.pack_bitplanes(torch.randint(0, 2**a_bits, (m, k), generator=g, device=dev), a_bits, axis=-1)
+    bp = packing.pack_bitplanes(torch.randint(0, 2**b_bits, (k, n), generator=g, device=dev), b_bits, axis=-2)
+    before = K4.bitserial_qmm.launches
+    got = K4.bitserial_qmm(ap, bp)
+    assert K4.bitserial_qmm.launches == before + 1
+    assert torch.equal(got, ref.bitserial_qmm_ref(ap, bp, k))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_act_act_pallas_equals_popcount_backend(dev, bits):
+    """``qmm(backend="pallas")`` on two multi-bit activations goes through K4
+    and equals the plain ``popcount`` backend bitwise (same unsigned
+    mantissas, same epilogue)."""
+    g = torch.Generator(device=dev).manual_seed(bits)
+    x = Q.quantize_activation(torch.randn(128, 64, generator=g, device=dev), bits, per_channel_axis=0)
+    y = Q.quantize_activation(torch.randn(64, 128, generator=g, device=dev), bits, per_channel_axis=-1)
+    before = K4.bitserial_qmm.launches
+    got = QE.qmm(x, y, backend="pallas")
+    assert K4.bitserial_qmm.launches == before + 1
+    assert torch.equal(got, QE.qmm(x, y, backend="popcount"))
+
+
 def test_wrappers_refuse_mixed_devices(dev):
     a = torch.zeros(2, 64, dtype=torch.int8, device=dev)
     with pytest.raises(ValueError, match="operands on"):
         K1.binary_qmm(a, torch.zeros(2, 4, dtype=torch.int32), 64)
+    with pytest.raises(ValueError, match="operands on"):
+        K3.popcount_qmm(a.view(torch.int32), torch.zeros(16, 4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="operands on"):
+        K4.bitserial_qmm(a.view(torch.int32)[None], torch.zeros(1, 16, 4, dtype=torch.int32))
 
 
 def _to(tree, device):

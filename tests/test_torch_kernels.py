@@ -10,6 +10,11 @@ under dyadic scales, where every epilogue term is exactly representable
 reference compiles its epilogue with fma contraction, so there the
 agreement is to a few float32 ulps of the largest epilogue term.
 
+K3 (popcount_qmm) and K4 (bitserial_qmm) are integer: exact, against the
+oracles and the reference's kernels in interpret mode; the ``pallas``
+W1A1 and act x act branches and the plain ``popcount`` backend equal the
+reference's bit for bit (same integer product, same epilogue order).
+
 The CUDA kernels themselves run only on the card: see
 ``tests/test_torch_cuda.py``.
 """
@@ -19,15 +24,21 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from repro.core import flow_abstraction as JFA
 from repro.core import packing as JP
+from repro.core import qmm as JQE
 from repro.core import quantization as JQ
 from repro.core.quantization import QuantTensor as JQT
 from repro.kernels import ops as JO
 from repro.kernels import ref as JR
+from repro_torch.core import flow_abstraction as TFA
+from repro_torch.core import qmm as TQE
 from repro_torch.core import quantization as TQ
 from repro_torch.core.quantization import QuantTensor as TQT
 from repro_torch.kernels import binary_qmm as TBQ
+from repro_torch.kernels import bitserial_qmm as TBS
 from repro_torch.kernels import fused_qmm as TFQ
+from repro_torch.kernels import popcount_qmm as TPQ
 from repro_torch.kernels import ops as TO
 from repro_torch.kernels import ref as TR
 
@@ -146,13 +157,125 @@ def test_qmm_pallas_exact_vs_reference(act_bits, m, k, n):
     np.testing.assert_array_equal(TO.qmm_pallas(tx, tw).numpy(), want)
 
 
+def _packed_bits(shape, axis):
+    bits = RNG.integers(0, 2, size=shape).astype(np.uint32)
+    return np.asarray(JP.pack_bits(jnp.asarray(bits), 1, axis=axis))
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES + [(7, 100, 33), (4, 768, 3072)])
+def test_popcount_qmm_plain_matches_oracle_and_interpret_kernel(m, k, n):
+    ap, bp = _packed_bits((m, k), -1), _packed_bits((k, n), 0)
+    want = np.asarray(JR.popcount_qmm_ref(jnp.asarray(ap), jnp.asarray(bp), k))
+    if (m, k, n) in INTERPRET_SHAPES | {(7, 100, 33)}:
+        kernel = JO.popcount_qmm_int(jnp.asarray(ap), jnp.asarray(bp), interpret=True)
+        np.testing.assert_array_equal(np.asarray(kernel), want)
+    ta, tb = _t(ap.view(np.int32)), _t(bp.view(np.int32))
+    before = TPQ.popcount_qmm.launches
+    got = TPQ.popcount_qmm(ta, tb)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(TR.popcount_qmm_ref(ta, tb, k).numpy(), want)
+    # the plain popcount backend's core counts the same bits another way
+    np.testing.assert_array_equal(TQE.and_popcount_matmul(ta, tb).numpy(), want)
+    assert TPQ.popcount_qmm.launches == before  # CPU tensors take the plain path
+
+
+def _planes_of(shape, bits, axis):
+    mant = RNG.integers(0, 2**bits, size=shape).astype(np.uint32)
+    return np.asarray(JP.pack_bitplanes(jnp.asarray(mant), bits, axis=axis))
+
+
+@pytest.mark.parametrize("a_bits,b_bits", [(2, 2), (4, 4), (8, 8), (1, 4)])
+@pytest.mark.parametrize("m,k,n", [(1, 32, 1), (7, 100, 33), (37, 300, 45)])
+def test_bitserial_qmm_plain_matches_oracle_and_interpret_kernel(a_bits, b_bits, m, k, n):
+    ap, bp = _planes_of((m, k), a_bits, -1), _planes_of((k, n), b_bits, -2)
+    want = np.asarray(JO.bitserial_qmm_int(jnp.asarray(ap), jnp.asarray(bp), interpret=True))
+    np.testing.assert_array_equal(
+        np.asarray(JR.bitserial_qmm_ref(jnp.asarray(ap), jnp.asarray(bp), k)), want)
+    ta, tb = _t(ap.view(np.int32)), _t(bp.view(np.int32))
+    before = TBS.bitserial_qmm.launches
+    got = TBS.bitserial_qmm(ta, tb)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(TR.bitserial_qmm_ref(ta, tb, k).numpy(), want)
+    assert TBS.bitserial_qmm.launches == before
+
+
+def test_bitserial_refuses_int32_overflow():
+    """8 x 8 planes over K = 33,056 could sum past 2**31: refused, not wrapped."""
+    kw = 1033
+    a = torch.zeros(8, 1, kw, dtype=torch.int32)
+    b = torch.zeros(8, kw, 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="wrap"):
+        TBS.bitserial_qmm(a, b)
+    TBS.bitserial_qmm(a[:, :, :1032], b[:, :1032])  # 33,024 fits
+
+
+def _quant_operands(m, k, n, x_bits, w_bits, packed_w):
+    x = (RNG.standard_normal((m, k)) * 2).astype(np.float32)
+    jx = JQ.quantize_activation(jnp.asarray(x), x_bits, per_channel_axis=0)
+    tx = TQ.quantize_activation(_t(x), x_bits, per_channel_axis=0)
+    if packed_w:
+        return jx, tx, *_packed_weight((RNG.standard_normal((k, n)) * 0.1).astype(np.float32))
+    y = (RNG.standard_normal((k, n)) * 2).astype(np.float32)
+    jw = JQ.quantize_activation(jnp.asarray(y), w_bits, per_channel_axis=-1)
+    tw = TQ.quantize_activation(_t(y), w_bits, per_channel_axis=-1)
+    return jx, tx, jw, tw
+
+
 def test_qmm_pallas_refuses_unported_branches():
-    t = TQT(mantissa=torch.zeros(2, 32, dtype=torch.uint8), scale=torch.tensor(1.0),
-            offset=torch.tensor(0.0), bits=1)
-    w = TQT(mantissa=torch.zeros(32, 4, dtype=torch.uint8), scale=torch.tensor(1.0),
-            offset=torch.tensor(0.0), bits=1)
-    with pytest.raises(NotImplementedError, match="popcount_qmm"):
-        TO.qmm_pallas(t, w)
+    """No branch of ``qmm_pallas`` is refused any more: the W1A1 branch (K3)
+    and the multi-bit act x act branch (K4), which raised before they were
+    ported, run and equal the reference's ``qmm_pallas`` bit for bit."""
+    for x_bits, w_bits, packed in ((1, 1, True), (1, 1, False), (4, 4, False), (1, 4, False)):
+        jx, tx, jw, tw = _quant_operands(7, 100, 33, x_bits, w_bits, packed)
+        want = np.asarray(JO.qmm_pallas(jx, jw, interpret=True))
+        np.testing.assert_array_equal(TO.qmm_pallas(tx, tw).numpy(), want)
+
+
+@pytest.mark.parametrize("x_bits,w_bits", [(1, 1), (2, 2), (4, 4), (8, 8), (1, 4)])
+@pytest.mark.parametrize("m,k,n", [(1, 32, 1), (37, 300, 45), (8, 64, 128)])
+def test_qmm_pallas_w1a1_and_act_act_exact_vs_reference(x_bits, w_bits, m, k, n):
+    """K3 (1 x 1, packed binarized weights) and K4 (act x act) branches of the
+    staged path: the reference applies its epilogue op by op outside the
+    kernel, so the two agree bit for bit; the plain ``popcount`` backend
+    equals both (same unsigned integer product, same epilogue)."""
+    jx, tx, jw, tw = _quant_operands(m, k, n, x_bits, w_bits, packed_w=w_bits == 1)
+    want = np.asarray(JO.qmm_pallas(jx, jw, interpret=True))
+    np.testing.assert_array_equal(TO.qmm_pallas(tx, tw).numpy(), want)
+    np.testing.assert_array_equal(TQE.qmm(tx, tw, backend="popcount").numpy(), want)
+
+
+@pytest.mark.parametrize("x_bits,w_bits,packed_w", [
+    (1, 1, True), (2, 1, True), (8, 1, True), (2, 2, False), (4, 4, False), (8, 8, False),
+])
+def test_popcount_backend_exact_vs_reference(x_bits, w_bits, packed_w):
+    """``qmm(backend="popcount")``: plain AND-popcount over the raw unsigned
+    planes under ``qmm_flow(recenter=False)``, with and without a given
+    weight colsum, equal to the reference's popcount backend."""
+    jx, tx, jw, tw = _quant_operands(37, 300, 45, x_bits, w_bits, packed_w)
+    want = np.asarray(JQE.qmm(jx, jw, backend="popcount"))
+    np.testing.assert_array_equal(TQE.qmm(tx, tw, backend="popcount").numpy(), want)
+    if packed_w:
+        jcol = JFA.weight_corrections(jw)
+        tcol = TFA.weight_corrections(tw)
+        np.testing.assert_array_equal(tcol.numpy(), np.asarray(jcol))
+        want = np.asarray(JQE.qmm(jx, jw, backend="popcount", w_colsum=jcol))
+        got = TQE.qmm(tx, tw, backend="popcount", w_colsum=tcol)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_popcount_backend_batched_act_act():
+    """Rank-4 act x act (attention-shaped, batch and heads leading) through
+    the plain popcount core, against the reference's."""
+    x = (RNG.standard_normal((2, 3, 5, 40)) * 2).astype(np.float32)
+    y = (RNG.standard_normal((2, 3, 40, 6)) * 2).astype(np.float32)
+    jx = JQ.quantize_activation(jnp.asarray(x), 4)
+    jy = JQ.quantize_activation(jnp.asarray(y), 4)
+    tx = TQ.quantize_activation(_t(x), 4)
+    ty = TQ.quantize_activation(_t(y), 4)
+    want = np.asarray(JQE.qmm(jx, jy, backend="popcount"))
+    np.testing.assert_array_equal(TQE.qmm(tx, ty, backend="popcount").numpy(), want)
 
 
 def test_wrappers_validate_operands():
@@ -164,3 +287,11 @@ def test_wrappers_validate_operands():
     with pytest.raises(ValueError):
         TFQ.fused_qmm(torch.zeros(8, 2, 2, dtype=torch.int32), torch.zeros(1, 2, 4, dtype=torch.int32),
                       torch.ones(2, 1), torch.zeros(2, 1), torch.ones(4), torch.zeros(1, 4), 64)
+    with pytest.raises(ValueError):
+        TPQ.popcount_qmm(torch.zeros(2, 3, dtype=torch.int32), torch.zeros(2, 4, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        TPQ.popcount_qmm(torch.zeros(2, 2, dtype=torch.int64), torch.zeros(2, 4, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        TBS.bitserial_qmm(torch.zeros(9, 2, 2, dtype=torch.int32), torch.zeros(1, 2, 4, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        TBS.bitserial_qmm(torch.zeros(2, 2, 2, dtype=torch.int32), torch.zeros(2, 3, 4, dtype=torch.int32))

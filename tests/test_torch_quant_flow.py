@@ -49,7 +49,7 @@ def test_quantize_activation_rounds_half_to_even():
     assert t.mantissa.tolist() == [[0, 0, 2, 2, 3]]
 
 
-@pytest.mark.parametrize("k,n", [(32, 5), (64, 48), (128, 16), (4096, 8)])
+@pytest.mark.parametrize("k,n", [(32, 5), (64, 48), (128, 16), (768, 8), (3072, 8), (4096, 8)])
 def test_binarize_weight_exact(k, n):
     """Scales too: the port sums |w| in the reference's compiled order."""
     w = (RNG.standard_normal((k, n)) * 0.05).astype(np.float32)

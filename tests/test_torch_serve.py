@@ -128,11 +128,11 @@ def test_quant_config_backends_and_overrides():
     reference's); per-site overrides pick the first matching pattern."""
     from repro_torch.configs.base import QuantConfig
 
-    assert {"mxu", "pallas", "fused"} <= set(QuantConfig.known_backends())
+    assert {"mxu", "popcount", "pallas", "fused"} <= set(QuantConfig.known_backends())
     q = QuantConfig(backend="pallas", backend_overrides=(("ffn.*", "fused"), ("ffn.up", "mxu")))
     assert [q.backend_for(s) for s in ("attn.q", "ffn.up", "ffn.down", "")] == [
         "pallas", "fused", "fused", "pallas"]
-    for bad in (dict(backend="popcount"), dict(backend_overrides=(("attn.*", "nope"),))):
+    for bad in (dict(backend="no-such-backend"), dict(backend_overrides=(("attn.*", "nope"),))):
         with pytest.raises(ValueError, match="unknown backend"):
             QuantConfig(**bad)
 
