@@ -19,7 +19,8 @@ Phases (each prints its own lines):
    replayed CUDA graph, weights rotated through more than the 50 MB L2, as
    a decode finds them) and as issued eagerly from Python, beside its
    bound, its plain version and one PyTorch call computing the same
-   function (``library_ms``; a yardstick the port never calls).
+   function (``library_ms``; a yardstick the port never calls).  K2's rows
+   with M > 16 add ``torch._int_mm`` on its integer core (``int_mm_ms``).
 3. main path: granite-8b at full width and depth (36 layers, random
    weights from a seed) served through ``ServeEngine`` with the ``pallas``
    backend: 8 requests, prompts of 32-128 tokens, 16 new tokens each.
@@ -29,7 +30,8 @@ Phases (each prints its own lines):
 4. ``fused`` pass: the same model with ``backend="fused"`` for one prefill
    and 8 decode ticks; K2 launched 7 x 36 times per forward; every step's
    logits bitwise equal with K2 swapped for its plain version on the same
-   tokens; logits against the ``pallas`` pass.
+   tokens; logits against the ``pallas`` pass; then phase 3's 4-slot tick
+   and prefill profiled on the ``fused`` backend.
 5. bit-bert-base (W1A1) at full width (12 layers, d_model 768, random
    weights from a seed) served through ``ServeEngine`` with the ``pallas``
    backend: 4 slots, max_len 512, 8 requests of 64-128 prompt tokens, 16
@@ -191,10 +193,11 @@ def _bit_row(shape, bits, got, want, ms_calls, plain_fn, nbytes, lib):
 
 
 def _log_row(name: str, r) -> None:
+    int_mm = f" int_mm_ms={r['int_mm_ms']:.4f} [{r['int_mm']}]" if r.get("int_mm_ms") is not None else ""
     log(f"  {name:13s} {str(tuple(r['shape'])):18s} bits {r['bits']} equal "
         f"ms={r['ms']:.4f} eager_ms={r['eager_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
         f"({r['bound_by']}) plain_ms={r['plain_ms']:.3f} library_ms={r['library_ms']:.4f} "
-        f"[{r['library']}]")
+        f"[{r['library']}]{int_mm}")
 
 
 def check_kernels(gen: torch.Generator):
@@ -243,6 +246,16 @@ def check_kernels(gen: torch.Generator):
         xd = x.float() * coeffs[0] + coeffs[1]
         wd = w_i8.float() * coeffs[2] + coeffs[3]
         nb, bb = bound(4 * (8 * m * kw + kw * n) + 8 * (m + n) + 4 * m * n, 2 * m * k * n)
+        # second yardstick where the int8 GEMM takes the shape: the same
+        # integer core X @ W on the re-centered int8 operands K1's row uses
+        int_mm = int_mm_ms = None
+        if m > 16:
+            xc = (x - 128).to(torch.int8)
+            int_mm, int_mm_fn = _library_mm(xc, w_i8)
+            back = int_mm_fn().to(torch.int64) + 128 * w_i8.sum(0, keepdim=True, dtype=torch.int64)
+            if not torch.equal(back, (x.double() @ w_i8.double()).to(torch.int64)):
+                raise AssertionError(f"{int_mm} disagrees with the integer core at {(m, k, n)}")
+            int_mm_ms = device_ms([int_mm_fn], 20)
         rows["fused_qmm"].append(dict(
             shape=[m, k, n], bits=[8, 1], max_abs_err=float((got - want).abs().max()),
             ms=device_ms([lambda w=w: fused_qmm(ap, w[None], *coeffs, k) for w in wps], 10 * reps),
@@ -251,9 +264,10 @@ def check_kernels(gen: torch.Generator):
             bound_ms=nb, bound_by=bb,
             library="torch.matmul (float32, pre-dequantized operands)",
             library_ms=device_ms([lambda: xd @ wd], 20),
+            int_mm=int_mm, int_mm_ms=int_mm_ms,
         ))
         _log_row("fused_qmm", rows["fused_qmm"][-1])
-        del wps, a, x, ap
+        del wps, a, x, ap, xd, wd
         torch.cuda.empty_cache()
     return rows
 
@@ -721,6 +735,18 @@ def run(device: torch.device, model_cfg, bert_cfg) -> int:
     log(f"[4] fused pass: prefill + 8 decode ticks, fused_qmm launches {k2_main} = {per_forward} x 9; "
         f"max |logit - pallas logit| {fgap:.3g} (max |pallas logit| {scale:.3g}), "
         f"argmax equal at {same}/9 steps")
+    # where the time goes on the fused backend: the same 4-slot tick and
+    # prefill that phase 3 profiles for the pallas backend
+    cache = Z.init_cache(4, 512, fcfg, device=device)
+    for i, r in enumerate(done[:4]):
+        slot = Z.init_slot_cache(512, fcfg, device=device)
+        Z.prefill(params, torch.as_tensor(np.asarray(r.prompt)[None], device=device), fcfg, slot)
+        Z.cache_insert(cache, slot, i)
+    report_profile("fused decode tick (4 slots)", *profile_forward(
+        lambda: Z.decode_step(params, step, fcfg, cache)), phase=4)
+    report_profile(f"fused prefill ({len(long.prompt)} tokens)", *profile_forward(
+        lambda: Z.prefill(params, tokens, fcfg, Z.init_slot_cache(512, fcfg, device=device))), phase=4)
+    del cache
 
     del params
     torch.cuda.empty_cache()

@@ -6,9 +6,16 @@ For CUDA tensors it launches the kernel (or raises); for CPU tensors it
 runs the plain version ``ref.fused_qmm_ref``.  ``fused_qmm.launches``
 counts kernel launches and nothing else.
 
+The kernel runs the integer core on the int8 tensor cores: it stages the
+plane words in shared memory with ``cp.async``, rebuilds the unsigned
+mantissas as bytes there (``sum_ij 2**(i+j) A_i @ B_j`` is ``X @ W``), and
+multiplies them with ``mma.sync`` u8 x u8 -> int32; tiles are chosen by M
+and by the grid's size against the card's SMs.
+
 Exactness: the integer core (MM, rowsum, colsum) equals the plain version
 exactly; the float32 epilogue rounds every product and sum on its own in
-the plain version's order, so on the card the two agree bit for bit.
+the plain version's order (no fma), so on the card the two agree bit for
+bit.
 """
 
 from __future__ import annotations

@@ -55,8 +55,18 @@ def test_binary_qmm_equals_plain(dev, m, k, n):
     assert torch.equal(got, ref.binary_qmm_ref(a, wp, k))
 
 
-@pytest.mark.parametrize("m,k,n", SHAPES)
-@pytest.mark.parametrize("a_bits,b_bits", [(8, 1), (4, 1), (8, 8)])
+# K2's tile paths (16 rows up to M = 64, with 32 or 64 columns; 32 or 64
+# rows above) and their edges: M = 16 / 17 / 130, K past a whole word (K =
+# 100, 1000), Kw not a multiple of 4 (K = 300, 513: the 4-byte copy path),
+# N not a multiple of 8 or 16 (33, 45, 72, 129, 4500); and granite-8b's
+# decode down and ragged k/v prefill sites
+FUSED_SHAPES = SHAPES + [
+    (16, 1000, 72), (17, 100, 33), (130, 1000, 4500), (35, 4096, 1024), (4, 14336, 4096)
+]
+
+
+@pytest.mark.parametrize("m,k,n", FUSED_SHAPES)
+@pytest.mark.parametrize("a_bits,b_bits", [(8, 1), (4, 1), (8, 8), (1, 1), (2, 1), (3, 5)])
 def test_fused_qmm_bitwise_equals_plain(dev, m, k, n, a_bits, b_bits):
     g = torch.Generator(device=dev).manual_seed(m * 5 + n + a_bits)
     x = torch.randint(0, 2**a_bits, (m, k), generator=g, device=dev)

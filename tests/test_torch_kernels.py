@@ -103,6 +103,8 @@ def _planes(j, bits, axis):
 # reference's interpret-mode kernel stays cheap
 FUSED_CASES = [(s, 8, 1) for s in SHAPES] + [
     (s, a, w) for s in SHAPES[:2] + SHAPES[3:4] for a, w in ((4, 1), (8, 8))
+] + [  # the CUDA kernel's tile edges (M = 16 / 17, K past a word, N = 72) and odd plane counts
+    (s, a, w) for s in ((16, 1000, 72), (17, 100, 33)) for a, w in ((8, 1), (3, 5), (1, 1))
 ]
 
 
