@@ -13,7 +13,8 @@ Phases (each prints its own lines):
    ``src/repro_torch/csrc`` compiled at once by ``nvcc`` for ``sm_90a``.
 2. kernels against their plain PyTorch versions on the card, at the shapes
    the main paths give them: ``binary_qmm`` (K1) equal int32 (at
-   granite-8b's and bit-bert-base's sites), ``fused_qmm`` (K2)
+   granite-8b's and bit-bert-base's sites, with the tile and K splits its
+   plan chose), ``fused_qmm`` (K2)
    bitwise-equal float32, ``popcount_qmm`` (K3) and
    ``bitserial_qmm`` (K4) equal int32.  Each is timed on the device (a
    replayed CUDA graph, weights rotated through more than the 50 MB L2, as
@@ -194,7 +195,8 @@ def _bit_row(shape, bits, got, want, ms_calls, plain_fn, nbytes, lib):
 
 def _log_row(name: str, r) -> None:
     int_mm = f" int_mm_ms={r['int_mm_ms']:.4f} [{r['int_mm']}]" if r.get("int_mm_ms") is not None else ""
-    log(f"  {name:13s} {str(tuple(r['shape'])):18s} bits {r['bits']} equal "
+    plan = f" tile {r['tile'][0]}x{r['tile'][1]} splits {r['splits']}" if "tile" in r else ""
+    log(f"  {name:13s} {str(tuple(r['shape'])):18s} bits {r['bits']}{plan} equal "
         f"ms={r['ms']:.4f} eager_ms={r['eager_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
         f"({r['bound_by']}) plain_ms={r['plain_ms']:.3f} library_ms={r['library_ms']:.4f} "
         f"[{r['library']}]{int_mm}")
@@ -203,7 +205,7 @@ def _log_row(name: str, r) -> None:
 def check_kernels(gen: torch.Generator):
     from repro_torch.core import packing
     from repro_torch.kernels import ref
-    from repro_torch.kernels.binary_qmm import binary_qmm
+    from repro_torch.kernels.binary_qmm import binary_qmm, plan
     from repro_torch.kernels.fused_qmm import fused_qmm
 
     dev = gen.device
@@ -229,6 +231,8 @@ def check_kernels(gen: torch.Generator):
         rows["binary_qmm"].append(_bit_row(
             (m, k, n), (8, 1), got, want, [lambda w=w: binary_qmm(a, w, k) for w in wps],
             lambda: ref.binary_qmm_ref(a, wps[0], k), m * k + w_bytes + 4 * m * n, lib))
+        bm, bn, splits = plan(m, k, n, dev)
+        rows["binary_qmm"][-1].update(tile=[bm, bn], splits=splits)
         _log_row("binary_qmm", rows["binary_qmm"][-1])
         if (m, k, n) in BERT_K1_SHAPES:
             del wps, a
@@ -285,11 +289,14 @@ POPCOUNT_SHAPES = [
     (7, 100, 33),
 ]
 # K4: BERT-base's per-head Q.K^T (d_head 64 over 128 tokens) at A4xA4 and
-# A8xA8, the FFN up shape at A4xA4, and ragged shapes.
+# A8xA8, the FFN up shape at A4xA4, A8xA8 and A2xA2 (the tensor-core
+# kernel's time should not follow the bit widths), and ragged shapes.
 BITSERIAL_CASES = [
     ((128, 64, 128), 4, 4),
     ((128, 64, 128), 8, 8),
     ((128, 768, 3072), 4, 4),
+    ((128, 768, 3072), 8, 8),
+    ((128, 768, 3072), 2, 2),
     ((7, 100, 33), 4, 4),
     ((7, 100, 33), 1, 4),
 ]

@@ -5,6 +5,13 @@ replaces the Pallas TPU kernel ``repro/kernels/binary_qmm.py::binary_qmm``.
 For CUDA tensors it launches the kernel (or raises); for CPU tensors it
 runs the plain version ``ref.binary_qmm_ref``.  ``binary_qmm.launches``
 counts kernel launches and nothing else.
+
+The kernel multiplies on the int8 tensor cores (``mma.sync`` s8 x u8: the
+activations as they are, the weight bits spread to bytes in shared
+memory).  Its tile and its split of K across blocks come from one place,
+the C function ``binary_qmm_plan``; :func:`plan` reads it, and the wrapper
+zero-fills the output where the plan splits K (split partials are added
+atomically).
 """
 
 from __future__ import annotations
@@ -16,10 +23,7 @@ import torch
 from repro_torch.core import packing
 from repro_torch.kernels import build, ref
 
-__all__ = ["binary_qmm"]
-
-_BN = 64  # output columns per block (csrc/binary_qmm.cu)
-_MIN_WORDS_PER_SPLIT = 16
+__all__ = ["binary_qmm", "plan"]
 
 
 def _lib() -> ctypes.CDLL:
@@ -29,17 +33,21 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p
         ]
         lib.binary_qmm_launch.restype = ctypes.c_int
-        lib.binary_qmm_rows_per_thread.argtypes = [ctypes.c_int]
-        lib.binary_qmm_rows_per_thread.restype = ctypes.c_int
+        lib.binary_qmm_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.binary_qmm_plan.restype = None
     return lib
 
 
-def _splits(lib, m: int, n: int, kw: int, device: torch.device) -> int:
-    """Split K until the grid covers about two blocks per SM."""
-    rows = 4 * lib.binary_qmm_rows_per_thread(m)
-    tiles = -(-n // _BN) * -(-m // rows)
-    target = 2 * torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-target // tiles), kw // _MIN_WORDS_PER_SPLIT))
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def plan(m: int, k: int, n: int, device: torch.device) -> tuple:
+    """``(block rows, block columns, K splits)`` of the launch for ``(m, k, n)``
+    on the CUDA ``device``."""
+    out = (ctypes.c_int * 3)()
+    _lib().binary_qmm_plan(m, k, n, _sms(device), ctypes.addressof(out))
+    return tuple(out)
 
 
 def binary_qmm(a: torch.Tensor, w_packed: torch.Tensor, k: int) -> torch.Tensor:
@@ -66,15 +74,14 @@ def binary_qmm(a: torch.Tensor, w_packed: torch.Tensor, k: int) -> torch.Tensor:
     if a.data_ptr() % 16 or w_packed.data_ptr() % 16:
         raise ValueError("binary_qmm: operands must be 16-byte aligned")
     m, n = a.shape[0], w_packed.shape[1]
-    lib = _lib()
-    splits = _splits(lib, m, n, kw, a.device)
+    splits = plan(m, k, n, a.device)[2]
     # split partials are atomically added, so their output starts at zero
     alloc = torch.zeros if splits > 1 else torch.empty
     out = alloc((m, n), dtype=torch.int32, device=a.device)
     if m == 0 or n == 0:
         return out
-    err = lib.binary_qmm_launch(
-        a.data_ptr(), w_packed.data_ptr(), out.data_ptr(), m, k, n, splits,
+    err = _lib().binary_qmm_launch(
+        a.data_ptr(), w_packed.data_ptr(), out.data_ptr(), m, k, n, _sms(a.device),
         torch.cuda.current_stream(a.device).cuda_stream,
     )
     if err:

@@ -5,6 +5,11 @@ replaces the Pallas TPU kernel ``repro/kernels/bitserial_qmm.py::bitserial_qmm``
 For CUDA tensors it launches the kernel (or raises); for CPU tensors it
 runs the plain version ``ref.bitserial_qmm_ref``.  ``bitserial_qmm.launches``
 counts kernel launches and nothing else.
+
+The kernel rebuilds the unsigned mantissas as bytes in shared memory from
+``cp.async``-staged bit-planes (``sum_ij 2**(i+j) A_i @ B_j`` is ``X @ W``)
+and multiplies them once on the int8 tensor cores (``mma.sync`` u8 x u8),
+whatever the plane counts.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ _MAX_BITS = 8  # csrc/bitserial_qmm.cu MAX_BITS
 def _lib() -> ctypes.CDLL:
     lib = build.load("bitserial_qmm")
     if lib.bitserial_qmm_launch.argtypes is None:  # pointers must not pass as 32-bit ints
-        lib.bitserial_qmm_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+        lib.bitserial_qmm_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p
         ]
         lib.bitserial_qmm_launch.restype = ctypes.c_int
@@ -64,6 +69,7 @@ def bitserial_qmm(a_planes: torch.Tensor, b_planes: torch.Tensor) -> torch.Tenso
         return out
     err = _lib().bitserial_qmm_launch(
         a_planes.data_ptr(), b_planes.data_ptr(), out.data_ptr(), a_bits, b_bits, m, kw, n,
+        torch.cuda.get_device_properties(dev).multi_processor_count,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:

@@ -3,10 +3,10 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded through ``ctypes``.  Libraries go to
 ``build/repro_torch/`` at the repository root, named by a hash of the
-source and flags, so a rebuilt source never loads a stale library and an
-unchanged one is compiled once.  Nothing is built at import time:
-:func:`load` builds on first use, and :func:`build_all` starts one
-``nvcc`` per source at once.
+source, every ``csrc/*.cuh`` header and the flags, so an edited source or
+header never loads a stale library and an unchanged one is compiled once.
+Nothing is built at import time: :func:`load` builds on first use, and
+:func:`build_all` starts one ``nvcc`` per source at once.
 """
 
 from __future__ import annotations
@@ -56,9 +56,11 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

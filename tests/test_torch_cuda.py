@@ -44,7 +44,17 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("m,k,n", SHAPES)
+# K1's tiles (16 x 64 up to M = 16; above, 128 x 128 at long K and wide N,
+# else 32 x 128) and K splits, ragged M / N, and its activation copies:
+# 16-byte (K % 16 == 0), 4-byte (K = 100, 300, 1000) and byte loads
+# (K = 513); bit-bert-base's prefill up and decode down sites
+BINARY_SHAPES = SHAPES + [
+    (m, k, n) for m in (16, 17, 35, 64, 65, 130) for k in (100, 1000, 4096, 14336)
+    for n in (33, 72, 1024, 4500)
+] + [(128, 768, 3072), (1, 3072, 768), (4, 4096, 1024)]
+
+
+@pytest.mark.parametrize("m,k,n", BINARY_SHAPES)
 def test_binary_qmm_equals_plain(dev, m, k, n):
     g = torch.Generator(device=dev).manual_seed(m * 7 + n)
     a = torch.randint(-128, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
@@ -95,8 +105,16 @@ def test_popcount_qmm_equals_plain(dev, m, k, n):
     assert torch.equal(got, ref.popcount_qmm_ref(ap, bp, k))
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 32, 1), (7, 100, 33), (128, 64, 128), (128, 768, 3072)])
-@pytest.mark.parametrize("a_bits,b_bits", [(2, 2), (4, 4), (8, 8), (1, 4)])
+# K4's tiles (short K, 16 rows up to M = 64, 32 or 64 rows above), its 4-byte
+# copy path (Kw % 4 != 0) and every pairing of one plane and 2 .. 8 planes
+@pytest.mark.parametrize(
+    "m,k,n",
+    [(1, 32, 1), (7, 100, 33), (128, 64, 128), (128, 768, 3072), (35, 4096, 1024),
+     (130, 513, 129), (16, 1000, 72)],
+)
+@pytest.mark.parametrize(
+    "a_bits,b_bits", [(2, 2), (4, 4), (8, 8), (1, 4), (3, 5), (1, 8), (8, 1), (1, 1)]
+)
 def test_bitserial_qmm_equals_plain(dev, m, k, n, a_bits, b_bits):
     g = torch.Generator(device=dev).manual_seed(m * 11 + n + a_bits)
     ap = packing.pack_bitplanes(torch.randint(0, 2**a_bits, (m, k), generator=g, device=dev), a_bits, axis=-1)
