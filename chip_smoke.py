@@ -11,15 +11,19 @@ Phases (each prints its own lines):
 
 1. card and build -- ``nvidia-smi`` name and power limit; every kernel of
    ``src/repro_torch/csrc`` compiled at once by ``nvcc`` for ``sm_90a``.
-2. kernels against their plain PyTorch versions on the card, at the shapes
+2. the ``mma.sync`` rates K3's design rests on (binary m16n8k256 beside
+   int8 m16n8k32, issued back to back from registers by every SM); then
+   kernels against their plain PyTorch versions on the card, at the shapes
    the main paths give them: ``binary_qmm`` (K1) equal int32 (at
    granite-8b's and bit-bert-base's sites, with the tile and K splits its
    plan chose), ``fused_qmm`` (K2)
-   bitwise-equal float32, ``popcount_qmm`` (K3) and
+   bitwise-equal float32, ``popcount_qmm`` (K3, with its plan's tile and
+   K splits, and K4 at A1xA1 -- the same sum -- timed beside it) and
    ``bitserial_qmm`` (K4) equal int32.  Each is timed on the device (a
    replayed CUDA graph, weights rotated through more than the 50 MB L2, as
    a decode finds them) and as issued eagerly from Python, beside its
-   bound, its plain version and one PyTorch call computing the same
+   bound (K3's operations at the binary rate ``PEAK_B1_OPS_PER_S``), its
+   plain version and one PyTorch call computing the same
    function (``library_ms``; a yardstick the port never calls).  K2's rows
    with M > 16 add ``torch._int_mm`` on its integer core (``int_mm_ms``).
 3. main path: granite-8b at full width and depth (36 layers, random
@@ -68,6 +72,10 @@ import torch  # noqa: E402
 # H100 SXM data sheet: HBM3 rate and dense int8 tensor-core rate (700 W part).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS_PER_S = 1979e12
+# Hopper publishes no binary (1-bit) tensor-core rate.  An m16n8k256 .b1 mma
+# does 8x the operations of an m16n8k32 int8 one and issues at about the same
+# rate (phase 2's ``mma_rates``), so K3's peak is taken as 8x the int8 one.
+PEAK_B1_OPS_PER_S = 8 * PEAK_INT8_OPS_PER_S
 L2_BYTES = 50 * 2**20
 SITES_PER_LAYER = 7  # attn.q/k/v/o, ffn.up/gate/down
 BERT_SITES_PER_LAYER = 6  # attn.q/k/v/o, ffn.up/down (no gate: a plain gelu FFN)
@@ -126,9 +134,84 @@ def device_ms(calls, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: int, ops: int):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_INT8_OPS_PER_S
+def bound(nbytes: int, ops: int, ops_per_s: float = PEAK_INT8_OPS_PER_S):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# The route K3 took, kept visible: each ``mma.sync`` product issued back to
+# back from registers by every SM (4 blocks of 8 warps an SM, 4 independent
+# accumulators a warp), the binary one beside the int8 one.
+MMA_RATE_LOOPS = {  # name -> (PTX of one product, operations it counts)
+    "b1 m16n8k256 .and.popc": ("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc",
+                               2 * 16 * 8 * 256),
+    "s8 m16n8k32": ("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32", 2 * 16 * 8 * 32),
+}
+_MMA_RATE_SRC = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+#define MMA_LOOP(NAME, PTX)                                                            \
+  __global__ void NAME(int* out, int iters) {                                         \
+    const uint32_t a0 = threadIdx.x * 0x9E3779B9u, a1 = a0 ^ 0x5555u, a2 = ~a0,     \
+                   a3 = a0 * 3u, b0 = a0 >> 3, b1 = a0 * 7u;                         \
+    int c[4][4] = {};                                                                 \
+    for (int i = 0; i < iters; ++i) {                                                 \
+      _Pragma("unroll") for (int j = 0; j < 4; ++j) {                                 \
+        asm volatile(PTX " {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"  \
+                     : "+r"(c[j][0]), "+r"(c[j][1]), "+r"(c[j][2]), "+r"(c[j][3])     \
+                     : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));         \
+      }                                                                               \
+    }                                                                                 \
+    int s = 0;                                                                        \
+    for (int j = 0; j < 4; ++j) s += c[j][0] + c[j][1] + c[j][2] + c[j][3];           \
+    out[blockIdx.x * blockDim.x + threadIdx.x] = s;                                   \
+  }
+"""
+
+
+def start_mma_rate_build(build):
+    """Write the rate loops' source under ``build/`` and start ``nvcc`` on it
+    (beside the kernels' builds); returns ``(library path, process)``."""
+    tune = build.BUILD_DIR.parent / "tune"
+    tune.mkdir(parents=True, exist_ok=True)
+    src, lib = tune / "mma_rate.cu", tune / "libmma_rate.so"
+    launches = "\n".join(f"  if (which == {i}) loop{i}<<<blocks, threads, 0, s>>>(out, iters);"
+                         for i in range(len(MMA_RATE_LOOPS)))
+    src.write_text(_MMA_RATE_SRC + "".join(
+        f'MMA_LOOP(loop{i}, "{ptx}")\n' for i, (ptx, _) in enumerate(MMA_RATE_LOOPS.values())
+    ) + 'extern "C" int run(int which, int blocks, int threads, int iters, int* out, void* st) {\n'
+        "  auto s = static_cast<cudaStream_t>(st);\n" + launches + "\n  return cudaGetLastError();\n}\n")
+    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib), str(src)]
+    return lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def mma_rates(job) -> dict:
+    """``name -> operations per second`` of each of ``MMA_RATE_LOOPS``."""
+    import ctypes
+
+    lib_path, proc = job
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the mma rate loops:\n{out}")
+    lib = ctypes.CDLL(str(lib_path))
+    lib.run.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    lib.run.restype = ctypes.c_int
+    blocks = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    threads, iters = 256, 4096
+    buf = torch.empty(blocks * threads, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    rates = {}
+    for i, (name, (_, ops)) in enumerate(MMA_RATE_LOOPS.items()):
+        for _ in range(2):  # warm-up, then timed
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            err = lib.run(i, blocks, threads, iters, buf.data_ptr(), stream)
+            end.record()
+            torch.cuda.synchronize()
+            if err:
+                raise RuntimeError(f"mma rate loop {name}: cudaError {err}")
+        rates[name] = blocks * threads // 32 * iters * 4 * ops / (start.elapsed_time(end) * 1e-3)
+    return rates
 
 
 # ---------------------------------------------------------------------------
@@ -181,9 +264,10 @@ def _library_mm(a_i8: torch.Tensor, b_i8: torch.Tensor):
     return "torch.matmul (float32, pre-unpacked)", lambda: a32 @ b32
 
 
-def _bit_row(shape, bits, got, want, ms_calls, plain_fn, nbytes, lib):
+def _bit_row(shape, bits, got, want, ms_calls, plain_fn, nbytes, lib,
+             ops_per_s=PEAK_INT8_OPS_PER_S):
     m, k, n = shape
-    nb, bb = bound(nbytes, 2 * m * k * n)
+    nb, bb = bound(nbytes, 2 * m * k * n, ops_per_s)
     lib_name, lib_fn = lib
     return dict(
         shape=[m, k, n], bits=list(bits), max_abs_err=int((got - want).abs().max()),
@@ -196,10 +280,11 @@ def _bit_row(shape, bits, got, want, ms_calls, plain_fn, nbytes, lib):
 def _log_row(name: str, r) -> None:
     int_mm = f" int_mm_ms={r['int_mm_ms']:.4f} [{r['int_mm']}]" if r.get("int_mm_ms") is not None else ""
     plan = f" tile {r['tile'][0]}x{r['tile'][1]} splits {r['splits']}" if "tile" in r else ""
+    k4 = f" bitserial_qmm_a1_ms={r['k4_a1_ms']:.4f}" if "k4_a1_ms" in r else ""
     log(f"  {name:13s} {str(tuple(r['shape'])):18s} bits {r['bits']}{plan} equal "
         f"ms={r['ms']:.4f} eager_ms={r['eager_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
         f"({r['bound_by']}) plain_ms={r['plain_ms']:.3f} library_ms={r['library_ms']:.4f} "
-        f"[{r['library']}]{int_mm}")
+        f"[{r['library']}]{int_mm}{k4}")
 
 
 def check_kernels(gen: torch.Generator):
@@ -307,6 +392,7 @@ def check_bit_kernels(gen: torch.Generator):
     from repro_torch.core import packing
     from repro_torch.kernels import ref
     from repro_torch.kernels.bitserial_qmm import bitserial_qmm
+    from repro_torch.kernels.popcount_qmm import plan as popcount_plan
     from repro_torch.kernels.popcount_qmm import popcount_qmm
 
     dev = gen.device
@@ -329,7 +415,15 @@ def check_bit_kernels(gen: torch.Generator):
             raise AssertionError(f"{lib[0]} disagrees with popcount_qmm_ref at {(m, k, n)}")
         rows["popcount_qmm"].append(_bit_row(
             (m, k, n), (1, 1), got, want, [lambda w=w: popcount_qmm(ap, w) for w in bps],
-            lambda: ref.popcount_qmm_ref(ap, bps[0], k), 4 * (m * kw + kw * n) + 4 * m * n, lib))
+            lambda: ref.popcount_qmm_ref(ap, bps[0], k), 4 * (m * kw + kw * n) + 4 * m * n, lib,
+            PEAK_B1_OPS_PER_S))
+        # K4 at A1xA1 computes the same sum on the same layout (the u8
+        # tensor-core route K3 did not take); timed beside K3 to keep it visible
+        if not torch.equal(bitserial_qmm(ap[None], bps[0][None]), want):
+            raise AssertionError(f"bitserial_qmm A1xA1 != popcount_qmm_ref at {(m, k, n)}")
+        bm, bn, splits = popcount_plan(m, k, n, dev)
+        rows["popcount_qmm"][-1].update(tile=[bm, bn], splits=splits, k4_a1_ms=device_ms(
+            [lambda w=w: bitserial_qmm(ap[None], w[None]) for w in bps], 20 * len(bps)))
         del bps, a, b
     for (m, k, n), xb, yb in BITSERIAL_CASES:
         kw = packing.packed_len(k, 1)
@@ -629,6 +723,7 @@ def run(device: torch.device, model_cfg, bert_cfg) -> int:
     smi = nvidia_smi()
     log(f"[1] card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
     t = time.perf_counter()
+    rate_job = start_mma_rate_build(build)
     libs = build.build_all()
     log(f"[1] built {sorted(libs)} in {time.perf_counter() - t:.1f} s (parallel nvcc, sm_90a)")
     for name, (secs, report) in sorted(build.BUILD_LOG.items()):
@@ -637,6 +732,9 @@ def run(device: torch.device, model_cfg, bert_cfg) -> int:
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
+    rates = mma_rates(rate_job)
+    log("[2] mma.sync from registers, every SM: " + ", ".join(
+        f"{name} {r / 1e12:.1f} TOP/s" for name, r in rates.items()))
     log("[2] kernels against their plain versions (M, K, N):")
     rows = check_kernels(gen)
     rows.update(check_bit_kernels(gen))

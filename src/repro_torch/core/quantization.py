@@ -122,14 +122,17 @@ _SUM_WINDOW = 32
 
 def _tree_sum_rows(x: torch.Tensor) -> torch.Tensor:
     """Sum over axis -2 in a fixed order: windows of 32 rows, each added in
-    sequence, then the window sums likewise until at most 32 remain.  This
-    is the order of the reference's compiled float32 reduce, so the weight
-    scales come out bit-identical to it (checked where K is a multiple of
-    32 at every level, as at granite-8b's widths)."""
+    sequence, then the window sums likewise until at most 32 remain, and
+    those in sequence.  Where a level's rows are not a multiple of 32, its
+    zero padding is split between both ends, ``pad // 2`` rows before the
+    data and ``pad - pad // 2`` after, as XLA pads the reduce-window levels
+    it rewrites a long reduce into.  This is the order of the reference's
+    compiled float32 reduce, so the weight scales come out bit-identical to
+    it at every K."""
     while x.shape[-2] > _SUM_WINDOW:
         pad = (-x.shape[-2]) % _SUM_WINDOW
         if pad:
-            x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+            x = torch.nn.functional.pad(x, (0, 0, pad // 2, pad - pad // 2))
         x = x.reshape(*x.shape[:-2], -1, _SUM_WINDOW, x.shape[-1])
         s = x[..., 0, :]
         for i in range(1, _SUM_WINDOW):

@@ -1,6 +1,7 @@
-// The int8 tensor-core QMM mainloop's device helpers, shared by K1
-// binary_qmm.cu and K4 bitserial_qmm.cu.  The design is K2 fused_qmm.cu's,
-// which keeps its own copies of the staging and expansion helpers:
+// The tensor-core QMM mainloop's device helpers, shared by K1
+// binary_qmm.cu, K3 popcount_qmm.cu and K4 bitserial_qmm.cu.  The int8
+// design is K2 fused_qmm.cu's, which keeps its own copies of the staging and
+// expansion helpers:
 //  * cp.async copies of packed words (or int8 bytes) into shared memory,
 //    zero-filled past the ragged edges, so the later phases need no edge
 //    branches;
@@ -8,6 +9,7 @@
 //    (a row per output row or column, rows padded by 16 bytes so ldmatrix
 //    and the stores hit every bank);
 //  * ldmatrix fragments multiplied by mma.sync m16n8k32 into int32.
+// K3 multiplies the packed words themselves (mma_b1: AND, then popcount).
 #pragma once
 
 #include <cstdint>
@@ -68,6 +70,20 @@ __device__ __forceinline__ void mma_k32(int (&c)[4], const uint32_t (&a)[4], uin
         : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
   }
+}
+
+// c += popc(a & b) summed over K: a (16x256 bits, row), b (256x8 bits, col).
+// A word of a register holds 32 consecutive K bits; the fragments are the
+// u8 ones of mma_k32 with words for bytes: a = a[g][t], a[g+8][t],
+// a[g][t+4], a[g+8][t+4] and b = b[t][g], b[t+4][g] of an 8-word K step
+// (g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void mma_b1(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---- bits to bytes -------------------------------------------------------

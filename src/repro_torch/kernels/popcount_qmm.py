@@ -5,27 +5,50 @@ replaces the Pallas TPU kernel ``repro/kernels/popcount_qmm.py::popcount_qmm``.
 For CUDA tensors it launches the kernel (or raises); for CPU tensors it
 runs the plain version ``ref.popcount_qmm_ref``.  ``popcount_qmm.launches``
 counts kernel launches and nothing else.
+
+The kernel multiplies the packed words themselves on the binary tensor
+cores (``mma.sync`` m16n8k256 ``.b1 .and.popc``).  Its tile and its split
+of K across blocks come from one place, the C function
+``popcount_qmm_plan``, which the launch follows and :func:`plan` reads for
+logs and tests.  Where the plan splits K the launch zero-fills the output
+itself (split partials are added atomically).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build, ref
 
-__all__ = ["popcount_qmm"]
+__all__ = ["popcount_qmm", "plan"]
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("popcount_qmm")
     if lib.popcount_qmm_launch.argtypes is None:  # pointers must not pass as 32-bit ints
-        lib.popcount_qmm_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        lib.popcount_qmm_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p
         ]
         lib.popcount_qmm_launch.restype = ctypes.c_int
+        lib.popcount_qmm_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.popcount_qmm_plan.restype = None
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def plan(m: int, k: int, n: int, device: torch.device) -> tuple:
+    """``(block rows, block columns, K splits)`` of the launch for ``(m, k, n)``
+    (``k`` bits, packed into ``ceil(k/32)`` words) on the CUDA ``device``."""
+    out = (ctypes.c_int * 3)()
+    _lib().popcount_qmm_plan(m, -(-k // 32), n, _sms(device), ctypes.addressof(out))
+    return tuple(out)
 
 
 def popcount_qmm(a_packed: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
@@ -58,7 +81,7 @@ def popcount_qmm(a_packed: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor
     if m == 0 or n == 0:
         return out
     err = _lib().popcount_qmm_launch(
-        a_packed.data_ptr(), b_packed.data_ptr(), out.data_ptr(), m, kw, n,
+        a_packed.data_ptr(), b_packed.data_ptr(), out.data_ptr(), m, kw, n, _sms(dev),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:

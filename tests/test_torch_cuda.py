@@ -92,9 +92,15 @@ def test_fused_qmm_bitwise_equals_plain(dev, m, k, n, a_bits, b_bits):
 
 # bit-bert-base's sites (K = 768 / 3072) at prefill and decode, plus ragged
 POPCOUNT_SHAPES = [(1, 32, 1), (7, 100, 33), (130, 513, 129), (4, 768, 3072), (128, 3072, 768)]
+# K3's plan classes -- 32 x 64 tiles (the grid fills the SMs), 16 x 32
+# tiles, 16 x 32 with K split over 2 and over 5 blocks (a ragged last
+# split) -- and K words not a multiple of the 8-word K step: 32 words with
+# a ragged last word (K = 1000), 10 (4-byte copies) and 63
+POPCOUNT_PLAN_SHAPES = [(128, 768, 3072), (128, 768, 768), (4, 4096, 1024), (1, 14336, 768),
+                        (16, 1000, 72), (33, 300, 40), (5, 2000, 100)]
 
 
-@pytest.mark.parametrize("m,k,n", POPCOUNT_SHAPES)
+@pytest.mark.parametrize("m,k,n", POPCOUNT_SHAPES + POPCOUNT_PLAN_SHAPES)
 def test_popcount_qmm_equals_plain(dev, m, k, n):
     g = torch.Generator(device=dev).manual_seed(m * 3 + n)
     ap = packing.pack_bits(torch.randint(0, 2, (m, k), generator=g, device=dev), 1, axis=-1)
@@ -103,6 +109,16 @@ def test_popcount_qmm_equals_plain(dev, m, k, n):
     got = K3.popcount_qmm(ap, bp)
     assert K3.popcount_qmm.launches == before + 1
     assert torch.equal(got, ref.popcount_qmm_ref(ap, bp, k))
+
+
+def test_popcount_qmm_plan_classes(dev):
+    """The shapes above reach every tile and split class of the plan."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if sms != 132:  # the plan's classes follow the SM count
+        pytest.skip(f"POPCOUNT_PLAN_SHAPES were chosen for the H100 SXM's 132 SMs, not {sms}")
+    plans = [K3.plan(m, k, n, dev) for m, k, n in POPCOUNT_PLAN_SHAPES]
+    assert (32, 64, 1) in plans and (16, 32, 1) in plans and (16, 32, 2) in plans
+    assert max(splits for _, _, splits in plans) > 2
 
 
 # K4's tiles (short K, 16 rows up to M = 64, 32 or 64 rows above), its 4-byte

@@ -49,7 +49,15 @@ def test_quantize_activation_rounds_half_to_even():
     assert t.mantissa.tolist() == [[0, 0, 2, 2, 3]]
 
 
-@pytest.mark.parametrize("k,n", [(32, 5), (64, 48), (128, 16), (768, 8), (3072, 8), (4096, 8)])
+# Every reduction width of the served configs (bit-bert-base 768 / 3072,
+# granite-8b 4096 / 14336), and widths that are not a multiple of 32 at some
+# level of the window sum, where the reference pads a level at both ends
+# (1056: an odd pad of 31).
+@pytest.mark.parametrize(
+    "k,n",
+    [(32, 5), (64, 48), (128, 16), (768, 8), (3072, 8), (4096, 8), (14336, 8)]
+    + [(k, 8) for k in (100, 1000, 1056, 1408, 1536, 2560, 5376, 7680, 10944)],
+)
 def test_binarize_weight_exact(k, n):
     """Scales too: the port sums |w| in the reference's compiled order."""
     w = (RNG.standard_normal((k, n)) * 0.05).astype(np.float32)
