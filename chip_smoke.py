@@ -28,29 +28,56 @@ Phases (each prints its own lines):
    with M > 16 add ``torch._int_mm`` on its integer core (``int_mm_ms``).
 3. main path: granite-8b at full width and depth (36 layers, random
    weights from a seed) served through ``ServeEngine`` with the ``pallas``
-   backend: 8 requests, prompts of 32-128 tokens, 16 new tokens each.
-   Checks: every request ``ok``; K1 launched 7 x 36 times per forward;
-   greedy tokens equal ``serve_sequential``; one prefill and decode step
-   bitwise equal with K1 swapped for its plain version.
+   backend: 8 requests, prompts of 32-128 tokens, 16 new tokens each.  The
+   engine prefills each prompt eagerly and decodes by replaying its
+   compiled step (``make_decode_step``, a CUDA graph captured on the first
+   tick).  Checks: every request ``ok``; K1's wrapper, its count zeroed
+   just before the run and read just after, launched 7 x 36 times for
+   each eager prefill and twice that for the capturing tick (its warm-up
+   run, then the capture, which records each launch once; a replay calls
+   no wrapper), and no other kernel's; greedy tokens equal
+   ``serve_sequential``.  Logged: the capture's time and the graph's
+   memory pool, the replayed tick's time, tokens/s and the eager
+   prefills' share of the run.  Then, from one 4-slot cache, 5 eager ticks
+   beside 5 calls of a compiled step, logits and every cache leaf bitwise
+   equal at each tick; the eager and the replayed tick timed (wall,
+   synchronised) and profiled (device busy, device span from the first
+   operation to the last, idle share), K1 counted 7 x 36 times on the
+   device in the profiled replay; the host time of the compiled call's
+   check of its captured tensors; one eager prefill profiled; one prefill
+   and decode step bitwise equal with K1 swapped for its plain version.
 4. ``fused`` pass: the same model with ``backend="fused"`` for one prefill
    and 8 decode ticks; K2 launched 7 x 36 times per forward; every step's
    logits bitwise equal with K2 swapped for its plain version on the same
-   tokens; logits against the ``pallas`` pass; then phase 3's 4-slot tick
-   and prefill profiled on the ``fused`` backend.
+   tokens; logits against the ``pallas`` pass; then phase 3's 4-slot tick,
+   eager beside replayed, bitwise equal, timed and profiled on the
+   ``fused`` backend (K2 7 x 36 times in the profiled replay), and its
+   prefill profiled.
 5. bit-bert-base (W1A1) at full width (12 layers, d_model 768, random
    weights from a seed) served through ``ServeEngine`` with the ``pallas``
    backend: 4 slots, max_len 512, 8 requests of 64-128 prompt tokens, 16
-   new tokens each.  Checks: every request ``ok``; K3 launched 6 x 12
-   times per forward and K1, K2, K4 never; greedy tokens equal
-   ``serve_sequential``; one prefill and decode step bitwise equal with K3
-   swapped for its plain version.  Then one prefill and one decode step of
-   each of bit-bert-base-a2 / -a4 / -a8 (K1, 6 x 12 launches per forward),
-   each bitwise equal with K1 swapped for its plain version.
+   new tokens each, decoded by the replayed step as in phase 3.  Checks:
+   every request ``ok``; K3's wrapper counted as K1's in phase 3 (6 x 12
+   a forward) and K1, K2, K4 never; greedy tokens equal ``serve_sequential``; the 4-slot tick,
+   eager beside replayed, as in phase 3 (K3 6 x 12 times in the profiled
+   replay); the paper's metric, a 128-token prefill, through
+   ``make_prefill`` (one capture, then replays) bitwise equal to the eager
+   prefill of the same tokens, logits and cache, both timed and profiled;
+   one prefill and decode step bitwise equal with K3 swapped for its plain
+   version.  Then one prefill and one decode step of each of
+   bit-bert-base-a2 / -a4 / -a8 (K1, 6 x 12 launches per forward), each
+   bitwise equal with K1 swapped for its plain version.
 6. act x act: ``qmm(x, y, backend="pallas")`` on two multi-bit activations
    at BERT-base attention (per-head Q.K^T) and FFN shapes, through K4,
    bitwise equal to the plain ``popcount`` backend.
 7. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and last
-   ``{"ok": true, "device": {...}}``.
+   ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is its
+   wrapper's count over its main path's run alone (phase 3's engine run for
+   K1, phase 4's fused pass for K2, phase 5's engine run for K3, phase 6
+   for K4); ``replays`` is the number of replayed ticks in that run, and
+   ``replay_launches`` the kernel's launches counted on the device in one
+   profiled replay of that path's decode graph (K3 adds
+   ``prefill_replay_launches``, of the 128-token prefill graph).
 """
 
 from __future__ import annotations
@@ -496,10 +523,16 @@ def greedy_steps(Z, cfg, params, prompt, n_decode: int, device, tokens=None):
     return out, fed
 
 
+KERNEL_NAMES = ("binary_qmm", "fused_qmm", "popcount_qmm", "bitserial_qmm")
+
+
 def profile_forward(fn):
     """Run ``fn`` once under ``torch.profiler`` (CPU + CUDA activities).
-    Returns (wall ms, device-busy ms, kernel launches, {kernel: device ms})
-    with device time summed over CUDA kernel events."""
+    Returns (wall ms, device-busy ms, device operations, {kernel: device
+    ms}, {kernel: launches}, device span ms) summed over the CUDA events
+    (kernels, memsets and copies, whether launched one by one or by a graph
+    replay); the span runs from the first device operation's start to the
+    last one's end (None where the trace gives no device timestamps)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -508,22 +541,202 @@ def profile_forward(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
-    by_kernel, launches = {}, 0
+    by_kernel, counts = {}, {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_kernel[e.key] = by_kernel.get(e.key, 0.0) + e.self_device_time_total / 1e3
-            launches += e.count
-    return wall, sum(by_kernel.values()), launches, by_kernel
+            counts[e.key] = counts.get(e.key, 0) + e.count
+    ranges = [(e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    span = (max(r[1] for r in ranges) - min(r[0] for r in ranges)) / 1e3 if ranges else None
+    return wall, sum(by_kernel.values()), sum(counts.values()), by_kernel, counts, span
 
 
-def report_profile(tag: str, wall, busy, launches, by_kernel, phase: int = 3) -> None:
-    ours = {name: sum(ms for k, ms in by_kernel.items() if name in k)
-            for name in ("binary_qmm", "fused_qmm", "popcount_qmm", "bitserial_qmm")}
+def ours(by_kernel) -> dict:
+    """Per port kernel, the sum over the profiler's names that contain it."""
+    return {name: sum(v for k, v in by_kernel.items() if name in k) for name in KERNEL_NAMES}
+
+
+def report_profile(tag: str, wall, busy, launches, by_kernel, counts, span, phase: int = 3,
+                   wall_ms=None) -> None:
+    """Log one profile; with ``wall_ms`` (the same step timed without the
+    profiler, which stretches wall time) the idle share is read against it.
+    The device span minus busy is the card's own idle time between the
+    step's operations; wall minus span is the host's part."""
+    wall_ms = wall if wall_ms is None else wall_ms
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
-    log(f"[{phase}] profile {tag}: wall {wall:.2f} ms, device busy {busy:.2f} ms "
-        f"(idle share {1 - busy / wall:.3f}), {launches} kernel launches; "
-        + ", ".join(f"{name} {ms:.3f} ms" for name, ms in ours.items()))
+    gaps = "not measured" if span is None else f"{span:.2f} ms (gaps {span - busy:.2f} ms)"
+    log(f"[{phase}] profile {tag}: wall {wall_ms:.2f} ms (profiled {wall:.2f}), device busy "
+        f"{busy:.2f} ms (idle share {1 - busy / wall_ms:.3f}), device span {gaps}, {launches} "
+        f"device operations; "
+        + ", ".join(f"{name} {ms:.3f} ms x {ours(counts)[name]}" for name, ms in ours(by_kernel).items()))
     log(f"[{phase}]   top kernels: " + "; ".join(f"{k[:60]} {ms:.3f} ms" for k, ms in top))
+
+
+# ---------------------------------------------------------------------------
+# phases 3-5: the compiled steps (CUDA graphs) against the eager ones
+# ---------------------------------------------------------------------------
+
+
+REPLAY_REPS = 20  # compiled calls (and as many bare replays) timed per step
+
+
+def wall_ms(fn, reps: int = 5, setup=lambda: None) -> float:
+    """Median host time of ``fn(setup())`` over ``reps`` calls, each
+    synchronised; ``setup`` runs before each call, untimed."""
+    times = []
+    for _ in range(reps):
+        arg = setup()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn(arg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def replay_times(call, step, reps: int = 20, setup=lambda: None):
+    """Medians over ``reps`` alternating pairs (``setup`` untimed before
+    each): the host wall of ``call()``, synchronised -- a compiled step's
+    whole call -- and the device span of a bare ``step.graph.replay()``
+    between CUDA events, with the host time its launch took.  Wall minus
+    span is the host's work around the replay (checking the captured
+    tensors, the token copy, the logits clone)."""
+    walls, spans, launch = [], [], []
+    for _ in range(reps):
+        setup()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        setup()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t = time.perf_counter()
+        step.graph.replay()
+        launch.append((time.perf_counter() - t) * 1e3)
+        end.record()
+        torch.cuda.synchronize()
+        spans.append(start.elapsed_time(end))
+    return float(np.median(walls)), float(np.median(spans)), float(np.median(launch))
+
+
+def check_us(step, params, cache, reps: int = 50) -> float:
+    """Median host time, in microseconds, of the check every compiled call
+    makes before it replays: are these the captured tensors?"""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        if not step.captured_on(params, cache):
+            raise AssertionError("the compiled step does not recognise its captured tensors")
+        times.append((time.perf_counter() - t) * 1e6)
+    return float(np.median(times))
+
+
+def pool_bytes(graph):
+    """(reserved, allocated) bytes of ``graph``'s private memory pool: the
+    segments ``torch.cuda.memory_snapshot()`` files under its pool id.  None
+    where the snapshot names no pools."""
+    segments = torch.cuda.memory_snapshot()
+    if any("segment_pool_id" not in s for s in segments):
+        return None
+    mine = [s for s in segments if tuple(s["segment_pool_id"]) == tuple(graph.pool())]
+    return sum(s["total_size"] for s in mine), sum(s["allocated_size"] for s in mine)
+
+
+def log_capture(phase: int, tag: str, step, ms: float) -> None:
+    pool = pool_bytes(step.graph)
+    mem = "not measured" if pool is None else f"{pool[0] / 1e9:.3f} GB reserved, {pool[1] / 1e9:.3f} GB in use"
+    log(f"[{phase}] {tag} capture: {ms:.1f} ms (warm-up run included); the graph's memory pool {mem}")
+
+
+def graph_vs_eager(Z, make_decode_step, cfg, params, cache, tokens, kernel, per_forward: int,
+                   phase: int, tag: str, n_ticks: int = 5) -> int:
+    """From two copies of a filled packed ``cache``: ``n_ticks`` eager decode
+    ticks beside ``n_ticks`` calls of a compiled step (one capture, then
+    replays), logits and every cache leaf held bitwise equal at each tick;
+    then the eager and the replayed tick timed (host clock, synchronised)
+    and each profiled once.  The capturing call goes through ``kernel``'s
+    wrapper 2 x ``per_forward`` times (warm-up run, capture) and a replay
+    not at all; the profiled replay must run ``kernel`` ``per_forward``
+    times on the device.  Returns that device count."""
+    batch, max_len = cache["layers"][0]["k"].shape[:2]
+    eager, graphed = Z.cache_copy(cache), Z.cache_copy(cache)
+    step = make_decode_step(cfg, batch, max_len, device=tokens.device)
+    tok, calls = tokens, []
+    for i in range(n_ticks):
+        want, _ = Z.decode_step(params, tok, cfg, eager)
+        before = kernel.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got, _ = step(params, tok, graphed)
+        torch.cuda.synchronize()
+        if i == 0:
+            capture_ms = (time.perf_counter() - t) * 1e3
+        calls.append(kernel.launches - before)
+        if not torch.equal(got, want) or not Z.caches_equal(graphed, eager):
+            raise AssertionError(f"{tag}: replayed tick {i} not bitwise equal to the eager tick")
+        tok = want.argmax(-1)
+    if (step.captures, step.replays) != (1, n_ticks - 1) or calls != [2 * per_forward] + [0] * (n_ticks - 1):
+        raise AssertionError(f"{tag}: {step.captures} captures, {step.replays} replays, "
+                             f"{kernel.__name__} wrapper calls per compiled call {calls}")
+    log(f"[{phase}] {tag}: {n_ticks} ticks (1 capture + {n_ticks - 1} replays) bitwise equal to the "
+        f"eager step, logits and every cache leaf; {kernel.__name__} wrapper calls per compiled "
+        f"call {calls} (warm-up run + capture, then replays, which call no wrapper)")
+    log_capture(phase, tag, step, capture_ms)
+    eager_ms = wall_ms(lambda _: Z.decode_step(params, tok, cfg, eager))
+    replay_ms, span, launch = replay_times(lambda: step(params, tok, graphed), step, reps=REPLAY_REPS)
+    check = check_us(step, params, graphed)
+    report_profile(f"{tag} eager tick", *profile_forward(lambda: Z.decode_step(params, tok, cfg, eager)),
+                   phase=phase, wall_ms=eager_ms)
+    prof = profile_forward(lambda: step(params, tok, graphed))
+    report_profile(f"{tag} replayed tick", *prof, phase=phase, wall_ms=replay_ms)
+    on_device = ours(prof[4])[kernel.__name__]
+    if on_device != per_forward:
+        raise AssertionError(f"{tag}: the profiled replay ran {kernel.__name__} {on_device} times, "
+                             f"expected {per_forward}")
+    log(f"[{phase}] {tag}: tick wall eager {eager_ms:.2f} ms, replayed {replay_ms:.2f} ms "
+        f"({eager_ms / replay_ms:.1f}x); a bare graph replay spans {span:.2f} ms between CUDA events "
+        f"(its launch {launch:.2f} ms of host time); the captured-tensor check {check:.0f} us of host "
+        f"time a call; {kernel.__name__} {on_device} times in the profiled replay")
+    del step, eager, graphed
+    torch.cuda.empty_cache()
+    return on_device
+
+
+def fill_cache(Z, cfg, params, prompts, device, max_len: int = 512):
+    """A packed cache with one row per prompt, each prefilled eagerly."""
+    cache = Z.init_cache(len(prompts), max_len, cfg, device=device)
+    for i, prompt in enumerate(prompts):
+        slot = Z.init_slot_cache(max_len, cfg, device=device)
+        Z.prefill(params, torch.as_tensor(np.asarray(prompt)[None], device=device), cfg, slot)
+        Z.cache_insert(cache, slot, i)
+    return cache
+
+
+def engine_counts(engine, kernels, launched, per_forward: int, main, phase: int) -> None:
+    """Check the engine run's wrapper launches ``launched`` (counts zeroed
+    just before the run, read just after): ``main`` ``per_forward`` times
+    for each eager prefill and twice that for the capturing tick (warm-up
+    run, capture), every other kernel never; log the ticks."""
+    step = engine.decode_fn
+    events = engine.last_events
+    prefills = sum(e["kind"] == "prefill" for e in events)
+    compiles = [e["ms"] for e in events if e["kind"] == "compile"]
+    ticks = [e["ms"] for e in events if e["kind"] == "decode_tick"]
+    got = {k.__name__: n for k, n in zip(kernels, launched)}
+    want = {k.__name__: per_forward * (prefills + 2 * len(compiles)) if k is main else 0 for k in kernels}
+    if got != want or len(compiles) != 1 or step.captures != 1 or step.replays != len(ticks):
+        raise AssertionError(f"engine launches {got}, expected {want}; {len(compiles)} capturing "
+                             f"ticks, {step.captures} captures, {step.replays} replays, {len(ticks)} ticks")
+    log(f"[{phase}] {main.__name__} launches {got[main.__name__]} = {per_forward} x ({prefills} eager "
+        f"prefills + 2 for the capturing tick: warm-up run and capture); the other kernels 0; "
+        f"{len(ticks)} replayed ticks ran the captured step, which calls no wrapper")
+    log_capture(phase, "engine decode step", step, compiles[0])
+    log(f"[{phase}] replayed decode tick ms (4 slots, synchronised, logits copy to the host "
+        f"excluded): median {np.median(ticks):.2f} mean {np.mean(ticks):.2f} min {np.min(ticks):.2f}")
 
 
 # ---------------------------------------------------------------------------
@@ -540,9 +753,13 @@ def _counts(kernels):
     return [k.launches for k in kernels]
 
 
-def serve_bitbert(Z, cfg_a1, device, Request, ServeEngine, serve_sequential, ops, ref, kernels) -> int:
-    """Serve bit-bert-base at full width through the engine; returns K3's
-    launches in the engine run."""
+def serve_bitbert(Z, cfg_a1, device, Request, ServeEngine, serve_sequential, make_decode_step,
+                  make_prefill, ops, ref, kernels) -> dict:
+    """Serve bit-bert-base at full width through the engine, hold its
+    compiled decode step and 128-token prefill to the eager ones; returns
+    K3's numbers for the JSON line: its wrapper launches in the engine run,
+    the run's replayed ticks, and its device launches in a profiled replay
+    of the decode and of the prefill graph."""
     from repro_torch.configs import get_config
 
     cfg = with_backend(cfg_a1, "pallas")
@@ -566,25 +783,20 @@ def serve_bitbert(Z, cfg_a1, device, Request, ServeEngine, serve_sequential, ops
     done = engine.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    k1, k2, k3_main, k4 = _counts(kernels)
-    prefill_ms = [e["ms"] for e in engine.last_events if e["kind"] == "prefill"]
-    tick_ms = [e["ms"] for e in engine.last_events if e["kind"] == "decode_tick"]
-    forwards = len(prefill_ms) + len(tick_ms)
+    launched = _counts(kernels)
     if not all(r.state == "ok" and len(r.output) == 16 for r in done):
         raise AssertionError(f"bit-bert requests not ok: {[(r.state, len(r.output)) for r in done]}")
-    if (k1, k2, k4) != (0, 0, 0) or k3_main != per_forward * forwards:
-        raise AssertionError(f"bit-bert launches K1 {k1}, K2 {k2}, K3 {k3_main}, K4 {k4}; expected K3 = "
-                             f"{per_forward} x {forwards} forwards and no other")
+    prefill_ms = [e["ms"] for e in engine.last_events if e["kind"] == "prefill"]
     n_tok = sum(len(r.output) for r in done)
     plens = [len(r.prompt) for r in done]
     log(f"[5] served {len(done)} requests (prompts {min(plens)}-{max(plens)} tokens, 16 new each, "
-        f"6 greedy + 2 at T=0.8) in {wall:.2f} s: {len(prefill_ms)} prefills, {len(tick_ms)} decode ticks")
-    log(f"[5] popcount_qmm launches {k3_main} = {per_forward} x {forwards} forwards; "
-        f"binary_qmm, fused_qmm, bitserial_qmm 0")
+        f"6 greedy + 2 at T=0.8) in {wall:.2f} s: {n_tok / wall:.1f} generated tokens/s end to end; "
+        f"eager exact-length prefills {sum(prefill_ms) / 1e3:.2f} s of it")
+    engine_counts(engine, kernels, launched, per_forward, kernels[2], phase=5)
+    path = dict(launches=launched[2], replays=engine.decode_fn.replays)
     log(f"[5] prefill ms: mean {np.mean(prefill_ms):.1f} (per prompt: "
         + ", ".join(f"{p}:{ms:.1f}" for p, ms in zip(plens, prefill_ms)) + ")")
-    log(f"[5] decode tick ms (4 slots): median {np.median(tick_ms):.2f} mean {np.mean(tick_ms):.2f}; "
-        f"{n_tok / wall:.1f} generated tokens/s end to end")
+    del engine
 
     seq = serve_sequential(cfg, params, requests(), max_len=512, seed=0, device=device)
     for got, want in zip(done, seq):
@@ -594,20 +806,15 @@ def serve_bitbert(Z, cfg_a1, device, Request, ServeEngine, serve_sequential, ops
     log(f"[5] engine greedy tokens equal serve_sequential for all 6 greedy requests "
         f"(sampled requests equal: {sampled_same}/2)")
 
-    cache = Z.init_cache(4, 512, cfg, device=device)
-    for i, r in enumerate(done[:4]):
-        slot = Z.init_slot_cache(512, cfg, device=device)
-        Z.prefill(params, torch.as_tensor(np.asarray(r.prompt)[None], device=device), cfg, slot)
-        Z.cache_insert(cache, slot, i)
+    cache = fill_cache(Z, cfg, params, [r.prompt for r in done[:4]], device)
     step = torch.tensor([r.output[0] for r in done[:4]], device=device)
-    report_profile("decode tick (4 slots)", *profile_forward(
-        lambda: Z.decode_step(params, step, cfg, cache)), phase=5)
-    long = max(done, key=lambda r: len(r.prompt))
-    tokens = torch.as_tensor(np.asarray(long.prompt)[None], device=device)
-    report_profile(f"prefill ({len(long.prompt)} tokens)", *profile_forward(
-        lambda: Z.prefill(params, tokens, cfg, Z.init_slot_cache(512, cfg, device=device))), phase=5)
+    path["replay_launches"] = graph_vs_eager(Z, make_decode_step, cfg, params, cache, step, kernels[2],
+                                           per_forward, phase=5, tag="W1A1 decode tick (4 slots)")
     del cache
+    path["prefill_replay_launches"] = compiled_prefill(Z, make_prefill, cfg, params, kernels[2],
+                                                     per_forward, device)
 
+    long = max(done, key=lambda r: len(r.prompt))
     prompt = np.asarray(long.prompt)
     kern, fed = greedy_steps(Z, cfg, params, prompt, 1, device)
     plain = lambda a, b: ref.popcount_qmm_ref(a, b, 32 * a.shape[1])  # noqa: E731
@@ -655,7 +862,73 @@ def serve_bitbert(Z, cfg_a1, device, Request, ServeEngine, serve_sequential, ops
             f"logits bitwise equal with binary_qmm swapped for binary_qmm_ref")
     del params, cache
     torch.cuda.empty_cache()
-    return k3_main
+    return path
+
+
+def compiled_prefill(Z, make_prefill, cfg, params, kernel, per_forward: int, device,
+                     prompt_len: int = 128) -> int:
+    """The paper's metric, one ``prompt_len``-token forward: ``make_prefill``
+    (one capture, then replays on the same cache, reset between them)
+    against the eager prefill of the same tokens, logits and cache bitwise
+    equal; both timed and profiled.  The capturing call goes through
+    ``kernel``'s wrapper 2 x ``per_forward`` times, a replay not at all.
+    Returns ``kernel``'s device launches in the profiled replay."""
+    max_len = 512
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, size=(1, prompt_len)))
+    fn = make_prefill(cfg, 1, prompt_len, max_len, device=device)
+    cache = Z.init_cache(1, max_len, cfg, device=device)
+
+    def fresh():  # an empty cache for the eager prefill, reset in place for the compiled one
+        Z.cache_reset(cache, 0, cfg, max_len)
+        return Z.init_cache(1, max_len, cfg, device=device)
+
+    def eager(empty):
+        return Z.prefill(params, tokens.to(device), cfg, empty)
+
+    def compiled(_):
+        return fn(params, tokens, cache)
+
+    want, want_cache = eager(fresh())
+    calls = []
+    for i in range(3):  # the capture (its warm-up run is the result), then replays
+        fresh()
+        before = kernel.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got, _ = compiled(None)
+        torch.cuda.synchronize()
+        if i == 0:
+            capture_ms = (time.perf_counter() - t) * 1e3
+        calls.append(kernel.launches - before)
+        if not torch.equal(got, want) or not Z.caches_equal(cache, want_cache):
+            raise AssertionError(f"{prompt_len}-token make_prefill call {i} not bitwise equal to the eager prefill")
+    if not bool(torch.isfinite(got).all()) or got.shape != (1, cfg.vocab_size):
+        raise AssertionError("compiled prefill logits not finite or of the wrong shape")
+    if (fn.captures, fn.replays) != (1, 2) or calls != [2 * per_forward, 0, 0]:
+        raise AssertionError(f"make_prefill: {fn.captures} captures, {fn.replays} replays, "
+                             f"{kernel.__name__} wrapper calls per call {calls}")
+    log(f"[5] {prompt_len}-token make_prefill: 1 capture + 2 replays, logits and cache bitwise equal "
+        f"to the eager prefill of the same tokens; {kernel.__name__} wrapper calls per call {calls}")
+    log_capture(5, f"{prompt_len}-token prefill", fn, capture_ms)
+    eager_ms = wall_ms(eager, setup=fresh)
+    replay_ms, span, launch = replay_times(lambda: compiled(None), fn, reps=REPLAY_REPS, setup=fresh)
+    empty = fresh()
+    report_profile(f"{prompt_len}-token prefill, eager", *profile_forward(lambda: eager(empty)),
+                   phase=5, wall_ms=eager_ms)
+    fresh()
+    prof = profile_forward(lambda: compiled(None))
+    report_profile(f"{prompt_len}-token prefill, replayed", *prof, phase=5, wall_ms=replay_ms)
+    on_device = ours(prof[4])[kernel.__name__]
+    if on_device != per_forward:
+        raise AssertionError(f"{prompt_len}-token prefill: {kernel.__name__} {on_device} times in the "
+                             f"profiled replay, expected {per_forward}")
+    log(f"[5] {prompt_len}-token prefill wall: eager {eager_ms:.2f} ms, replayed {replay_ms:.2f} ms "
+        f"(x{eager_ms / replay_ms:.1f}; cache set up outside the timed call); a bare graph replay "
+        f"spans {span:.2f} ms on the card (its launch {launch:.2f} ms of host time), device busy "
+        f"{prof[1]:.2f} ms; {kernel.__name__} {on_device} times in the profiled replay")
+    del fn, cache
+    torch.cuda.empty_cache()
+    return on_device
 
 
 # ---------------------------------------------------------------------------
@@ -717,7 +990,13 @@ def run(device: torch.device, model_cfg, bert_cfg) -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels import popcount_qmm as K3
     from repro_torch.models import model_zoo as Z
-    from repro_torch.runtime.serve_loop import Request, ServeEngine, serve_sequential
+    from repro_torch.runtime.serve_loop import (
+        Request,
+        ServeEngine,
+        make_decode_step,
+        make_prefill,
+        serve_sequential,
+    )
 
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -757,31 +1036,26 @@ def run(device: torch.device, model_cfg, bert_cfg) -> int:
     engine = ServeEngine(cfg, params, batch_slots=4, max_len=512, seed=0, device=device)
     torch.cuda.synchronize()
     reqs = make_requests(Request, vocab=cfg.vocab_size)
-    K1.binary_qmm.launches = K2.fused_qmm.launches = 0
+    all_kernels = (K1.binary_qmm, K2.fused_qmm, K3.popcount_qmm, K4.bitserial_qmm)
+    _zero(all_kernels)
     t = time.perf_counter()
     done = engine.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    k1_main = K1.binary_qmm.launches
-    if K2.fused_qmm.launches:
-        raise AssertionError("fused_qmm launched under the pallas backend")
-    prefill_ms = [e["ms"] for e in engine.last_events if e["kind"] == "prefill"]
-    tick_ms = [e["ms"] for e in engine.last_events if e["kind"] == "decode_tick"]
-    forwards = len(prefill_ms) + len(tick_ms)
+    launched = _counts(all_kernels)
     if not all(r.state == "ok" and len(r.output) == 16 for r in done):
         raise AssertionError(f"requests not ok: {[(r.state, len(r.output)) for r in done]}")
-    if k1_main != per_forward * forwards:
-        raise AssertionError(f"binary_qmm launched {k1_main} times, expected "
-                             f"{per_forward} x {forwards} forwards")
+    prefill_ms = [e["ms"] for e in engine.last_events if e["kind"] == "prefill"]
     n_tok = sum(len(r.output) for r in done)
     plens = [len(r.prompt) for r in done]
     log(f"[3] served {len(done)} requests (prompts {min(plens)}-{max(plens)} tokens, 16 new each, "
-        f"6 greedy + 2 at T=0.8) in {wall:.2f} s: {len(prefill_ms)} prefills, {len(tick_ms)} decode ticks")
-    log(f"[3] binary_qmm launches {k1_main} = {per_forward} x {forwards} forwards")
+        f"6 greedy + 2 at T=0.8) in {wall:.2f} s: {n_tok / wall:.1f} generated tokens/s end to end; "
+        f"eager exact-length prefills {sum(prefill_ms) / 1e3:.2f} s of it")
+    engine_counts(engine, all_kernels, launched, per_forward, K1.binary_qmm, phase=3)
+    k1 = dict(launches=launched[0], replays=engine.decode_fn.replays)
     log(f"[3] prefill ms: mean {np.mean(prefill_ms):.1f} (per prompt: "
         + ", ".join(f"{p}:{ms:.1f}" for p, ms in zip(plens, prefill_ms)) + ")")
-    log(f"[3] decode tick ms (4 slots): median {np.median(tick_ms):.2f} mean {np.mean(tick_ms):.2f}; "
-        f"{n_tok / wall:.1f} generated tokens/s end to end")
+    del engine
 
     seq = serve_sequential(cfg, params, make_requests(Request, vocab=cfg.vocab_size), max_len=512, seed=0, device=device)
     for got, want in zip(done, seq):
@@ -791,20 +1065,16 @@ def run(device: torch.device, model_cfg, bert_cfg) -> int:
     log(f"[3] engine greedy tokens equal serve_sequential for all 6 greedy requests "
         f"(sampled requests equal: {sampled_same}/2)")
 
-    # where the time goes: one 4-slot decode tick and one prefill, profiled
-    cache = Z.init_cache(4, 512, cfg, device=device)
-    for i, r in enumerate(done[:4]):
-        slot = Z.init_slot_cache(512, cfg, device=device)
-        Z.prefill(params, torch.as_tensor(np.asarray(r.prompt)[None], device=device), cfg, slot)
-        Z.cache_insert(cache, slot, i)
+    # where the time goes: the 4-slot tick eager and replayed, and one
+    # (eager, exact-length) prefill, profiled
+    cache = fill_cache(Z, cfg, params, [r.prompt for r in done[:4]], device)
     step = torch.tensor([r.output[0] for r in done[:4]], device=device)
-    report_profile("decode tick (4 slots)", *profile_forward(
-        lambda: Z.decode_step(params, step, cfg, cache)))
+    k1["replay_launches"] = graph_vs_eager(Z, make_decode_step, cfg, params, cache, step, K1.binary_qmm,
+                                           per_forward, phase=3, tag="pallas decode tick (4 slots)")
     long = max(done, key=lambda r: len(r.prompt))
     tokens = torch.as_tensor(np.asarray(long.prompt)[None], device=device)
-    report_profile(f"prefill ({len(long.prompt)} tokens)", *profile_forward(
+    report_profile(f"eager prefill ({len(long.prompt)} tokens)", *profile_forward(
         lambda: Z.prefill(params, tokens, cfg, Z.init_slot_cache(512, cfg, device=device))))
-    del cache
 
     prompt = np.asarray(done[0].prompt)
     kern, fed = greedy_steps(Z, cfg, params, prompt, 1, device)
@@ -821,11 +1091,14 @@ def run(device: torch.device, model_cfg, bert_cfg) -> int:
     # ---- phase 4: fused backend on the same model
     pal, fed = greedy_steps(Z, cfg, params, prompt, 8, device)
     fcfg = with_backend(cfg, "fused")
-    K1.binary_qmm.launches = K2.fused_qmm.launches = 0
+    _zero(all_kernels)
     fus, _ = greedy_steps(Z, fcfg, params, prompt, 8, device, tokens=fed)
-    k2_main = K2.fused_qmm.launches
-    if K1.binary_qmm.launches or k2_main != per_forward * 9:
-        raise AssertionError(f"fused pass launches: K1 {K1.binary_qmm.launches}, K2 {k2_main}")
+    torch.cuda.synchronize()
+    launched = _counts(all_kernels)
+    if launched != [0, per_forward * 9, 0, 0]:
+        raise AssertionError(f"fused pass launches K1, K2, K3, K4 {launched}; expected K2 = "
+                             f"{per_forward} x 9 forwards and no other")
+    k2 = dict(launches=launched[1], replays=None)
     with mock.patch.object(ops._fq, "fused_qmm", ref.fused_qmm_ref):
         fplain, _ = greedy_steps(Z, fcfg, params, prompt, 8, device, tokens=fed)
     if not all(torch.equal(a, b) for a, b in zip(fus, fplain)):
@@ -837,31 +1110,25 @@ def run(device: torch.device, model_cfg, bert_cfg) -> int:
     fgap = max(float((a - b).abs().max()) for a, b in zip(fus, pal))
     scale = max(float(b.abs().max()) for b in pal)
     same = sum(int(a.argmax()) == int(b.argmax()) for a, b in zip(fus, pal))
-    log(f"[4] fused pass: prefill + 8 decode ticks, fused_qmm launches {k2_main} = {per_forward} x 9; "
+    log(f"[4] fused pass: prefill + 8 decode ticks, fused_qmm launches {k2['launches']} = {per_forward} x 9; "
         f"max |logit - pallas logit| {fgap:.3g} (max |pallas logit| {scale:.3g}), "
         f"argmax equal at {same}/9 steps")
-    # where the time goes on the fused backend: the same 4-slot tick and
-    # prefill that phase 3 profiles for the pallas backend
-    cache = Z.init_cache(4, 512, fcfg, device=device)
-    for i, r in enumerate(done[:4]):
-        slot = Z.init_slot_cache(512, fcfg, device=device)
-        Z.prefill(params, torch.as_tensor(np.asarray(r.prompt)[None], device=device), fcfg, slot)
-        Z.cache_insert(cache, slot, i)
-    report_profile("fused decode tick (4 slots)", *profile_forward(
-        lambda: Z.decode_step(params, step, fcfg, cache)), phase=4)
-    report_profile(f"fused prefill ({len(long.prompt)} tokens)", *profile_forward(
+    # where the time goes on the fused backend: the same 4-slot tick, eager
+    # and replayed, and prefill that phase 3 profiles for the pallas backend
+    k2["replay_launches"] = graph_vs_eager(Z, make_decode_step, fcfg, params, cache, step, K2.fused_qmm,
+                                           per_forward, phase=4, tag="fused decode tick (4 slots)")
+    report_profile(f"fused eager prefill ({len(long.prompt)} tokens)", *profile_forward(
         lambda: Z.prefill(params, tokens, fcfg, Z.init_slot_cache(512, fcfg, device=device))), phase=4)
     del cache
 
     del params
     torch.cuda.empty_cache()
 
-    k3_main = serve_bitbert(Z, bert_cfg, device, Request, ServeEngine, serve_sequential, ops, ref,
-                            (K1.binary_qmm, K2.fused_qmm, K3.popcount_qmm, K4.bitserial_qmm))
-    k4_main = act_act(device, gen, (K1.binary_qmm, K2.fused_qmm, K3.popcount_qmm, K4.bitserial_qmm))
+    k3 = serve_bitbert(Z, bert_cfg, device, Request, ServeEngine, serve_sequential,
+                            make_decode_step, make_prefill, ops, ref, all_kernels)
+    k4 = dict(launches=act_act(device, gen, all_kernels), replays=None, replay_launches=None)
 
-    launches = {"binary_qmm": k1_main, "fused_qmm": k2_main, "popcount_qmm": k3_main,
-                "bitserial_qmm": k4_main}
+    main_path = {"binary_qmm": k1, "fused_qmm": k2, "popcount_qmm": k3, "bitserial_qmm": k4}
     sources = {
         "binary_qmm": ("src/repro_torch/csrc/binary_qmm.cu", "src/repro/kernels/binary_qmm.py:95"),
         "fused_qmm": ("src/repro_torch/csrc/fused_qmm.cu", "src/repro/kernels/fused_qmm.py:180"),
@@ -873,7 +1140,7 @@ def run(device: torch.device, model_cfg, bert_cfg) -> int:
         head = shapes[0]
         kernels.append(dict(
             name=name, route="cuda", source=sources[name][0], replaces=sources[name][1],
-            launches=launches[name], max_abs_err=max(r["max_abs_err"] for r in shapes),
+            **main_path[name], max_abs_err=max(r["max_abs_err"] for r in shapes),
             ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"], shape=head["shape"],
             shapes=shapes,

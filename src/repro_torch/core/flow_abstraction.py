@@ -15,6 +15,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import quantization
+from repro_torch.core.constants import as_scalar, scalar
 from repro_torch.core.quantization import QuantTensor
 
 __all__ = ["default_int_matmul", "exact_int_matmul", "qmm_flow", "weight_corrections"]
@@ -107,10 +108,10 @@ def qmm_flow(
         raise ValueError(f"reduction mismatch: {tuple(x1.shape)} @ {w.logical_shape}")
     x2 = w.unpack().mantissa if int_matmul is None or w_colsum is None else None
     dev = x1.device
-    a1 = torch.as_tensor(x.scale, dtype=out_dtype, device=dev)
-    g1 = torch.as_tensor(x.offset, dtype=out_dtype, device=dev)
-    a2 = torch.as_tensor(w.scale, dtype=out_dtype, device=dev)
-    g2 = torch.as_tensor(w.offset, dtype=out_dtype, device=dev)
+    a1 = as_scalar(x.scale, out_dtype, dev)
+    g1 = as_scalar(x.offset, out_dtype, dev)
+    a2 = as_scalar(w.scale, out_dtype, dev)
+    g2 = as_scalar(w.offset, out_dtype, dev)
 
     if int_matmul is None:
         xy = default_int_matmul(x1, x2, x.bits, w.bits)
@@ -122,4 +123,4 @@ def qmm_flow(
     col = w_colsum if w_colsum is not None else _int_sum(x2, dim=-2)
     col = col[..., None, :].to(out_dtype)
     out = out + (g1 * a2) * col
-    return out + g1 * g2 * torch.tensor(k, dtype=out_dtype, device=dev)
+    return out + g1 * g2 * scalar(k, out_dtype, dev)

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import packing
+from repro_torch.core.constants import as_scalar
 
 __all__ = [
     "QuantTensor",
@@ -110,8 +111,8 @@ def quantize_activation(
         derived = torch.clamp((hi - lo) / qmax, min=1e-8)
         scale = derived if scale is None else scale
         offset = lo if offset is None else offset
-    scale = torch.as_tensor(scale, dtype=x.dtype, device=x.device)
-    offset = torch.as_tensor(offset, dtype=x.dtype, device=x.device)
+    scale = as_scalar(scale, x.dtype, x.device)
+    offset = as_scalar(offset, x.dtype, x.device)
     q = torch.round(torch.clamp((x - offset) / scale, 0.0, qmax))
     mantissa = q.to(torch.uint8 if bits <= 8 else torch.int32)
     return QuantTensor(mantissa=mantissa, scale=scale, offset=offset, bits=bits)

@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import backend_registry, flow_abstraction, packing
+from repro_torch.core.constants import as_scalar
 from repro_torch.core.quantization import QuantTensor
 from repro_torch.kernels import binary_qmm as _bq
 from repro_torch.kernels import bitserial_qmm as _bs
@@ -123,7 +124,7 @@ def qmm_fused(
     f32, dev = torch.float32, a_planes.device
 
     def coeff(v, shape):
-        return torch.as_tensor(v, dtype=f32, device=dev).broadcast_to(shape).contiguous()
+        return as_scalar(v, f32, dev).broadcast_to(shape).contiguous()
 
     out = _fq.fused_qmm(
         a_planes.contiguous(),

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import quantization as Q
+from repro_torch.core.constants import scalar
 from repro_torch.models import layers as L
 
 __all__ = ["init_attention", "init_kv_cache", "attention"]
@@ -140,8 +141,8 @@ def _pv_int(p_probs, v_mantissa, v_scale, v_offset):
     pm = torch.clamp(torch.round(p_probs * 255.0), 0, 255.0)
     x1 = (pm - 128.0).to(torch.int8).reshape(b, kvh, g, s, t)
     dev = p_probs.device
-    a1 = torch.tensor(1.0 / 255.0, dtype=torch.float32, device=dev)
-    g1 = torch.tensor(128.0 / 255.0, dtype=torch.float32, device=dev)
+    a1 = scalar(1.0 / 255.0, torch.float32, dev)
+    g1 = scalar(128.0 / 255.0, torch.float32, dev)
     x2 = v_mantissa
     a2 = _per_row(v_scale, 5)
     g2 = _per_row(v_offset, 5) + 128.0 * a2
@@ -209,7 +210,7 @@ def attention(
     if cfg.pos_embedding == "rope":  # learned positions were added to x at the embedding
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
-    sqrt_dh = torch.sqrt(torch.tensor(float(dh), dtype=torch.float32, device=x.device))
+    sqrt_dh = torch.sqrt(scalar(float(dh), torch.float32, x.device))
 
     if s > 1:
         k_sc, k_off = _calibrate_rows(k)

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import QuantConfig
 from repro_torch.core import flow_abstraction as FA
+from repro_torch.core.constants import scalar
 from repro_torch.core import qmm as QE
 from repro_torch.core import quantization as Q
 
@@ -98,7 +99,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     d = x.shape[-1]
     half = d // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exps)
+    freqs = torch.pow(scalar(theta, torch.float32, x.device), exps)
     angles = positions.to(torch.float32)[..., None] * freqs
     if x.ndim == angles.ndim + 1:  # head axis present
         angles = angles[..., None, :]
@@ -125,7 +126,7 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     """
     if name.startswith("gelu"):
         def c(v: float) -> torch.Tensor:
-            return torch.tensor(v, dtype=x.dtype, device=x.device)
+            return scalar(v, x.dtype, x.device)
 
         inner = x + c(0.044715) * (x * x * x)
         return x * (c(0.5) * (c(1.0) + torch.tanh(c(_SQRT_2_OVER_PI) * inner)))
@@ -155,7 +156,7 @@ def ffn(p: dict, x: torch.Tensor, ffn_type: str, quant: QuantConfig, name: str =
 
 
 def embed(p: dict, tokens: torch.Tensor, d_model: int, dtype=torch.bfloat16) -> torch.Tensor:
-    scale = torch.tensor(d_model**0.5, dtype=dtype, device=tokens.device)
+    scale = scalar(d_model**0.5, dtype, tokens.device)
     return p["embedding"][tokens].to(dtype) * scale
 
 

@@ -15,6 +15,8 @@ Entry points:
 * ``init_serving_params(seed, cfg)``   -- the two above one layer at a time,
   so a full-width model never holds every latent weight at once
 * ``init_cache`` / ``init_slot_cache`` / ``cache_insert`` / ``cache_reset``
+* ``cache_copy`` / ``caches_equal`` -- a snapshot of a cache, and bitwise
+  equality of two
 * ``prefill`` (exact length) / ``decode_step``
 
 Caches are updated IN PLACE: ``prefill``, ``decode_step``, ``cache_insert``
@@ -43,6 +45,8 @@ __all__ = [
     "init_slot_cache",
     "cache_insert",
     "cache_reset",
+    "cache_copy",
+    "caches_equal",
     "prefill",
     "decode_step",
 ]
@@ -165,6 +169,20 @@ def cache_reset(cache: dict, slot: int, cfg: ArchConfig, max_len: int) -> dict:
     """Reset row ``slot`` (cursor 0, identity affines, zero mantissas)."""
     device = cache["layers"][0]["pos"].device
     return cache_insert(cache, init_slot_cache(max_len, cfg, device=device), slot)
+
+
+def cache_copy(cache: dict) -> dict:
+    """A copy of every leaf of ``cache``, at new addresses."""
+    return {"layers": [{k: v.clone() for k, v in layer.items()} for layer in cache["layers"]]}
+
+
+def caches_equal(a: dict, b: dict) -> bool:
+    """Whether two caches hold the same leaves, bit for bit and of the same
+    dtypes."""
+    return len(a["layers"]) == len(b["layers"]) and all(
+        x.keys() == y.keys() and all(x[k].dtype == y[k].dtype and torch.equal(x[k], y[k]) for k in x)
+        for x, y in zip(a["layers"], b["layers"])
+    )
 
 
 def _embed_inputs(params: dict, tokens: torch.Tensor, cfg: ArchConfig, positions) -> torch.Tensor:

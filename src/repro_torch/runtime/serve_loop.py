@@ -1,5 +1,11 @@
 """Continuous-batching serving engine (port of ``repro.runtime.serve_loop``).
 
+* ``make_prefill`` / ``make_decode_step`` -- the fixed-shape steps, captured
+  once as CUDA graphs and replayed (the counterparts of the reference's
+  ``jax.jit`` steps; one card, so no mesh);
+* ``ServeEngine`` -- continuous batching over a replayed decode step;
+* ``serve_sequential`` -- the eager one-request-at-a-time oracle.
+
 ``ServeEngine`` keeps a fixed packed decode batch of ``batch_slots`` rows.
 An admitted request is prefilled alone at its exact prompt length (batch
 1), copied into a free slot with ``model_zoo.cache_insert`` while the other
@@ -13,14 +19,17 @@ Sampling uses the host numpy stream ``default_rng([seed, rid])``, as in
 the reference.
 
 Not ported yet: fault injection, deadlines and retries, snapshots and
-``resume``, backend demotion and autotuned dispatch.
+``resume``, backend demotion and autotuned dispatch.  (A demotion changes
+the kernels a step launches, so it will have to capture the step anew, as
+the reference rebuilds its jit wrapper.)
 """
 
 from __future__ import annotations
 
 import dataclasses
+import operator
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +37,143 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model_zoo as Z
 
-__all__ = ["Request", "ServeEngine", "serve_sequential", "STATE_PENDING", "STATE_OK"]
+__all__ = [
+    "make_prefill",
+    "make_decode_step",
+    "CompiledStep",
+    "Request",
+    "ServeEngine",
+    "serve_sequential",
+    "STATE_PENDING",
+    "STATE_OK",
+]
+
+
+def _leaves(tree, out: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Append the tensors of a tree of dicts, lists and tuples to ``out``."""
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _leaves(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _leaves(v, out)
+    return out
+
+
+class CompiledStep:
+    """A fixed-shape serving step ``fn(params, tokens, cache) -> (logits,
+    cache)``, replayed as one CUDA graph: the port's counterpart of
+    ``jax.jit`` on the reference's step.  The cache is updated in place and
+    returned.
+
+    On CUDA the first call runs the step eagerly on a side stream -- that
+    run is the call's result, and it does what must happen outside a
+    capture: each kernel's once-per-device setup and the step's constants
+    (``core/constants.py``) -- then captures the step on the same stream,
+    its tokens read from a static buffer.  Later calls copy their tokens
+    into that buffer and replay; the logits come back as a fresh tensor, so
+    the next replay does not overwrite what the caller holds.  A call whose
+    params or cache tensors differ from the captured ones (address, shape
+    or dtype) captures anew: a replay would read the old ones.  The step
+    holds the captured tensors, so their memory stays valid.  A failed
+    capture raises; nothing falls back to eager on CUDA.  On the CPU, which
+    has no graphs, every call runs the step eagerly.
+
+    ``graph`` is the captured ``torch.cuda.CUDAGraph`` (None before the
+    first capture, and on the CPU).  ``captures`` / ``replays`` count the
+    calls of each kind.  A capturing call goes through the kernel wrappers
+    twice (the warm-up run, then the capture, which records each launch
+    once); a replay does not call them.
+    """
+
+    def __init__(self, step: Callable, cfg: ArchConfig, tokens_shape: Tuple[int, ...],
+                 cache_rows: Tuple[int, int], device="cuda"):
+        self._step = step
+        self.cfg = cfg
+        self.tokens_shape = tuple(tokens_shape)
+        self.cache_rows = tuple(cache_rows)
+        self.device = torch.device(device)
+        self.captures = 0
+        self.replays = 0
+        self.graph = None
+        self._held: List[torch.Tensor] = []  # what the graph reads, and their addresses
+        self._ptrs: List[int] = []
+        self._tokens = self._out = self._stream = None
+
+    def _check(self, tokens: torch.Tensor, cache: dict) -> None:
+        if tuple(tokens.shape) != self.tokens_shape:
+            raise ValueError(f"tokens of shape {tuple(tokens.shape)}, step takes {self.tokens_shape}")
+        got = tuple(cache["layers"][0]["k"].shape[:2])
+        if got != self.cache_rows:
+            raise ValueError(f"cache of (batch, max_len) {got}, step takes {self.cache_rows}")
+
+    def __call__(self, params: dict, tokens, cache: dict):
+        tokens = torch.as_tensor(tokens)
+        self._check(tokens, cache)
+        if self.device.type != "cuda":
+            return self._step(params, tokens.to(self.device), self.cfg, cache)
+        if not self.captured_on(params, cache):
+            return self._capture(params, tokens, cache)
+        self._tokens.copy_(tokens)
+        self.graph.replay()
+        self.replays += 1
+        return self._out.clone(), cache
+
+    def captured_on(self, params: dict, cache: dict) -> bool:
+        """Whether a graph is captured and ``params`` and ``cache`` are the
+        tensors it reads: the same addresses, and each the same tensor or one
+        of the same shape and dtype."""
+        if self.graph is None:
+            return False
+        leaves = _leaves((params, cache), [])
+        if len(leaves) != len(self._held) or [t.data_ptr() for t in leaves] != self._ptrs:
+            return False
+        return all(map(operator.is_, leaves, self._held)) or all(
+            a.shape == b.shape and a.dtype == b.dtype for a, b in zip(leaves, self._held)
+        )
+
+    def _capture(self, params, tokens, cache):
+        dev = self.device
+        self.graph = self._out = None  # the old graph's memory pool goes first
+        self._held, self._ptrs = [], []
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        self._tokens = torch.empty(self.tokens_shape, dtype=torch.int64, device=dev)
+        self._tokens.copy_(tokens)
+        self._stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(self._stream):
+            logits, _ = self._step(params, self._tokens, self.cfg, cache)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self._stream):
+            out, _ = self._step(params, self._tokens, self.cfg, cache)
+        torch.cuda.current_stream(dev).wait_stream(self._stream)
+        torch.cuda.synchronize(dev)
+        self.graph, self._out = graph, out
+        self._held = _leaves((params, cache), [])
+        self._ptrs = [t.data_ptr() for t in self._held]
+        self.captures += 1
+        return logits, cache
+
+
+def make_prefill(cfg: ArchConfig, batch: int, prompt_len: int, max_len: int,
+                 device="cuda") -> CompiledStep:
+    """``fn(params, tokens (batch, prompt_len), cache) -> (logits, cache)``:
+    ``model_zoo.prefill`` from an empty ``(batch, max_len)`` cache, captured
+    once and replayed.  To replay, pass the same cache again, reset
+    (``model_zoo.cache_reset``)."""
+    Z.check_max_len(cfg, max_len)
+    return CompiledStep(Z.prefill, cfg, (batch, prompt_len), (batch, max_len), device)
+
+
+def make_decode_step(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> CompiledStep:
+    """``fn(params, tokens (batch,), cache) -> (logits, cache)``:
+    ``model_zoo.decode_step`` over a ``(batch, max_len)`` cache, captured
+    once and replayed."""
+    Z.check_max_len(cfg, max_len)
+    return CompiledStep(Z.decode_step, cfg, (batch,), (batch, max_len), device)
+
 
 STATE_PENDING = "pending"
 STATE_OK = "ok"
@@ -82,15 +227,22 @@ class ServeEngine:
     """Slot-managed continuous batching over the port's serving datapath.
 
     Each tick: (1) admit -- while a slot is free and the head of the
-    arrival-ordered queue has arrived, prefill it at its exact length and
-    insert it into the free slot; (2) decode -- one packed ``decode_step``
-    over all slots; active slots sample and stream their token, and a slot
-    whose budget is spent is reset and freed.
+    arrival-ordered queue has arrived, prefill it eagerly at its exact
+    length and insert it into the free slot; (2) decode -- one packed
+    decode step over all slots, through ``decode_fn``
+    (:func:`make_decode_step`, built once per engine: the first tick
+    captures it, later ticks replay it); active slots sample and stream
+    their token, and a slot whose budget is spent is reset and freed.  The
+    packed cache lives as long as the engine, so ``run`` after ``run``
+    replays the same graph.
 
     ``last_events`` keeps the event trace of the last ``run`` (kinds
-    admit/prefill/insert/decode_tick/finish/reset, each stamped ``t`` in
-    seconds from the start of the run; prefill and decode_tick also carry
-    ``ms``, the host time of that step, synchronised with the device).
+    admit/prefill/insert/compile/decode_tick/finish/reset, each stamped
+    ``t`` in seconds from the start of the run).  prefill, compile (a tick
+    that captured the decode step) and decode_tick (a replayed tick, or an
+    eager one on the CPU) also carry ``ms``, the host time of that step,
+    synchronised with the device; a tick's ``ms`` ends before its logits
+    are copied to the host.
     """
 
     def __init__(
@@ -115,6 +267,10 @@ class ServeEngine:
             raise ValueError(f"params live on {got}, engine device is {self.device}")
         self._next_rid = 0
         self.last_events: List[Dict] = []
+        self.decode_fn = make_decode_step(cfg, batch_slots, max_len, device=self.device)
+        self._cache = Z.init_cache(batch_slots, max_len, cfg, device=self.device)
+        # host mirror of each row's cursor: a free row still advances every tick
+        self._pos = [0] * batch_slots
 
     def _event(self, kind: str, **kw) -> None:
         self.last_events.append(dict(kind=kind, t=self._clock(), **kw))
@@ -137,6 +293,7 @@ class ServeEngine:
         self._sync()
         self._event("prefill", rid=req.rid, slot=slot, ms=(time.perf_counter() - t) * 1e3)
         Z.cache_insert(cache, slot_cache, slot)
+        self._pos[slot] = len(req.prompt)
         self._event("insert", rid=req.rid, slot=slot)
         return _host(logits)[0]
 
@@ -155,6 +312,7 @@ class ServeEngine:
         req.t_finished = self._clock()
         self._event("finish", rid=req.rid, slot=i)
         Z.cache_reset(cache, i, self.cfg, self.max_len)
+        self._pos[i] = 0
         self._event("reset", rid=req.rid, slot=i)
         slots[i] = None
 
@@ -184,7 +342,7 @@ class ServeEngine:
 
     def _serve(self, queue: List[Request]) -> None:
         slots: List[Optional[_Slot]] = [None] * self.slots
-        cache = Z.init_cache(self.slots, self.max_len, self.cfg, device=self.device)
+        cache = self._cache
         cur = np.zeros((self.slots,), np.int64)
         while queue or any(s is not None for s in slots):
             while queue and queue[0].arrival_s <= self._clock() and None in slots:
@@ -204,16 +362,21 @@ class ServeEngine:
                     time.sleep(max(0.0, queue[0].arrival_s - self._clock()))
                 continue
 
+            for i, slot in enumerate(slots):
+                # a free row's cursor must not run past the cache
+                if slot is None and self._pos[i] >= self.max_len:
+                    Z.cache_reset(cache, i, self.cfg, self.max_len)
+                    self._pos[i] = 0
+                    self._event("reset", rid=None, slot=i)
+            captures = self.decode_fn.captures
             t = time.perf_counter()
-            out, _ = Z.decode_step(
-                self.params, torch.as_tensor(cur, device=self.device), self.cfg, cache
-            )
+            out, _ = self.decode_fn(self.params, torch.from_numpy(cur), cache)
+            self._sync()
+            ms = (time.perf_counter() - t) * 1e3
+            self._pos = [p + 1 for p in self._pos]
             logits = _host(out)
-            self._event(
-                "decode_tick",
-                rids=[s.req.rid if s else None for s in slots],
-                ms=(time.perf_counter() - t) * 1e3,
-            )
+            kind = "compile" if self.decode_fn.captures != captures else "decode_tick"
+            self._event(kind, rids=[s.req.rid if s else None for s in slots], ms=ms)
             for i, slot in enumerate(slots):
                 if slot is None:
                     continue

@@ -193,3 +193,130 @@ def test_smoke_model_card_matches_cpu(dev, backend):
     assert got_toks == want_toks
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= CROSS_DEVICE_TOL
+
+
+# ---- the compiled serving steps: replayed CUDA graphs against the eager step
+
+STEP_MODELS = {  # name -> (config name, backend, kernel its forwards launch, sites a layer)
+    "granite-pallas": ("granite-8b", "pallas", "binary_qmm", 7),
+    "granite-fused": ("granite-8b", "fused", "fused_qmm", 7),
+    "bitbert-a1": ("bit-bert-base", "pallas", "popcount_qmm", 6),
+    "bitbert-a8": ("bit-bert-base-a8", "pallas", "binary_qmm", 6),
+}
+STEP_MAX_LEN = 48
+WRAPPERS = {k.__name__: k for k in (K1.binary_qmm, K2.fused_qmm, K3.popcount_qmm, K4.bitserial_qmm)}
+
+
+def _step_model(name, dev):
+    """(cfg, params, {kernel: launches one forward makes})."""
+    cfg_name, backend, kernel, sites = STEP_MODELS[name]
+    cfg = smoke_variant(get_config(cfg_name))
+    if cfg_name.startswith("bit-bert"):
+        cfg = dataclasses.replace(cfg, n_layers=2)
+    cfg = dataclasses.replace(cfg, quant=dataclasses.replace(cfg.quant, backend=backend))
+    params = Z.init_serving_params(5, cfg, device=dev)
+    per_forward = {k: 0 for k in WRAPPERS}
+    per_forward[kernel] = sites * cfg.n_layers
+    return cfg, params, per_forward
+
+
+def _launches():
+    return {name: k.launches for name, k in WRAPPERS.items()}
+
+
+def _filled_cache(cfg, params, dev, lens=(6, 9)):
+    cache = Z.init_cache(len(lens), STEP_MAX_LEN, cfg, device=dev)
+    firsts = []
+    for i, n in enumerate(lens):
+        prompt = torch.from_numpy(np.random.default_rng(n).integers(0, 256, size=(1, n))).to(dev)
+        slot = Z.init_slot_cache(STEP_MAX_LEN, cfg, device=dev)
+        logits, slot = Z.prefill(params, prompt, cfg, slot)
+        Z.cache_insert(cache, slot, i)
+        firsts.append(int(logits.argmax()))
+    return cache, torch.tensor(firsts)
+
+
+@pytest.mark.parametrize("name", sorted(STEP_MODELS))
+def test_replayed_decode_step_bitwise_equals_eager(dev, name):
+    """One capture, then 5 replays: logits and every cache leaf equal the
+    eager step's bit for bit at every tick.  The capturing call goes
+    through the path's kernel wrapper twice per site and layer (warm-up
+    run, capture); a replay makes no wrapper call."""
+    from repro_torch.runtime.serve_loop import make_decode_step
+
+    cfg, params, per_forward = _step_model(name, dev)
+    eager, toks = _filled_cache(cfg, params, dev)
+    graphed = Z.cache_copy(eager)
+    step = make_decode_step(cfg, 2, STEP_MAX_LEN, device=dev)
+    held, calls = [], []
+    for tick in range(6):
+        want, _ = Z.decode_step(params, toks.to(dev), cfg, eager)
+        before = _launches()
+        got, out_cache = step(params, toks, graphed)
+        calls.append({k: v - before[k] for k, v in _launches().items()})
+        held.append(got)
+        assert out_cache is graphed
+        assert torch.equal(got, want), f"tick {tick}: logits differ"
+        assert Z.caches_equal(graphed, eager), f"tick {tick}: caches differ"
+        toks = want.argmax(-1).cpu()
+    assert (step.captures, step.replays) == (1, 5)
+    assert calls[0] == {k: 2 * v for k, v in per_forward.items()}
+    assert calls[1:] == [{k: 0 for k in per_forward}] * 5
+    # each call's logits are its own: later replays did not overwrite them
+    assert not any(torch.equal(a, b) for a, b in zip(held, held[1:]))
+
+
+@pytest.mark.parametrize("name", ["granite-pallas", "bitbert-a1"])
+def test_replayed_prefill_bitwise_equals_eager(dev, name):
+    from repro_torch.runtime.serve_loop import make_prefill
+
+    cfg, params, _ = _step_model(name, dev)
+    fn = make_prefill(cfg, 1, 12, STEP_MAX_LEN, device=dev)
+    cache = Z.init_cache(1, STEP_MAX_LEN, cfg, device=dev)
+    for seed in range(3):  # capture, then two replays on other prompts
+        prompt = torch.from_numpy(np.random.default_rng(seed).integers(0, 256, size=(1, 12)))
+        Z.cache_reset(cache, 0, cfg, STEP_MAX_LEN)
+        got, _ = fn(params, prompt, cache)
+        want, want_cache = Z.prefill(params, prompt.to(dev), cfg,
+                                     Z.init_cache(1, STEP_MAX_LEN, cfg, device=dev))
+        assert torch.equal(got, want), f"prompt {seed}: logits differ"
+        assert Z.caches_equal(cache, want_cache), f"prompt {seed}: caches differ"
+    assert (fn.captures, fn.replays) == (1, 2)
+
+
+def test_decode_step_captures_anew_for_another_cache(dev):
+    from repro_torch.runtime.serve_loop import make_decode_step
+
+    cfg, params, _ = _step_model("granite-pallas", dev)
+    first, toks = _filled_cache(cfg, params, dev)
+    second, eager = Z.cache_copy(first), Z.cache_copy(first)
+    step = make_decode_step(cfg, 2, STEP_MAX_LEN, device=dev)
+    for cache in (first, first, second, second):
+        got, _ = step(params, toks, cache)
+        if cache is second:
+            want, _ = Z.decode_step(params, toks.to(dev), cfg, eager)
+            assert torch.equal(got, want)
+            assert Z.caches_equal(second, eager)
+    assert (step.captures, step.replays) == (2, 2)
+
+
+def test_engine_on_card_equals_serve_sequential(dev):
+    """Greedy requests, two runs of one engine: one capture, replayed
+    ticks, tokens equal to the eager one-at-a-time oracle."""
+    from repro_torch.runtime.serve_loop import Request, ServeEngine, serve_sequential
+
+    cfg, params, _ = _step_model("granite-pallas", dev)
+
+    def requests():
+        rng = np.random.default_rng(2)
+        return [Request(prompt=rng.integers(0, 256, size=(int(rng.integers(3, 11)),)),
+                        max_new_tokens=int(rng.integers(3, 7))) for _ in range(5)]
+
+    want = [r.output for r in serve_sequential(cfg, params, requests(), max_len=STEP_MAX_LEN,
+                                               seed=0, device=dev)]
+    engine = ServeEngine(cfg, params, batch_slots=2, max_len=STEP_MAX_LEN, seed=0, device=dev)
+    for _ in range(2):
+        assert [r.output for r in engine.run(requests())] == want
+        kinds = [e["kind"] for e in engine.last_events]
+        assert "decode_tick" in kinds
+    assert engine.decode_fn.captures == 1 and engine.decode_fn.replays > 0
