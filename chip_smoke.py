@@ -16,7 +16,8 @@ Phases (each prints its own lines):
    kernels against their plain PyTorch versions on the card, at the shapes
    the main paths give them: ``binary_qmm`` (K1) equal int32 (at
    granite-8b's and bit-bert-base's sites, with the tile and K splits its
-   plan chose), ``fused_qmm`` (K2)
+   plan chose; and at gemma3-27b's decode sites and its 128-token up
+   site), ``fused_qmm`` (K2, also at gemma3-27b's decode sites)
    bitwise-equal float32, ``popcount_qmm`` (K3, with its plan's tile and
    K splits, and K4 at A1xA1 -- the same sum -- timed beside it) and
    ``bitserial_qmm`` (K4) equal int32.  Each is timed on the device (a
@@ -70,14 +71,30 @@ Phases (each prints its own lines):
 6. act x act: ``qmm(x, y, backend="pallas")`` on two multi-bit activations
    at BERT-base attention (per-head Q.K^T) and FFN shapes, through K4,
    bitwise equal to the plain ``popcount`` backend.
-7. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and last
+7. gemma3-27b at full width and depth (62 layers: 52 sliding-window
+   ``"l"`` layers, window 1024, local rope 1e4, and 10 global ones, rope
+   1e6; qk-norm, gelu FFN, tied 262,144-row table; random weights from a
+   seed), ``pallas`` backend, K1 at every site (7 x 62 a forward).  One
+   prefill and decode step at max_len 512 (local layers clipped to 512
+   rows) bitwise equal with K1 swapped for its plain version; then
+   ``ServeEngine`` with 4 slots and max_len 2048 (local layers as
+   1,024-row ring buffers) serves 8 requests of 16 new tokens: prompts of
+   32-128 tokens, one of 1,300 (the ring wraps inside its prefill), one of
+   1,016 (its decode crosses position 1,024) and one of 600.  Checks as in
+   phase 3: every request ``ok``, K1's wrapper count, greedy tokens equal
+   ``serve_sequential``, and the 4-slot tick from rows at positions 1,021,
+   1,023, 1,300 and 100, eager beside replayed, bitwise equal over 5 ticks
+   that carry two rows across position 1,024, timed and profiled, K1 434
+   times in the profiled replay; the 1,300-token eager prefill profiled.
+8. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is its
    wrapper's count over its main path's run alone (phase 3's engine run for
    K1, phase 4's fused pass for K2, phase 5's engine run for K3, phase 6
    for K4); ``replays`` is the number of replayed ticks in that run, and
    ``replay_launches`` the kernel's launches counted on the device in one
    profiled replay of that path's decode graph (K3 adds
-   ``prefill_replay_launches``, of the 128-token prefill graph).
+   ``prefill_replay_launches``, of the 128-token prefill graph; K1 adds
+   ``gemma3``, the same three numbers for phase 7's path).
 """
 
 from __future__ import annotations
@@ -261,9 +278,20 @@ KERNEL_SHAPES = [
     (35, 4096, 1024),
     (7, 100, 33),
 ]
+# gemma3-27b's sites at the engine's 4-slot decode: attn.q (5376x4096),
+# attn.k/v (5376x2048), attn.o (4096x5376), ffn.up/gate (5376x21504) and
+# ffn.down (21504x5376).  K1 and K2 run at each.
+GEMMA3_SHAPES = [
+    (4, 5376, 4096),
+    (4, 5376, 2048),
+    (4, 4096, 5376),
+    (4, 5376, 21504),
+    (4, 21504, 5376),
+]
 # K1 alone at bit-bert-base's sites, where the W1A2/A4/A8 ladder sends it:
 # attn.q/k/v/o (768x768), ffn.up (768x3072) and ffn.down (3072x768) at a
-# 128-token prefill and a batch-1 decode.
+# 128-token prefill and a batch-1 decode; and at gemma3-27b's up site in a
+# 128-token prefill.
 BERT_K1_SHAPES = [
     (128, 768, 3072),
     (128, 768, 768),
@@ -272,6 +300,7 @@ BERT_K1_SHAPES = [
     (1, 768, 768),
     (1, 3072, 768),
 ]
+K1_ONLY_SHAPES = BERT_K1_SHAPES + [(128, 5376, 21504)]
 
 
 def _copies(nbytes: int) -> int:
@@ -322,7 +351,7 @@ def check_kernels(gen: torch.Generator):
 
     dev = gen.device
     rows = {"binary_qmm": [], "fused_qmm": []}
-    for m, k, n in KERNEL_SHAPES + BERT_K1_SHAPES:
+    for m, k, n in KERNEL_SHAPES + GEMMA3_SHAPES + K1_ONLY_SHAPES:
         kw = packing.packed_len(k, 1)
         w_bytes = 4 * kw * n
         reps = _copies(w_bytes)
@@ -346,7 +375,7 @@ def check_kernels(gen: torch.Generator):
         bm, bn, splits = plan(m, k, n, dev)
         rows["binary_qmm"][-1].update(tile=[bm, bn], splits=splits)
         _log_row("binary_qmm", rows["binary_qmm"][-1])
-        if (m, k, n) in BERT_K1_SHAPES:
+        if (m, k, n) in K1_ONLY_SHAPES:
             del wps, a
             continue
         # ---- K2 at W1A8: 8 activation planes x 1 weight plane, arbitrary scales
@@ -652,9 +681,10 @@ def log_capture(phase: int, tag: str, step, ms: float) -> None:
     log(f"[{phase}] {tag} capture: {ms:.1f} ms (warm-up run included); the graph's memory pool {mem}")
 
 
-def graph_vs_eager(Z, make_decode_step, cfg, params, cache, tokens, kernel, per_forward: int,
-                   phase: int, tag: str, n_ticks: int = 5) -> int:
-    """From two copies of a filled packed ``cache``: ``n_ticks`` eager decode
+def graph_vs_eager(Z, make_decode_step, cfg, params, cache, max_len: int, tokens, kernel,
+                   per_forward: int, phase: int, tag: str, n_ticks: int = 5) -> int:
+    """From two copies of a filled packed ``cache`` (made for ``max_len``
+    positions: a ring layer holds fewer rows): ``n_ticks`` eager decode
     ticks beside ``n_ticks`` calls of a compiled step (one capture, then
     replays), logits and every cache leaf held bitwise equal at each tick;
     then the eager and the replayed tick timed (host clock, synchronised)
@@ -662,9 +692,8 @@ def graph_vs_eager(Z, make_decode_step, cfg, params, cache, tokens, kernel, per_
     wrapper 2 x ``per_forward`` times (warm-up run, capture) and a replay
     not at all; the profiled replay must run ``kernel`` ``per_forward``
     times on the device.  Returns that device count."""
-    batch, max_len = cache["layers"][0]["k"].shape[:2]
     eager, graphed = Z.cache_copy(cache), Z.cache_copy(cache)
-    step = make_decode_step(cfg, batch, max_len, device=tokens.device)
+    step = make_decode_step(cfg, tokens.shape[0], max_len, device=tokens.device)
     tok, calls = tokens, []
     for i in range(n_ticks):
         want, _ = Z.decode_step(params, tok, cfg, eager)
@@ -808,7 +837,7 @@ def serve_bitbert(Z, cfg_a1, device, Request, ServeEngine, serve_sequential, mak
 
     cache = fill_cache(Z, cfg, params, [r.prompt for r in done[:4]], device)
     step = torch.tensor([r.output[0] for r in done[:4]], device=device)
-    path["replay_launches"] = graph_vs_eager(Z, make_decode_step, cfg, params, cache, step, kernels[2],
+    path["replay_launches"] = graph_vs_eager(Z, make_decode_step, cfg, params, cache, 512, step, kernels[2],
                                            per_forward, phase=5, tag="W1A1 decode tick (4 slots)")
     del cache
     path["prefill_replay_launches"] = compiled_prefill(Z, make_prefill, cfg, params, kernels[2],
@@ -973,16 +1002,129 @@ def act_act(device, gen, kernels) -> int:
     return k4
 
 
+# ---------------------------------------------------------------------------
+# phase 7: gemma3-27b -- ring-buffer local layers, qk-norm, a local rope theta
+# ---------------------------------------------------------------------------
+
+GEMMA3_MAX_LEN = 2048
+# (prompt tokens, temperature): five short prompts, one that wraps the
+# 1,024-row ring inside its prefill, one whose decode crosses position
+# 1,024, and one of 600 tokens; 6 greedy, 2 at T=0.8
+GEMMA3_PROMPTS = [(48, 0.0), (1300, 0.0), (96, 0.0), (1016, 0.0), (600, 0.8), (32, 0.0),
+                  (128, 0.8), (64, 0.0)]
+# the 4-slot cache graph_vs_eager starts from: two rows cross position
+# 1,024 in its 5 ticks, one has wrapped, one is short
+GEMMA3_TICK_PROMPTS = (1021, 1023, 1300, 100)
+
+
+def serve_gemma3(Z, model_cfg, device, Request, ServeEngine, serve_sequential, make_decode_step,
+                 ops, ref, kernels, smi: str) -> dict:
+    """Serve gemma3-27b at full width and depth through the engine on the
+    ``pallas`` backend (K1 at every site), hold it to ``serve_sequential``
+    and its replayed tick to the eager one across the ring's wrap; returns
+    K1's numbers on this path: its wrapper launches in the engine run, the
+    run's replayed ticks and its device launches in a profiled replay."""
+    cfg = with_backend(model_cfg, "pallas")
+    k1 = kernels[0]
+    max_len = GEMMA3_MAX_LEN
+    per_forward = SITES_PER_LAYER * cfg.n_layers
+    t = time.perf_counter()
+    params = Z.init_serving_params(0, cfg, device=device)
+    torch.cuda.synchronize()
+    rows = Z.cache_rows(max_len, cfg)
+    kinds = "".join(cfg.layer_kinds)
+    log(f"[7] {cfg.name}: {cfg.n_layers} layers ({kinds.count('l')} local, window {cfg.window_size}, "
+        f"rope {cfg.local_rope_theta:g}; {kinds.count('g')} global, rope {cfg.rope_theta:g}; "
+        f"{cfg.prefix_layers} + {cfg.pattern_period} x {cfg.n_periods}), d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv of {cfg.d_head}, d_ff {cfg.d_ff} ({cfg.ffn_type}), "
+        f"vocab {cfg.vocab_size}, qk_norm={cfg.qk_norm}, tied={cfg.tie_embeddings}; serving params "
+        f"built on the card in {time.perf_counter() - t:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; at max_len {max_len} the local "
+        f"layers' caches are {min(rows)}-row rings, the global layers' {max(rows)} rows | {smi}")
+
+    # K1 against its plain version in a short prefill and a decode step, at
+    # max_len 512: there the local layers are clipped (512 rows, masked to
+    # the window), the other geometry; also the phase's warm-up
+    prompt = np.random.default_rng(7).integers(0, cfg.vocab_size, size=(40,))
+    kern, fed = greedy_steps(Z, cfg, params, prompt, 1, device)
+    with mock.patch.object(ops._bq, "binary_qmm", ref.binary_qmm_ref):
+        plain, _ = greedy_steps(Z, cfg, params, prompt, 1, device, tokens=fed)
+    if not all(torch.equal(a, b) for a, b in zip(kern, plain)):
+        raise AssertionError("gemma3 logits differ with K1 swapped for its plain version")
+    if not all(bool(torch.isfinite(x).all()) and x.shape == (1, cfg.vocab_size) for x in kern):
+        raise AssertionError("gemma3 logits not finite or of the wrong shape")
+    geometry = "clipped" if 512 < cfg.window_size else "ring"
+    log(f"[7] prefill ({len(prompt)} tokens) + decode at max_len 512 ({geometry} local layers): logits "
+        f"bitwise equal with binary_qmm swapped for binary_qmm_ref on the same tensors")
+
+    def requests():
+        rng = np.random.default_rng(0)
+        return [Request(prompt=rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int64),
+                        max_new_tokens=16, temperature=temp) for n, temp in GEMMA3_PROMPTS]
+
+    engine = ServeEngine(cfg, params, batch_slots=4, max_len=max_len, seed=0, device=device)
+    torch.cuda.synchronize()
+    _zero(kernels)
+    t = time.perf_counter()
+    done = engine.run(requests())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launched = _counts(kernels)
+    if not all(r.state == "ok" and len(r.output) == 16 for r in done):
+        raise AssertionError(f"gemma3 requests not ok: {[(r.state, len(r.output)) for r in done]}")
+    prefill_ms = [e["ms"] for e in engine.last_events if e["kind"] == "prefill"]
+    n_tok = sum(len(r.output) for r in done)
+    plens = [len(r.prompt) for r in done]
+    log(f"[7] served {len(done)} requests (prompts {sorted(plens)} tokens, 16 new each, 6 greedy + 2 "
+        f"at T=0.8, 4 slots, max_len {max_len}) in {wall:.2f} s: {n_tok / wall:.1f} generated tokens/s "
+        f"end to end; eager exact-length prefills {sum(prefill_ms) / 1e3:.2f} s of it")
+    engine_counts(engine, kernels, launched, per_forward, k1, phase=7)
+    path = dict(launches=launched[0], replays=engine.decode_fn.replays)
+    log("[7] prefill ms per prompt: " + ", ".join(f"{p}:{ms:.1f}" for p, ms in zip(plens, prefill_ms)))
+    del engine
+    torch.cuda.empty_cache()
+    long = max(done, key=lambda r: len(r.prompt))
+    tokens = torch.as_tensor(np.asarray(long.prompt)[None], device=device)
+    report_profile(f"eager prefill ({len(long.prompt)} tokens)", *profile_forward(
+        lambda: Z.prefill(params, tokens, cfg, Z.init_slot_cache(max_len, cfg, device=device))), phase=7)
+
+    seq = serve_sequential(cfg, params, requests(), max_len=max_len, seed=0, device=device)
+    for got, want in zip(done, seq):
+        if got.temperature == 0 and got.output != want.output:
+            raise AssertionError(f"gemma3 engine greedy tokens ({len(got.prompt)}-token prompt) "
+                                 f"{got.output} != sequential {want.output}")
+    sampled_same = sum(g.output == w.output for g, w in zip(done, seq) if g.temperature > 0)
+    w = cfg.window_size
+    greedy = [len(r.prompt) for r in done if r.temperature == 0]
+    wraps, crosses = [n for n in greedy if n > w], [n for n in greedy if n <= w < n + 16]
+    log(f"[7] engine greedy tokens equal serve_sequential for all 6 greedy requests, among them "
+        f"prompts of {wraps} tokens (the {w}-row ring wraps inside their prefill) and {crosses} "
+        f"(their decode crosses position {w}) (sampled requests equal: {sampled_same}/2)")
+    del seq, done
+
+    rng = np.random.default_rng(9)
+    cache = fill_cache(Z, cfg, params, [rng.integers(0, cfg.vocab_size, size=(n,)) for n in GEMMA3_TICK_PROMPTS],
+                       device, max_len=max_len)
+    step = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(len(GEMMA3_TICK_PROMPTS),))).to(device)
+    path["replay_launches"] = graph_vs_eager(
+        Z, make_decode_step, cfg, params, cache, max_len, step, k1, per_forward, phase=7,
+        tag=f"gemma3 pallas decode tick (4 slots at positions {', '.join(map(str, GEMMA3_TICK_PROMPTS))})")
+    del cache, params
+    torch.cuda.empty_cache()
+    return path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.configs import get_config
 
-    return run(torch.device("cuda", 0), get_config("granite-8b"), get_config("bit-bert-base"))
+    return run(torch.device("cuda", 0), get_config("granite-8b"), get_config("bit-bert-base"),
+               get_config("gemma3-27b"))
 
 
-def run(device: torch.device, model_cfg, bert_cfg) -> int:
+def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg) -> int:
     from repro_torch.kernels import binary_qmm as K1
     from repro_torch.kernels import bitserial_qmm as K4
     from repro_torch.kernels import build, ref
@@ -1069,7 +1211,7 @@ def run(device: torch.device, model_cfg, bert_cfg) -> int:
     # (eager, exact-length) prefill, profiled
     cache = fill_cache(Z, cfg, params, [r.prompt for r in done[:4]], device)
     step = torch.tensor([r.output[0] for r in done[:4]], device=device)
-    k1["replay_launches"] = graph_vs_eager(Z, make_decode_step, cfg, params, cache, step, K1.binary_qmm,
+    k1["replay_launches"] = graph_vs_eager(Z, make_decode_step, cfg, params, cache, 512, step, K1.binary_qmm,
                                            per_forward, phase=3, tag="pallas decode tick (4 slots)")
     long = max(done, key=lambda r: len(r.prompt))
     tokens = torch.as_tensor(np.asarray(long.prompt)[None], device=device)
@@ -1115,7 +1257,7 @@ def run(device: torch.device, model_cfg, bert_cfg) -> int:
         f"argmax equal at {same}/9 steps")
     # where the time goes on the fused backend: the same 4-slot tick, eager
     # and replayed, and prefill that phase 3 profiles for the pallas backend
-    k2["replay_launches"] = graph_vs_eager(Z, make_decode_step, fcfg, params, cache, step, K2.fused_qmm,
+    k2["replay_launches"] = graph_vs_eager(Z, make_decode_step, fcfg, params, cache, 512, step, K2.fused_qmm,
                                            per_forward, phase=4, tag="fused decode tick (4 slots)")
     report_profile(f"fused eager prefill ({len(long.prompt)} tokens)", *profile_forward(
         lambda: Z.prefill(params, tokens, fcfg, Z.init_slot_cache(512, fcfg, device=device))), phase=4)
@@ -1127,6 +1269,8 @@ def run(device: torch.device, model_cfg, bert_cfg) -> int:
     k3 = serve_bitbert(Z, bert_cfg, device, Request, ServeEngine, serve_sequential,
                             make_decode_step, make_prefill, ops, ref, all_kernels)
     k4 = dict(launches=act_act(device, gen, all_kernels), replays=None, replay_launches=None)
+    k1["gemma3"] = serve_gemma3(Z, gemma3_cfg, device, Request, ServeEngine, serve_sequential,
+                                make_decode_step, ops, ref, all_kernels, smi)
 
     main_path = {"binary_qmm": k1, "fused_qmm": k2, "popcount_qmm": k3, "bitserial_qmm": k4}
     sources = {
@@ -1145,7 +1289,7 @@ def run(device: torch.device, model_cfg, bert_cfg) -> int:
             bound_by=head["bound_by"], library_ms=head["library_ms"], shape=head["shape"],
             shapes=shapes,
         ))
-    log(f"[7] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[8] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

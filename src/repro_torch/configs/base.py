@@ -2,9 +2,10 @@
 
 A copy, not an import: the port never imports the JAX package.  Field names
 and defaults match the reference so one config means the same model on
-both sides.  This slice serves dense GQA decoders (block kind ``"g"``);
-the MLA / MoE / SSM / encoder sub-configs of the reference are not ported
-yet, so their fields are absent here.
+both sides.  The port serves dense GQA decoders and encoders (block kinds
+``"g"``, global attention, and ``"l"``, sliding-window attention over
+``window_size`` positions); the MLA / MoE / SSM / encoder sub-configs of
+the reference are not ported yet, so their fields are absent here.
 """
 
 from __future__ import annotations
@@ -88,6 +89,7 @@ class ArchConfig:
     qk_norm: bool = False
     ffn_type: str = "silu_glu"  # "gelu" | "silu_glu" | "gelu_glu"
     rope_theta: float = 10000.0
+    local_rope_theta: float = 0.0  # gemma3 uses a different theta locally
     pos_embedding: str = "rope"
     causal: bool = True
     tie_embeddings: bool = False

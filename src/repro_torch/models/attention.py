@@ -1,5 +1,6 @@
 """GQA attention with the int8 KV cache, serve mode (port of the
-``kind="g"`` int8-cache path of ``repro.models.attention``).
+int8-cache path of ``repro.models.attention`` for ``kind`` ``"g"`` and
+``"l"``).
 
 QK^T and PV run as activation x activation integer products through the
 flow abstraction, grouped over kv heads; softmax stays float32.  The cache
@@ -10,9 +11,15 @@ Unlike the reference, the cache is updated IN PLACE (``index_copy_`` /
 ``index_put_``): prefill and decode return the same dict they were given.
 
 Positions are rotary or learned (added at the embedding, so nothing here);
-prefill is causal or not as ``cfg.causal`` says.  Not ported yet: the
-windowed ring buffer (``"l"`` layers), bitwise (binary) scores, MLA, float
-caches and cross-attention.
+prefill is causal or not as ``cfg.causal`` says.  ``cfg.qk_norm`` applies a
+per-head RMSNorm to q and k before rope.  A ``"l"`` (local) layer attends
+over the last ``cfg.window_size`` positions, rotated with
+``cfg.local_rope_theta`` when that is set; its cache is a RING BUFFER of
+``window_size`` rows when ``max_len`` exceeds the window (position ``p``
+lives in row ``p % window_size``), else ``max_len`` rows masked to the
+window.  The cursor ``pos`` is absolute in every layer.  Not ported yet:
+bitwise (binary) scores, MLA, float caches, sinusoidal positions and
+cross-attention.
 """
 
 from __future__ import annotations
@@ -26,41 +33,55 @@ from repro_torch.core import quantization as Q
 from repro_torch.core.constants import scalar
 from repro_torch.models import layers as L
 
-__all__ = ["init_attention", "init_kv_cache", "attention"]
+__all__ = ["init_attention", "cache_rows", "init_kv_cache", "attention"]
 
 _NEG_INF = -1e30
 
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig) -> dict:
     h, kvh, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_model
-    return {
+    p = {
         "q": L.init_linear(gen, d, h * dh),
         "k": L.init_linear(gen, d, kvh * dh),
         "v": L.init_linear(gen, d, kvh * dh),
         "o": L.init_linear(gen, h * dh, d, scale=0.5),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((dh,), dtype=torch.float32, device=gen.device)
+        p["k_norm"] = torch.zeros((dh,), dtype=torch.float32, device=gen.device)
+    return p
 
 
 def _check_supported(cfg: ArchConfig, kind: str) -> None:
     q = cfg.quant
-    if kind != "g":
-        raise NotImplementedError(f"attention kind {kind!r} is not ported yet (only 'g')")
+    if kind not in ("g", "l"):
+        raise NotImplementedError(f"attention kind {kind!r} is not ported yet (only 'g', 'l')")
     if not (q.enabled and q.quantize_attention and q.kv_cache_bits in (4, 8)):
         raise NotImplementedError("only the quantized int8 KV-cache path is ported")
-    if cfg.qk_norm or cfg.pos_embedding not in ("rope", "learned"):
-        raise NotImplementedError("qk_norm and sinusoidal positions are not ported yet")
+    if cfg.pos_embedding not in ("rope", "learned"):
+        raise NotImplementedError("sinusoidal positions are not ported yet")
+
+
+def cache_rows(max_len: int, cfg: ArchConfig, kind: str) -> int:
+    """Rows of a ``kind`` layer's cache for ``max_len`` positions: a local
+    layer never needs more than its window (the ring buffer)."""
+    if kind == "l" and cfg.window_size:
+        return min(max_len, cfg.window_size)
+    return max_len
 
 
 def init_kv_cache(
     batch: int, max_len: int, cfg: ArchConfig, kind: str = "g", device="cuda"
 ) -> dict:
-    """int8 KV cache with per-row ``pos`` cursors and calibration affines."""
+    """int8 KV cache with per-row ``pos`` cursors and calibration affines;
+    ``cache_rows(max_len, cfg, kind)`` rows."""
     _check_supported(cfg, kind)
     kvh, dh = cfg.n_kv_heads, cfg.d_head
+    rows = cache_rows(max_len, cfg, kind)
     f32 = dict(dtype=torch.float32, device=device)
     return {
-        "k": torch.zeros((batch, max_len, kvh, dh), dtype=torch.int8, device=device),
-        "v": torch.zeros((batch, max_len, kvh, dh), dtype=torch.int8, device=device),
+        "k": torch.zeros((batch, rows, kvh, dh), dtype=torch.int8, device=device),
+        "v": torch.zeros((batch, rows, kvh, dh), dtype=torch.int8, device=device),
         "k_scale": torch.ones((batch,), **f32),
         "k_offset": torch.zeros((batch,), **f32),
         "v_scale": torch.ones((batch,), **f32),
@@ -154,13 +175,16 @@ def _pv_int(p_probs, v_mantissa, v_scale, v_offset):
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh)
 
 
-def _mask(s_q: int, s_k: int, causal: bool, device) -> torch.Tensor:
-    """(s_q, s_k) additive mask for a prefill starting at position 0."""
+def _mask(s_q: int, s_k: int, causal: bool, window: int, device) -> torch.Tensor:
+    """(s_q, s_k) additive mask for a prefill starting at position 0; a
+    nonzero ``window`` keeps only the last ``window`` positions."""
     qi = torch.arange(s_q, device=device)[:, None]
     kj = torch.arange(s_k, device=device)[None, :]
     ok = torch.ones((s_q, s_k), dtype=torch.bool, device=device)
     if causal:
         ok &= kj <= qi
+    if window:
+        ok &= kj > qi - window
     zero = torch.zeros((), dtype=torch.float32, device=device)
     return torch.where(ok, zero, torch.full_like(zero, _NEG_INF))
 
@@ -170,15 +194,42 @@ def _softmax(x: torch.Tensor) -> torch.Tensor:
     return e / e.sum(dim=-1, keepdim=True)
 
 
-def _write_prefill_cache(cache, k_m, v_m, s, k_sc, k_off, v_sc, v_off) -> None:
-    """Write prefilled rows at ``[pos, pos + s)`` of every batch row, in place.
-    All rows share row 0's cursor (prefill runs on a freshly reset cache)."""
-    idx = cache["pos"][0].to(torch.int64) + torch.arange(s, device=k_m.device)
+def _write_prefill_cache(cache, k_m, v_m, s, windowed, k_sc, k_off, v_sc, v_off) -> None:
+    """Write prefilled rows into the cache, in place.
+
+    A ring (``windowed``) that the prompt fills keeps the last ``cache_len``
+    tokens, absolute position ``p`` in row ``p % cache_len``; otherwise the
+    rows go to ``[pos, pos + s)``.  All batch rows share row 0's cursor
+    (prefill runs on a freshly reset cache)."""
+    cache_len = cache["k"].shape[1]
+    dev = k_m.device
+    if windowed and s >= cache_len:
+        idx = torch.arange(s - cache_len, s, device=dev) % cache_len
+        k_m, v_m = k_m[:, s - cache_len:], v_m[:, s - cache_len:]
+    else:
+        idx = cache["pos"][0].to(torch.int64) + torch.arange(s, device=dev)
     cache["k"].index_copy_(1, idx, k_m)
     cache["v"].index_copy_(1, idx, v_m)
     cache["pos"] += s
     for key, val in (("k_scale", k_sc), ("k_offset", k_off), ("v_scale", v_sc), ("v_offset", v_off)):
         cache[key].copy_(val)
+
+
+def _decode_valid(pos: torch.Tensor, t: int, window: int, windowed: bool) -> torch.Tensor:
+    """(B, t) cache rows a decode at per-row position ``pos`` (B,) attends to.
+
+    A ring's row ``j`` holds absolute position ``j + t * floor((pos - j) /
+    t)`` once this step's row is written; elsewhere row ``j`` is position
+    ``j``, limited to the last ``window`` positions when ``window`` is set."""
+    j = torch.arange(t, device=pos.device)[None, :]
+    posc = pos[:, None]
+    if windowed:
+        slot_abs = j + t * torch.div(posc - j, t, rounding_mode="floor")
+        return (slot_abs >= 0) & (slot_abs > posc - window) & (slot_abs <= posc)
+    valid = j <= posc
+    if window:
+        valid &= j > posc - window
+    return valid
 
 
 def attention(
@@ -195,22 +246,31 @@ def attention(
     prefill from an empty cache; ``S == 1`` a decode step at each row's own
     cursor.  Prefill attends causally unless ``cfg.causal`` is False (an
     encoder such as bit-bert-base); a decode step attends to every cached
-    position up to its own.  Returns (out (B, S, D), cache), the cache
-    updated in place.
+    position up to its own.  ``kind`` ``"l"`` limits both to the last
+    ``cfg.window_size`` positions.  Returns (out (B, S, D), cache), the
+    cache updated in place.
     """
     _check_supported(cfg, kind)
     quant = cfg.quant
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     b, s, _ = x.shape
     bits = quant.attn_act_bits
+    window = cfg.window_size if kind == "l" else 0
 
     q = L.qlinear(p["q"], x, quant, name="attn.q").reshape(b, s, h, dh)
     k = L.qlinear(p["k"], x, quant, name="attn.k").reshape(b, s, kvh, dh)
     v = L.qlinear(p["v"], x, quant, name="attn.v").reshape(b, s, kvh, dh)
+    if cfg.qk_norm:
+        q = L.rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = L.rmsnorm(p["k_norm"], k, cfg.norm_eps)
     if cfg.pos_embedding == "rope":  # learned positions were added to x at the embedding
-        q = L.rope(q, positions, cfg.rope_theta)
-        k = L.rope(k, positions, cfg.rope_theta)
+        theta = cfg.local_rope_theta if kind == "l" and cfg.local_rope_theta else cfg.rope_theta
+        q = L.rope(q, positions, theta)
+        k = L.rope(k, positions, theta)
     sqrt_dh = torch.sqrt(scalar(float(dh), torch.float32, x.device))
+    # a local layer's cache is a ring when it holds exactly the window
+    cache_len = cache["k"].shape[1]
+    windowed = kind == "l" and 0 < cfg.window_size == cache_len
 
     if s > 1:
         k_sc, k_off = _calibrate_rows(k)
@@ -218,21 +278,21 @@ def attention(
         k_m = _quantize_to_cache(k, k_sc, k_off)
         v_m = _quantize_to_cache(v, v_sc, v_off)
         scores = _scores_int(q, k_m, k_sc, k_off, bits)
-        mask = _mask(s, s, cfg.causal, x.device)
+        mask = _mask(s, s, cfg.causal, window, x.device)
         probs = _softmax(scores / sqrt_dh + mask[None, None])
         ctx = _pv_int(probs, v_m, v_sc, v_off)
-        _write_prefill_cache(cache, k_m, v_m, s, k_sc, k_off, v_sc, v_off)
+        _write_prefill_cache(cache, k_m, v_m, s, windowed, k_sc, k_off, v_sc, v_off)
     else:
         # each row writes at, and attends up to, its own cursor
         pos = cache["pos"].to(torch.int64)  # a copy: the cursor advances below
+        slot = pos % cache_len if windowed else pos
         k_sc, k_off = cache["k_scale"], cache["k_offset"]
         v_sc, v_off = cache["v_scale"], cache["v_offset"]
         rows = torch.arange(b, device=x.device)
-        cache["k"].index_put_((rows, pos), _quantize_to_cache(k, k_sc, k_off)[:, 0])
-        cache["v"].index_put_((rows, pos), _quantize_to_cache(v, v_sc, v_off)[:, 0])
+        cache["k"].index_put_((rows, slot), _quantize_to_cache(k, k_sc, k_off)[:, 0])
+        cache["v"].index_put_((rows, slot), _quantize_to_cache(v, v_sc, v_off)[:, 0])
         cache["pos"] += 1
-        t = cache["k"].shape[1]
-        valid = torch.arange(t, device=x.device)[None, :] <= pos[:, None]
+        valid = _decode_valid(pos, cache_len, window, windowed)
         scores = _scores_int(q, cache["k"], k_sc, k_off, bits) / sqrt_dh
         scores = torch.where(
             valid[:, None, None, :], scores, torch.full_like(scores, _NEG_INF)

@@ -1,12 +1,18 @@
 """Public model API of the port (counterpart of ``repro.models.model_zoo``),
-serving subset for dense GQA decoders and bidirectional encoders
-(bit-bert-base: learned positions, non-causal prefill).
+serving subset for dense GQA decoders -- global (``"g"``) and
+sliding-window (``"l"``) layers, as granite-8b, mistral-nemo-12b, qwen3-32b
+and gemma3-27b have them -- and bidirectional encoders (bit-bert-base:
+learned positions, non-causal prefill).
 
 Params are plain dicts: ``{"embedding", "final_norm", "layers": [block,
 ...]}``, plus ``"unembedding"`` when the embeddings are untied and
 ``"pos_embedding"`` ``(max_seq, d)`` for learned positions, with one block
 per layer in ``cfg.layer_kinds`` order (the reference's scanned ``period``
-stack, unstacked).  Caches are ``{"layers": [kv_cache, ...]}``.
+stack, unstacked).  Caches are ``{"layers": [kv_cache, ...]}``, one per
+layer; a ``"l"`` layer's holds ``min(max_len, window_size)`` rows (its ring
+buffer), every other layer's ``max_len`` (``cache_rows``).  Every layer's
+cursor ``pos`` is absolute, so a decode step reads its positions from
+layer 0's, whatever its kind.
 
 Entry points:
 
@@ -41,6 +47,7 @@ __all__ = [
     "prepare_serving_params",
     "init_serving_params",
     "check_max_len",
+    "cache_rows",
     "init_cache",
     "init_slot_cache",
     "cache_insert",
@@ -129,14 +136,19 @@ def prepare_serving_params(params: dict, cfg: ArchConfig) -> dict:
 def init_serving_params(seed: int, cfg: ArchConfig, device="cuda") -> dict:
     """Serving params built one layer at a time: each layer's latent
     weights are drawn, packed at once and freed, so the peak holds one
-    layer of float32 latents (about 0.9 GB at granite-8b width) besides the
-    packed model."""
+    layer of float32 latents (about 0.9 GB at granite-8b width, 1.65 GB at
+    gemma3-27b's) besides the packed model."""
     gen = _generator(seed, device)
     out = _serving_top(_init_top(gen, cfg))
     out["layers"] = []
     for kind in cfg.layer_kinds:
         out["layers"].append(_pack_tree(T.init_block(gen, cfg, kind), cfg))
     return out
+
+
+def cache_rows(max_len: int, cfg: ArchConfig) -> list:
+    """Rows of each layer's cache, in layer order, for ``max_len`` positions."""
+    return [A.cache_rows(max_len, cfg, kind) for kind in cfg.layer_kinds]
 
 
 def init_cache(batch: int, max_len: int, cfg: ArchConfig, device="cuda") -> dict:
@@ -151,7 +163,8 @@ def init_cache(batch: int, max_len: int, cfg: ArchConfig, device="cuda") -> dict
 
 def init_slot_cache(max_len: int, cfg: ArchConfig, device="cuda") -> dict:
     """A batch-1 cache for ``cache_insert``; shares ``max_len`` with the
-    packed cache so every leaf lines up except the batch axis."""
+    packed cache so every leaf lines up except the batch axis (ring layers
+    included: their rows follow from ``max_len``)."""
     return init_cache(1, max_len, cfg, device=device)
 
 

@@ -2,7 +2,9 @@
 
 The reference scans one stacked ``period`` of params with ``lax.scan``;
 here the stack is a Python loop over per-layer param dicts, in
-``cfg.layer_kinds`` order.  Pre-norm residual blocks (RMSNorm).
+``cfg.layer_kinds`` order (the prefix layers, then each period in turn).
+Block kinds ``"g"`` (global attention) and ``"l"`` (sliding-window
+attention), each with a dense FFN.  Pre-norm residual blocks (RMSNorm).
 """
 
 from __future__ import annotations
@@ -19,8 +21,8 @@ __all__ = ["init_block", "block_apply", "stack_apply"]
 
 
 def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str) -> dict:
-    if kind != "g":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet (only 'g')")
+    if kind not in ("g", "l"):
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet (only 'g', 'l')")
     d = cfg.d_model
     zeros = dict(dtype=torch.float32, device=gen.device)
     return {

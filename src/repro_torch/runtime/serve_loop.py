@@ -94,6 +94,9 @@ class CompiledStep:
         self.cfg = cfg
         self.tokens_shape = tuple(tokens_shape)
         self.cache_rows = tuple(cache_rows)
+        batch, max_len = self.cache_rows
+        # each layer's own rows: a ring layer holds its window, not max_len
+        self._layer_rows = [(batch, rows) for rows in Z.cache_rows(max_len, cfg)]
         self.device = torch.device(device)
         self.captures = 0
         self.replays = 0
@@ -105,9 +108,10 @@ class CompiledStep:
     def _check(self, tokens: torch.Tensor, cache: dict) -> None:
         if tuple(tokens.shape) != self.tokens_shape:
             raise ValueError(f"tokens of shape {tuple(tokens.shape)}, step takes {self.tokens_shape}")
-        got = tuple(cache["layers"][0]["k"].shape[:2])
-        if got != self.cache_rows:
-            raise ValueError(f"cache of (batch, max_len) {got}, step takes {self.cache_rows}")
+        got = [tuple(layer["k"].shape[:2]) for layer in cache["layers"]]
+        if got != self._layer_rows:
+            raise ValueError(f"cache layers of (batch, rows) {got}, step takes (batch, max_len) "
+                             f"{self.cache_rows}: {self._layer_rows}")
 
     def __call__(self, params: dict, tokens, cache: dict):
         tokens = torch.as_tensor(tokens)
@@ -363,7 +367,8 @@ class ServeEngine:
                 continue
 
             for i, slot in enumerate(slots):
-                # a free row's cursor must not run past the cache
+                # a free row's cursor must not run past a global layer's
+                # max_len rows (a ring layer's write wraps)
                 if slot is None and self._pos[i] >= self.max_len:
                     Z.cache_reset(cache, i, self.cfg, self.max_len)
                     self._pos[i] = 0

@@ -52,6 +52,13 @@ BINARY_SHAPES = SHAPES + [
     (m, k, n) for m in (16, 17, 35, 64, 65, 130) for k in (100, 1000, 4096, 14336)
     for n in (33, 72, 1024, 4500)
 ] + [(128, 768, 3072), (1, 3072, 768), (4, 4096, 1024)]
+# (K, N) of every QMM site of the dense GQA families beside granite-8b:
+# attn.q, attn.k / v, attn.o, ffn.up / gate, ffn.down
+FAMILY_SITES = {
+    "gemma3-27b": [(5376, 4096), (5376, 2048), (4096, 5376), (5376, 21504), (21504, 5376)],
+    "qwen3-32b": [(5120, 8192), (5120, 1024), (8192, 5120), (5120, 25600), (25600, 5120)],
+    "mistral-nemo-12b": [(5120, 4096), (5120, 1024), (4096, 5120), (5120, 14336), (14336, 5120)],
+}
 
 
 @pytest.mark.parametrize("m,k,n", BINARY_SHAPES)
@@ -63,6 +70,13 @@ def test_binary_qmm_equals_plain(dev, m, k, n):
     got = K1.binary_qmm(a, wp, k)
     assert K1.binary_qmm.launches == before + 1
     assert torch.equal(got, ref.binary_qmm_ref(a, wp, k))
+
+
+@pytest.mark.parametrize("m", [4, 128])  # a 4-slot decode tick, a 128-token prefill
+@pytest.mark.parametrize("name,k,n", [(name, k, n) for name, sites in FAMILY_SITES.items()
+                                      for k, n in sites])
+def test_binary_qmm_equals_plain_at_family_sites(dev, name, k, n, m):
+    test_binary_qmm_equals_plain(dev, m, k, n)
 
 
 # K2's tile paths (16 rows up to M = 64, with 32 or 64 columns; 32 or 64
@@ -198,6 +212,9 @@ def test_smoke_model_card_matches_cpu(dev, backend):
 # ---- the compiled serving steps: replayed CUDA graphs against the eager step
 
 STEP_MODELS = {  # name -> (config name, backend, kernel its forwards launch, sites a layer)
+    # window 8 in the smoke: a ring beside global layers; _filled_cache's
+    # 9-token row has wrapped, its 6-token row wraps on the third tick
+    "gemma3-pallas": ("gemma3-27b", "pallas", "binary_qmm", 7),
     "granite-pallas": ("granite-8b", "pallas", "binary_qmm", 7),
     "granite-fused": ("granite-8b", "fused", "fused_qmm", 7),
     "bitbert-a1": ("bit-bert-base", "pallas", "popcount_qmm", 6),

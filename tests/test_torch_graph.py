@@ -204,28 +204,10 @@ _WRAPPERS = [(TO._bq, "binary_qmm"), (TO._fq, "fused_qmm"), (TO._pq, "popcount_q
              (TO._bs, "bitserial_qmm")]
 
 
-@pytest.mark.parametrize("model,backend", [
-    ("granite", "pallas"), ("granite", "fused"), ("granite", "mxu"),
-    ("bitbert-a1", "pallas"), ("bitbert-a8", "pallas"),
-])
-@pytest.mark.parametrize("which", ["decode", "prefill"])
-def test_step_glue_makes_no_tensor_from_host_data(params, model, backend, which):
-    """After one warm-up call, a second call of the step makes no tensor
-    from host data (a host-to-device copy, which a capture refuses)."""
-    tcfg = _cfgs(model, backend)[1]
-    serving_t = _params(params, model)[1]
-    if which == "decode":
-        cache, toks = _packed_cache(tcfg, serving_t, [_prompt(5, 7), _prompt(6, 4)])
-        tokens = torch.tensor(toks)
-
-        def run():
-            TZ.decode_step(serving_t, tokens, tcfg, cache)
-    else:
-        tokens = torch.from_numpy(_prompt(7, 9).astype(np.int64))
-
-        def run():
-            TZ.prefill(serving_t, tokens, tcfg, TZ.init_cache(1, MAX_LEN, tcfg, device="cpu"))
-
+def _host_tensors_made(run) -> list:
+    """Call ``run`` once to warm up (it makes the step's constants), then
+    again, listing every ``torch.tensor`` / ``torch.as_tensor`` call on a
+    Python number, list or numpy array outside the kernel wrappers."""
     run()  # warm-up: makes the step's constants
     seen, inside = [], [0]
     real_tensor, real_as_tensor = torch.tensor, torch.as_tensor
@@ -256,6 +238,32 @@ def test_step_glue_makes_no_tensor_from_host_data(params, model, backend, which)
     finally:
         for p in reversed(patches):
             p.stop()
+    return seen
+
+
+@pytest.mark.parametrize("model,backend", [
+    ("granite", "pallas"), ("granite", "fused"), ("granite", "mxu"),
+    ("bitbert-a1", "pallas"), ("bitbert-a8", "pallas"),
+])
+@pytest.mark.parametrize("which", ["decode", "prefill"])
+def test_step_glue_makes_no_tensor_from_host_data(params, model, backend, which):
+    """After one warm-up call, a second call of the step makes no tensor
+    from host data (a host-to-device copy, which a capture refuses)."""
+    tcfg = _cfgs(model, backend)[1]
+    serving_t = _params(params, model)[1]
+    if which == "decode":
+        cache, toks = _packed_cache(tcfg, serving_t, [_prompt(5, 7), _prompt(6, 4)])
+        tokens = torch.tensor(toks)
+
+        def run():
+            TZ.decode_step(serving_t, tokens, tcfg, cache)
+    else:
+        tokens = torch.from_numpy(_prompt(7, 9).astype(np.int64))
+
+        def run():
+            TZ.prefill(serving_t, tokens, tcfg, TZ.init_cache(1, MAX_LEN, tcfg, device="cpu"))
+
+    seen = _host_tensors_made(run)
     assert seen == [], f"tensors made from host data inside the step: {seen[:5]}"
 
 
@@ -305,3 +313,101 @@ def test_engine_resets_a_free_row_before_its_cursor_leaves_the_cache(params):
         assert got[0].output == want[0].output
         resets += sum(e["kind"] == "reset" and e["rid"] is None for e in engine.last_events)
     assert resets >= 1
+
+
+# ---- gemma3-27b smoke: ring-buffer local layers (window 8) beside global ones
+
+GEMMA3_MAX_LEN = 24  # > the window: every local layer is an 8-row ring
+
+
+@pytest.fixture(scope="module")
+def gemma3():
+    tcfg = tsmoke(tget("gemma3-27b"))
+    tcfg = dataclasses.replace(tcfg, quant=dataclasses.replace(tcfg.quant, backend="pallas"))
+    return tcfg, TZ.init_serving_params(0, tcfg, device="cpu")
+
+
+def test_gemma3_engine_equals_serve_sequential_across_the_ring(gemma3):
+    """Greedy requests through the engine's packed ticks equal the
+    one-at-a-time oracle: one prompt longer than the window (the ring
+    wraps inside its prefill), one that decodes across the wrap, and short
+    ones beside them."""
+    tcfg, params = gemma3
+    assert tcfg.window_size == 8 and TZ.cache_rows(GEMMA3_MAX_LEN, tcfg)[0] == 8
+
+    def requests():
+        rng = np.random.default_rng(4)
+        return [Request(prompt=rng.integers(0, 256, size=(n,)).astype(np.int32), max_new_tokens=new)
+                for n, new in ((13, 5), (6, 7), (3, 4), (4, 9))]
+
+    want = serve_sequential(tcfg, params, requests(), max_len=GEMMA3_MAX_LEN, seed=0, device="cpu")
+    engine = ServeEngine(tcfg, params, batch_slots=2, max_len=GEMMA3_MAX_LEN, seed=0, device="cpu")
+    got = engine.run(requests())
+    assert [r.output for r in got] == [r.output for r in want]
+    assert all(r.state == "ok" for r in got)
+
+
+def test_gemma3_compiled_step_checks_every_layer_geometry(gemma3):
+    """The step holds each layer to its own rows: a ring layer's window,
+    a global layer's max_len.  A cache made for another max_len has the
+    same 8-row rings (layer 0 included) but other global layers, and is
+    refused."""
+    tcfg, params = gemma3
+    step = make_decode_step(tcfg, 2, GEMMA3_MAX_LEN, device="cpu")
+    cache = TZ.init_cache(2, GEMMA3_MAX_LEN, tcfg, device="cpu")
+    rows = {layer["k"].shape[1] for layer in cache["layers"]}
+    assert rows == {8, GEMMA3_MAX_LEN}
+    tokens = torch.zeros(2, dtype=torch.int64)
+    logits, out = step(params, tokens, cache)
+    assert out is cache and logits.shape == (2, tcfg.vocab_size)
+    other = TZ.init_cache(2, GEMMA3_MAX_LEN + 8, tcfg, device="cpu")
+    assert other["layers"][0]["k"].shape == cache["layers"][0]["k"].shape
+    with pytest.raises(ValueError, match="max_len"):
+        step(params, tokens, other)
+    with pytest.raises(ValueError, match="max_len"):
+        step(params, tokens, TZ.init_cache(1, GEMMA3_MAX_LEN, tcfg, device="cpu"))
+
+
+def test_gemma3_engine_resets_a_free_row_at_max_len(gemma3):
+    """With ring layers beside global ones, a free row is still reset
+    before its cursor reaches max_len (where a global layer's write would
+    leave the cache; a ring's wraps), and tokens equal the oracle."""
+    tcfg, params = gemma3
+    max_len = 12
+
+    def one(seed):
+        p = np.random.default_rng(seed).integers(0, 256, size=(3,)).astype(np.int32)
+        return [Request(prompt=p, max_new_tokens=9)]
+
+    engine = ServeEngine(tcfg, params, batch_slots=2, max_len=max_len, seed=0, device="cpu")
+    resets = 0
+    for seed in range(3):
+        got = engine.run(one(seed))
+        want = serve_sequential(tcfg, params, one(seed), max_len=max_len, seed=0, device="cpu")
+        assert got[0].output == want[0].output
+        resets += sum(e["kind"] == "reset" and e["rid"] is None for e in engine.last_events)
+    assert resets >= 1
+
+
+@pytest.mark.parametrize("which", ["decode", "prefill"])
+def test_gemma3_step_glue_makes_no_tensor_from_host_data(gemma3, which):
+    """The ring's slot and mask arithmetic, qk-norm and the local rope
+    theta make no tensor from host data after the warm-up call."""
+    tcfg, params = gemma3
+    if which == "decode":
+        cache = TZ.init_cache(2, GEMMA3_MAX_LEN, tcfg, device="cpu")
+        for row, n in enumerate((11, 5)):  # row 0 past the window, row 1 about to wrap
+            slot = TZ.init_slot_cache(GEMMA3_MAX_LEN, tcfg, device="cpu")
+            TZ.prefill(params, torch.from_numpy(_prompt(n, n).astype(np.int64)), tcfg, slot)
+            TZ.cache_insert(cache, slot, row)
+        tokens = torch.tensor([1, 2])
+
+        def run():
+            TZ.decode_step(params, tokens, tcfg, cache)
+    else:
+        tokens = torch.from_numpy(_prompt(7, 13).astype(np.int64))
+
+        def run():
+            TZ.prefill(params, tokens, tcfg, TZ.init_cache(1, GEMMA3_MAX_LEN, tcfg, device="cpu"))
+
+    assert _host_tensors_made(run) == []
