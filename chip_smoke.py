@@ -17,7 +17,8 @@ Phases (each prints its own lines):
    the main paths give them: ``binary_qmm`` (K1) equal int32 (at
    granite-8b's and bit-bert-base's sites, with the tile and K splits its
    plan chose; and at gemma3-27b's decode sites and its 128-token up
-   site), ``fused_qmm`` (K2, also at gemma3-27b's decode sites)
+   site; at deepseek-v2-lite-16b's decode sites and its prefill's k_up /
+   v_up), ``fused_qmm`` (K2, also at gemma3-27b's decode sites)
    bitwise-equal float32, ``popcount_qmm`` (K3, with its plan's tile and
    K splits, and K4 at A1xA1 -- the same sum -- timed beside it) and
    ``bitserial_qmm`` (K4) equal int32.  Each is timed on the device (a
@@ -86,7 +87,25 @@ Phases (each prints its own lines):
    1,023, 1,300 and 100, eager beside replayed, bitwise equal over 5 ticks
    that carry two rows across position 1,024, timed and profiled, K1 434
    times in the profiled replay; the 1,300-token eager prefill profiled.
-8. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and last
+8. deepseek-v2-lite-16b at full width and depth (27 layers: one ``"Md"``
+   layer, multi-head latent attention with a dense FFN of 10,944, then 26
+   ``"Mm"`` layers, MLA with 64 routed experts of 1,408, top-6, and 2
+   shared; d_model 2048, 16 heads, kv_lora 512, vocab 102,400 untied;
+   random weights from a seed), ``pallas`` backend: K1 at every binary
+   site, the routed experts one launch per expert (5,181 launches a decode
+   forward, 5,235 a prefill).  One prefill and decode step bitwise equal
+   with K1 swapped for its plain version; the expert loop alone (64 x (C,
+   2048, 1408) and (C, 1408, 2048), C = 1 and 15) bitwise equal to the
+   plain version expert by expert, timed; then ``ServeEngine`` with 4
+   slots and max_len 2048 serves 8 requests of 16 new tokens (prompts of
+   32-128 tokens and one of 1,500).  Checks: every request ``ok``, K1's
+   wrapper count (5,235 per eager prefill, 2 x 5,181 for the capturing
+   tick); the 4-slot tick, eager beside replayed, bitwise equal over 5
+   ticks, timed and profiled, K1 5,181 times in the profiled replay; the
+   1,500-token eager prefill profiled.  MoE routing depends on the batch,
+   so the engine is not held to ``serve_sequential`` here (the CPU tests
+   hold it to the reference's engine).
+9. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is its
    wrapper's count over its main path's run alone (phase 3's engine run for
    K1, phase 4's fused pass for K2, phase 5's engine run for K3, phase 6
@@ -94,7 +113,8 @@ Phases (each prints its own lines):
    ``replay_launches`` the kernel's launches counted on the device in one
    profiled replay of that path's decode graph (K3 adds
    ``prefill_replay_launches``, of the 128-token prefill graph; K1 adds
-   ``gemma3``, the same three numbers for phase 7's path).
+   ``gemma3`` and ``deepseek``, the same three numbers for phases 7 and
+   8, ``deepseek`` with its ``expert_loop`` rows).
 """
 
 from __future__ import annotations
@@ -300,7 +320,24 @@ BERT_K1_SHAPES = [
     (1, 768, 768),
     (1, 3072, 768),
 ]
-K1_ONLY_SHAPES = BERT_K1_SHAPES + [(128, 5376, 21504)]
+# deepseek-v2-lite-16b's sites at the engine's 4-slot decode: attn.q
+# (2048 -> 16 x 192), attn.kv_down (2048x512), attn.k_rope (2048x64),
+# attn.o (2048x2048), the dense layer's ffn.up / gate (2048x10944) and down
+# (10944x2048), the shared experts' up / gate (2048x2816) and down
+# (2816x2048); and the prefill's attn.k_up / v_up (512 -> 16 x 128) at 128
+# tokens.  The routed experts' site is phase 8's expert loop.
+DEEPSEEK_SHAPES = [
+    (4, 2048, 3072),
+    (4, 2048, 512),
+    (4, 2048, 64),
+    (4, 2048, 2048),
+    (4, 2048, 10944),
+    (4, 10944, 2048),
+    (4, 2048, 2816),
+    (4, 2816, 2048),
+    (128, 512, 2048),
+]
+K1_ONLY_SHAPES = BERT_K1_SHAPES + [(128, 5376, 21504)] + DEEPSEEK_SHAPES
 
 
 def _copies(nbytes: int) -> int:
@@ -745,24 +782,28 @@ def fill_cache(Z, cfg, params, prompts, device, max_len: int = 512):
     return cache
 
 
-def engine_counts(engine, kernels, launched, per_forward: int, main, phase: int) -> None:
+def engine_counts(engine, kernels, launched, per_forward: int, main, phase: int,
+                  prefill_per_forward=None) -> None:
     """Check the engine run's wrapper launches ``launched`` (counts zeroed
-    just before the run, read just after): ``main`` ``per_forward`` times
-    for each eager prefill and twice that for the capturing tick (warm-up
-    run, capture), every other kernel never; log the ticks."""
+    just before the run, read just after): ``main`` ``prefill_per_forward``
+    (default ``per_forward``) times for each eager prefill and twice
+    ``per_forward`` for the capturing tick (warm-up run, capture), every
+    other kernel never; log the ticks."""
     step = engine.decode_fn
     events = engine.last_events
     prefills = sum(e["kind"] == "prefill" for e in events)
     compiles = [e["ms"] for e in events if e["kind"] == "compile"]
     ticks = [e["ms"] for e in events if e["kind"] == "decode_tick"]
+    pre = per_forward if prefill_per_forward is None else prefill_per_forward
     got = {k.__name__: n for k, n in zip(kernels, launched)}
-    want = {k.__name__: per_forward * (prefills + 2 * len(compiles)) if k is main else 0 for k in kernels}
+    want = {k.__name__: pre * prefills + per_forward * 2 * len(compiles) if k is main else 0
+            for k in kernels}
     if got != want or len(compiles) != 1 or step.captures != 1 or step.replays != len(ticks):
         raise AssertionError(f"engine launches {got}, expected {want}; {len(compiles)} capturing "
                              f"ticks, {step.captures} captures, {step.replays} replays, {len(ticks)} ticks")
-    log(f"[{phase}] {main.__name__} launches {got[main.__name__]} = {per_forward} x ({prefills} eager "
-        f"prefills + 2 for the capturing tick: warm-up run and capture); the other kernels 0; "
-        f"{len(ticks)} replayed ticks ran the captured step, which calls no wrapper")
+    log(f"[{phase}] {main.__name__} launches {got[main.__name__]} = {pre} x {prefills} eager "
+        f"prefills + {per_forward} x 2 for the capturing tick (warm-up run and capture); the other "
+        f"kernels 0; {len(ticks)} replayed ticks ran the captured step, which calls no wrapper")
     log_capture(phase, "engine decode step", step, compiles[0])
     log(f"[{phase}] replayed decode tick ms (4 slots, synchronised, logits copy to the host "
         f"excluded): median {np.median(ticks):.2f} mean {np.mean(ticks):.2f} min {np.min(ticks):.2f}")
@@ -1114,6 +1155,174 @@ def serve_gemma3(Z, model_cfg, device, Request, ServeEngine, serve_sequential, m
     return path
 
 
+# ---------------------------------------------------------------------------
+# phase 8: deepseek-v2-lite-16b -- multi-head latent attention and the MoE
+# ---------------------------------------------------------------------------
+
+DEEPSEEK_MAX_LEN = 2048
+# (prompt tokens, temperature): one prompt of 1,500 tokens (176 rows per
+# expert in its prefill), seven of 32-128; 6 greedy, 2 at T=0.8
+DEEPSEEK_PROMPTS = [(1500, 0.0), (48, 0.0), (96, 0.0), (32, 0.0), (128, 0.0), (64, 0.0),
+                    (80, 0.8), (112, 0.8)]
+# the 4-slot cache graph_vs_eager starts from
+DEEPSEEK_TICK_PROMPTS = (1500, 100, 37, 128)
+# the routed experts' K1 loop alone: capacity C at a 4-slot tick (1) and a
+# 128-token prefill (15), at the experts' up / gate (2048x1408) and down
+# (1408x2048) sites
+EXPERT_CASES = [(1, 2048, 1408), (1, 1408, 2048), (15, 2048, 1408), (15, 1408, 2048)]
+
+
+def k1_per_forward(cfg, prefill: bool) -> int:
+    """K1 launches of one MLA + MoE forward: each layer's attn.q (or
+    q_down and q_up), kv_down, k_rope and o, plus k_up and v_up in a
+    prefill; a dense layer's FFN up / gate / down, or an MoE layer's
+    shared experts' 3 and 3 per routed expert (one launch per expert)."""
+    attn = (5 if cfg.mla.q_lora_rank else 4) + (2 if prefill else 0)
+    moe = (3 if cfg.moe.n_shared else 0) + 3 * cfg.moe.n_routed
+    return sum(attn + (moe if kind == "Mm" else 3) for kind in cfg.layer_kinds)
+
+
+def check_expert_loop(gen: torch.Generator, n_experts: int) -> list:
+    """The routed experts' integer product as the MoE runs it on the card
+    (``moe._experts_k1``: one K1 launch per expert into its slice of one
+    (E, C, N) int32 buffer) against the plain version expert by expert,
+    bitwise; timed beside its bound, the plain loop and one batched
+    PyTorch product on pre-unpacked operands."""
+    from repro_torch.core import packing
+    from repro_torch.core import quantization as Q
+    from repro_torch.kernels import ref
+    from repro_torch.models import moe as M
+
+    dev = gen.device
+    rows = []
+    for c, k, n in EXPERT_CASES:
+        kw = packing.packed_len(k, 1)
+        w_bytes = 4 * n_experts * kw * n
+        a = torch.randint(-128, 128, (n_experts, c, k), generator=gen, device=dev, dtype=torch.int8)
+        x = Q.QuantTensor(mantissa=a, scale=torch.ones(()), offset=torch.zeros(()), bits=8)
+        ws = []
+        for _ in range(_copies(w_bytes)):
+            wp = packing.pack_bits(torch.randint(0, 2, (n_experts, k, n), generator=gen, device=dev),
+                                   1, axis=1)
+            ws.append(Q.QuantTensor(mantissa=wp, scale=torch.ones(()), offset=torch.zeros(()), bits=1,
+                                    packed=True, packed_axis=1, length=k))
+        got = M._experts_k1(x, ws[0])
+        want = torch.stack([ref.binary_qmm_ref(a[i], ws[0].mantissa[i], k) for i in range(n_experts)])
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"expert loop != plain at {n_experts} x {(c, k, n)}")
+        w_i8 = packing.unpack_bits(ws[0].mantissa, 1, k, axis=1, dtype=torch.int8)
+        a32, w32 = a.float(), w_i8.float()
+        if not torch.equal(torch.bmm(a32, w32).to(torch.int32), want):
+            raise AssertionError(f"torch.bmm disagrees with the plain loop at {(c, k, n)}")
+        nb, bb = bound(a.numel() + w_bytes + 4 * n_experts * c * n, 2 * n_experts * c * k * n)
+        calls = [lambda w=w: M._experts_k1(x, w) for w in ws]
+        rows.append(dict(
+            shape=[c, k, n], experts=n_experts, bits=[8, 1], max_abs_err=int((got - want).abs().max()),
+            ms=device_ms(calls, 4 * len(calls)), eager_ms=time_ms(calls, 4 * len(calls)),
+            plain_ms=time_ms([lambda: [ref.binary_qmm_ref(a[i], ws[0].mantissa[i], k)
+                                       for i in range(n_experts)]], 2),
+            bound_ms=nb, bound_by=bb, library="torch.bmm (float32, pre-unpacked)",
+            library_ms=device_ms([lambda: torch.bmm(a32, w32)], 20),
+        ))
+        r = rows[-1]
+        log(f"[8]   expert loop {n_experts} x {(c, k, n)}: {n_experts} binary_qmm launches equal to the "
+            f"plain version, expert by expert; ms={r['ms']:.4f} eager_ms={r['eager_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) plain_ms={r['plain_ms']:.3f} "
+            f"library_ms={r['library_ms']:.4f} [{r['library']}]")
+        del ws, a, x, w_i8, a32, w32
+        torch.cuda.empty_cache()
+    return rows
+
+
+def serve_deepseek(Z, model_cfg, device, Request, ServeEngine, make_decode_step, ops, ref,
+                   kernels, smi: str, gen: torch.Generator) -> dict:
+    """Serve deepseek-v2-lite-16b at full width and depth through the
+    engine on the ``pallas`` backend (K1 at every binary site, the routed
+    experts one launch per expert); hold K1 to its plain version in the
+    model and in the expert loop alone, and the replayed tick to the eager
+    one.  Returns K1's numbers on this path."""
+    cfg = with_backend(model_cfg, "pallas")
+    k1 = kernels[0]
+    max_len = DEEPSEEK_MAX_LEN
+    per_decode, per_prefill = k1_per_forward(cfg, False), k1_per_forward(cfg, True)
+    m, e = cfg.mla, cfg.moe
+    t = time.perf_counter()
+    params = Z.init_serving_params(0, cfg, device=device)
+    torch.cuda.synchronize()
+    log(f"[8] {cfg.name}: {cfg.n_layers} layers ({cfg.prefix_layers} + {cfg.pattern_period} x "
+        f"{cfg.n_periods}), d_model {cfg.d_model}, {cfg.n_heads} heads, MLA kv_lora {m.kv_lora_rank} "
+        f"q_lora {m.q_lora_rank} nope {m.qk_nope_dim} rope {m.qk_rope_dim} v {m.v_head_dim}; dense "
+        f"d_ff {cfg.d_ff}; MoE {e.n_routed} routed + {e.n_shared} shared experts of {e.d_expert_ff}, "
+        f"top-{e.top_k} ({e.router_scoring}), capacity factor {e.capacity_factor}; vocab "
+        f"{cfg.vocab_size}, tied={cfg.tie_embeddings}; serving params built on the card in "
+        f"{time.perf_counter() - t:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; "
+        f"K1 launches a forward: {per_decode} decode, {per_prefill} prefill | {smi}")
+
+    # K1 against its plain version in a short prefill and a decode step
+    # (every site, the expert loop included); also the phase's warm-up
+    prompt = np.random.default_rng(8).integers(0, cfg.vocab_size, size=(40,))
+    kern, fed = greedy_steps(Z, cfg, params, prompt, 1, device)
+    with mock.patch.object(ops._bq, "binary_qmm", ref.binary_qmm_ref):
+        plain, _ = greedy_steps(Z, cfg, params, prompt, 1, device, tokens=fed)
+    if not all(torch.equal(a, b) for a, b in zip(kern, plain)):
+        raise AssertionError("deepseek logits differ with K1 swapped for its plain version")
+    if not all(bool(torch.isfinite(x).all()) and x.shape == (1, cfg.vocab_size) for x in kern):
+        raise AssertionError("deepseek logits not finite or of the wrong shape")
+    log(f"[8] prefill ({len(prompt)} tokens) + decode: logits bitwise equal with binary_qmm swapped "
+        f"for binary_qmm_ref on the same tensors (every site, the {e.n_routed}-expert loops included)")
+
+    expert_rows = check_expert_loop(gen, e.n_routed)
+
+    def requests():
+        rng = np.random.default_rng(0)
+        return [Request(prompt=rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int64),
+                        max_new_tokens=16, temperature=temp) for n, temp in DEEPSEEK_PROMPTS]
+
+    engine = ServeEngine(cfg, params, batch_slots=4, max_len=max_len, seed=0, device=device)
+    torch.cuda.synchronize()
+    _zero(kernels)
+    t = time.perf_counter()
+    done = engine.run(requests())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launched = _counts(kernels)
+    if not all(r.state == "ok" and len(r.output) == 16 for r in done):
+        raise AssertionError(f"deepseek requests not ok: {[(r.state, len(r.output)) for r in done]}")
+    if not all(0 <= tok < cfg.vocab_size for r in done for tok in r.output):
+        raise AssertionError("deepseek tokens outside the vocabulary")
+    prefill_ms = [e_["ms"] for e_ in engine.last_events if e_["kind"] == "prefill"]
+    n_tok = sum(len(r.output) for r in done)
+    plens = [len(r.prompt) for r in done]
+    log(f"[8] served {len(done)} requests (prompts {sorted(plens)} tokens, 16 new each, 6 greedy + 2 "
+        f"at T=0.8, 4 slots, max_len {max_len}) in {wall:.2f} s: {n_tok / wall:.1f} generated tokens/s "
+        f"end to end; eager exact-length prefills {sum(prefill_ms) / 1e3:.2f} s of it.  MoE routing "
+        f"depends on the batch (every row of a tick competes for {e.n_routed} x 1 rows of capacity), so "
+        f"serve_sequential is no oracle here; the CPU tests hold the engine to the reference's engine")
+    engine_counts(engine, kernels, launched, per_decode, k1, phase=8, prefill_per_forward=per_prefill)
+    path = dict(launches=launched[0], replays=engine.decode_fn.replays)
+    log("[8] prefill ms per prompt: " + ", ".join(f"{p}:{ms:.1f}" for p, ms in zip(plens, prefill_ms)))
+    del engine
+    torch.cuda.empty_cache()
+    long = max(done, key=lambda r: len(r.prompt))
+    tokens = torch.as_tensor(np.asarray(long.prompt)[None], device=device)
+    report_profile(f"eager prefill ({len(long.prompt)} tokens)", *profile_forward(
+        lambda: Z.prefill(params, tokens, cfg, Z.init_slot_cache(max_len, cfg, device=device))), phase=8)
+    del done
+
+    rng = np.random.default_rng(9)
+    cache = fill_cache(Z, cfg, params, [rng.integers(0, cfg.vocab_size, size=(n,)) for n in DEEPSEEK_TICK_PROMPTS],
+                       device, max_len=max_len)
+    step = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(len(DEEPSEEK_TICK_PROMPTS),))).to(device)
+    path["replay_launches"] = graph_vs_eager(
+        Z, make_decode_step, cfg, params, cache, max_len, step, k1, per_decode, phase=8,
+        tag=f"deepseek pallas decode tick (4 slots at positions {', '.join(map(str, DEEPSEEK_TICK_PROMPTS))})")
+    path["expert_loop"] = expert_rows
+    del cache, params
+    torch.cuda.empty_cache()
+    return path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1121,10 +1330,10 @@ def main() -> int:
     from repro_torch.configs import get_config
 
     return run(torch.device("cuda", 0), get_config("granite-8b"), get_config("bit-bert-base"),
-               get_config("gemma3-27b"))
+               get_config("gemma3-27b"), get_config("deepseek-v2-lite-16b"))
 
 
-def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg) -> int:
+def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg) -> int:
     from repro_torch.kernels import binary_qmm as K1
     from repro_torch.kernels import bitserial_qmm as K4
     from repro_torch.kernels import build, ref
@@ -1271,6 +1480,8 @@ def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg) -> int:
     k4 = dict(launches=act_act(device, gen, all_kernels), replays=None, replay_launches=None)
     k1["gemma3"] = serve_gemma3(Z, gemma3_cfg, device, Request, ServeEngine, serve_sequential,
                                 make_decode_step, ops, ref, all_kernels, smi)
+    k1["deepseek"] = serve_deepseek(Z, deepseek_cfg, device, Request, ServeEngine, make_decode_step,
+                                    ops, ref, all_kernels, smi, gen)
 
     main_path = {"binary_qmm": k1, "fused_qmm": k2, "popcount_qmm": k3, "bitserial_qmm": k4}
     sources = {
@@ -1289,7 +1500,7 @@ def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg) -> int:
             bound_by=head["bound_by"], library_ms=head["library_ms"], shape=head["shape"],
             shapes=shapes,
         ))
-    log(f"[8] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[9] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

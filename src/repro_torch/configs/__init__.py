@@ -2,11 +2,13 @@
 
 from repro_torch.configs import (  # noqa: F401  (registration)
     bit_bert,
+    deepseek_v2_lite_16b,
+    deepseek_v3_671b,
     gemma3_27b,
     granite_8b,
     mistral_nemo_12b,
     qwen3_32b,
 )
-from repro_torch.configs.base import ArchConfig, QuantConfig, get_config
+from repro_torch.configs.base import ArchConfig, MLAConfig, MoEConfig, QuantConfig, get_config
 
-__all__ = ["ArchConfig", "QuantConfig", "get_config"]
+__all__ = ["ArchConfig", "MLAConfig", "MoEConfig", "QuantConfig", "get_config"]

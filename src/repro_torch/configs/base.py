@@ -4,17 +4,19 @@ A copy, not an import: the port never imports the JAX package.  Field names
 and defaults match the reference so one config means the same model on
 both sides.  The port serves dense GQA decoders and encoders (block kinds
 ``"g"``, global attention, and ``"l"``, sliding-window attention over
-``window_size`` positions); the MLA / MoE / SSM / encoder sub-configs of
-the reference are not ported yet, so their fields are absent here.
+``window_size`` positions) and the deepseek family (``"Md"``: multi-head
+latent attention with a dense FFN, ``"Mm"``: MLA with a mixture of
+experts; ``MLAConfig``, ``MoEConfig``).  The SSM and encoder sub-configs
+of the reference are not ported yet, so their fields are absent here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import fnmatch
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
-__all__ = ["QuantConfig", "ArchConfig", "register", "get_config"]
+__all__ = ["QuantConfig", "MoEConfig", "MLAConfig", "ArchConfig", "register", "get_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +75,33 @@ class QuantConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_routed: int
+    n_shared: int
+    top_k: int
+    d_expert_ff: int
+    d_shared_ff: int = 0  # defaults to d_expert_ff * n_shared
+    capacity_factor: float = 1.25
+    router_scoring: str = "softmax"  # "softmax" | "sigmoid" (deepseek-v3)
+    route_scale: float = 1.0
+
+    @property
+    def shared_ff(self) -> int:
+        return self.d_shared_ff or self.d_expert_ff * self.n_shared
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek multi-head latent attention geometry."""
+
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0  # 0 -> direct q projection (v2-lite)
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str
@@ -94,7 +123,10 @@ class ArchConfig:
     causal: bool = True
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
+    mla: Optional[MLAConfig] = None
+    moe: Optional[MoEConfig] = None
     quant: QuantConfig = QuantConfig()
+    mtp_depth: int = 0  # deepseek-v3 multi-token prediction heads (training only)
     max_seq: int = 131072
     source: str = ""
 

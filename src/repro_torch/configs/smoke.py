@@ -1,6 +1,6 @@
 """Reduced smoke variants (port of ``repro.configs.smoke``) for CPU tests.
 
-Only the dense-decoder branch is ported: the reference's MLA / MoE / SSM /
+The dense-decoder, MLA and MoE branches are ported; the reference's SSM and
 encoder shrinking has no counterpart until those families are ported.
 """
 
@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, MLAConfig, MoEConfig
 
 
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:
@@ -17,8 +17,7 @@ def smoke_variant(cfg: ArchConfig) -> ArchConfig:
     n_layers = len(cfg.prefix_layers) + len(cfg.pattern_period)
     heads = max(2, min(cfg.n_heads, 4))
     kv = max(1, heads * cfg.n_kv_heads // cfg.n_heads)
-    return dataclasses.replace(
-        cfg,
+    changes = dict(
         name=cfg.name + "-smoke",
         n_layers=n_layers,
         d_model=64,
@@ -30,3 +29,21 @@ def smoke_variant(cfg: ArchConfig) -> ArchConfig:
         window_size=8 if cfg.window_size else 0,
         max_seq=128,
     )
+    if cfg.mla is not None:
+        changes["mla"] = MLAConfig(
+            kv_lora_rank=16,
+            q_lora_rank=8 if cfg.mla.q_lora_rank else 0,
+            qk_nope_dim=16,
+            qk_rope_dim=8,
+            v_head_dim=16,
+        )
+    if cfg.moe is not None:
+        changes["moe"] = MoEConfig(
+            n_routed=8,
+            n_shared=min(cfg.moe.n_shared, 2),
+            top_k=2,
+            d_expert_ff=32,
+            router_scoring=cfg.moe.router_scoring,
+            route_scale=cfg.moe.route_scale,
+        )
+    return dataclasses.replace(cfg, **changes)

@@ -7,8 +7,11 @@ the port keeps one dict per layer, so the stack is cut apart in
 ``cfg.layer_kinds`` order (prefix layers first, then each period in turn).
 
 Leaves are converted bit for bit: ``uint32`` packed words become ``int32``
-tensors holding the same bits, ``bfloat16`` arrays keep their bits, and
-everything else keeps its dtype.
+tensors holding the same bits (rank-3 stacked experts ``(E, K/32, N)``
+included), ``bfloat16`` arrays keep their bits, and everything else keeps
+its dtype (the float32 MoE router among them).  deepseek-v3's ``mtp``
+subtree is dropped: the multi-token-prediction head serves only the
+reference's training loss, and the port's serving params have none.
 """
 
 from __future__ import annotations
@@ -50,6 +53,6 @@ def from_reference(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
     for i in range(cfg.n_periods):
         for stacked in stack["period"]:
             layers.append(_leaves(stacked, lambda a: to_tensor(np.asarray(a)[i], device)))
-    out = {k: to_tensor(v, device) for k, v in tree.items() if k != "stack"}
+    out = {k: to_tensor(v, device) for k, v in tree.items() if k not in ("stack", "mtp")}
     out["layers"] = layers
     return out

@@ -148,8 +148,10 @@ def _tree_sum_rows(x: torch.Tensor) -> torch.Tensor:
 def binarize_weight(w: torch.Tensor) -> QuantTensor:
     """Sign binarization with the analytic scale ``alpha = mean(|w|)`` over
     the reduction axis (-2): mantissa ``w >= 0``, scale ``2*alpha``, offset
-    ``-alpha``.  The mean is the ordered sum times ``1/K`` in float32, as
-    the reference's compiled mean evaluates it."""
+    ``-alpha`` -- per output column of a ``(K, N)`` weight, per expert and
+    column of stacked ``(E, K, N)`` experts.  The mean is the ordered sum
+    times ``1/K`` in float32, as the reference's compiled mean evaluates it
+    (at rank 3 too: XLA pads each 32-row level the same way)."""
     inv_k = torch.tensor(1.0 / w.shape[-2], dtype=w.dtype, device=w.device)
     alpha = torch.clamp(_tree_sum_rows(w.abs()) * inv_k, min=1e-8)
     bit = (torch.sign(w) >= 0).to(torch.uint8)

@@ -17,6 +17,7 @@ atomically).
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -50,11 +51,16 @@ def plan(m: int, k: int, n: int, device: torch.device) -> tuple:
     return tuple(out)
 
 
-def binary_qmm(a: torch.Tensor, w_packed: torch.Tensor, k: int) -> torch.Tensor:
+def binary_qmm(
+    a: torch.Tensor, w_packed: torch.Tensor, k: int, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """``a (M, K) int8 @ unpack(w_packed) (K, N)`` -> int32 ``(M, N)``.
 
     ``w_packed`` is int32 ``(ceil(K/32), N)`` (1-bit mantissas packed along
     K).  Ragged M / N / K need no padding: the kernel masks its edges.
+    ``out``, when given, is a contiguous int32 ``(M, N)`` tensor on the
+    operands' device that receives the product (a slice of a larger buffer,
+    for example); it is returned.
     """
     if a.dtype != torch.int8 or a.ndim != 2 or a.shape[1] != k:
         raise ValueError(f"binary_qmm: a must be int8 (M, {k}), got {a.dtype} {tuple(a.shape)}")
@@ -65,19 +71,24 @@ def binary_qmm(a: torch.Tensor, w_packed: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"binary_qmm: w_packed has {w_packed.shape[0]} words, expected {kw}")
     if a.device != w_packed.device:
         raise ValueError(f"binary_qmm: operands on {a.device} and {w_packed.device}")
+    m, n = a.shape[0], w_packed.shape[1]
+    if out is not None and (out.dtype != torch.int32 or tuple(out.shape) != (m, n)
+                            or out.device != a.device or not out.is_contiguous()):
+        raise ValueError(f"binary_qmm: out must be contiguous int32 ({m}, {n}) on {a.device}, "
+                         f"got {out.dtype} {tuple(out.shape)} on {out.device}")
     if a.device.type == "cpu":
-        return ref.binary_qmm_ref(a, w_packed, k)
+        return ref.binary_qmm_ref(a, w_packed, k, out)
     if a.device.type != "cuda":
         raise ValueError(f"binary_qmm: unsupported device {a.device}")
     if not (a.is_contiguous() and w_packed.is_contiguous()):
         raise ValueError("binary_qmm: operands must be contiguous")
     if a.data_ptr() % 16 or w_packed.data_ptr() % 16:
         raise ValueError("binary_qmm: operands must be 16-byte aligned")
-    m, n = a.shape[0], w_packed.shape[1]
     splits = plan(m, k, n, a.device)[2]
-    # split partials are atomically added, so their output starts at zero
-    alloc = torch.zeros if splits > 1 else torch.empty
-    out = alloc((m, n), dtype=torch.int32, device=a.device)
+    if out is None:
+        out = torch.empty((m, n), dtype=torch.int32, device=a.device)
+    if splits > 1:  # split partials are atomically added, so the output starts at zero
+        out.zero_()
     if m == 0 or n == 0:
         return out
     err = _lib().binary_qmm_launch(

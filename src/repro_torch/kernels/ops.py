@@ -23,9 +23,12 @@ from repro_torch.kernels import popcount_qmm as _pq
 __all__ = ["binary_qmm_int", "popcount_qmm_int", "bitserial_qmm_int", "qmm_pallas", "qmm_fused"]
 
 
-def binary_qmm_int(a: torch.Tensor, w_packed: torch.Tensor, k: int) -> torch.Tensor:
-    """``a (M, K) int8 @ unpack(w_packed) (K, N)`` -> int32, any M/K/N."""
-    return _bq.binary_qmm(a.contiguous(), w_packed.contiguous(), k)
+def binary_qmm_int(
+    a: torch.Tensor, w_packed: torch.Tensor, k: int, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """``a (M, K) int8 @ unpack(w_packed) (K, N)`` -> int32, any M/K/N;
+    written into ``out`` when given."""
+    return _bq.binary_qmm(a.contiguous(), w_packed.contiguous(), k, out)
 
 
 def popcount_qmm_int(a_packed: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:

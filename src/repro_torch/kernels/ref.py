@@ -10,6 +10,8 @@ Packed operands are int32 words carrying the reference's uint32 bits.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core import packing
@@ -38,8 +40,11 @@ def _check_packed(name: str, x: torch.Tensor, k: int, dim: int) -> None:
         )
 
 
-def binary_qmm_ref(a: torch.Tensor, w_packed: torch.Tensor, k: int) -> torch.Tensor:
-    """``a (M, K) int8 @ unpack(w_packed) (K, N)`` -> int32 ``(M, N)``.
+def binary_qmm_ref(
+    a: torch.Tensor, w_packed: torch.Tensor, k: int, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """``a (M, K) int8 @ unpack(w_packed) (K, N)`` -> int32 ``(M, N)``,
+    written into ``out`` when given (as the kernel's wrapper takes it).
 
     ``w_packed`` is ``(ceil(K/32), N)``: 1-bit mantissas {0, 1} packed along
     the reduction axis.
@@ -50,7 +55,8 @@ def binary_qmm_ref(a: torch.Tensor, w_packed: torch.Tensor, k: int) -> torch.Ten
         raise ValueError(f"binary_qmm_ref: w_packed must be rank 2, got {w_packed.ndim}")
     _check_packed("binary_qmm_ref", w_packed, k, 0)
     w = packing.unpack_bits(w_packed, 1, k, axis=0, dtype=torch.int8)
-    return exact_int_matmul(a, w, 128 * k).to(torch.int32)
+    got = exact_int_matmul(a, w, 128 * k).to(torch.int32)
+    return got if out is None else out.copy_(got)
 
 
 def popcount_qmm_ref(a_packed: torch.Tensor, b_packed: torch.Tensor, k: int) -> torch.Tensor:

@@ -17,9 +17,18 @@ over the last ``cfg.window_size`` positions, rotated with
 ``cfg.local_rope_theta`` when that is set; its cache is a RING BUFFER of
 ``window_size`` rows when ``max_len`` exceeds the window (position ``p``
 lives in row ``p % window_size``), else ``max_len`` rows masked to the
-window.  The cursor ``pos`` is absolute in every layer.  Not ported yet:
-bitwise (binary) scores, MLA, float caches, sinusoidal positions and
-cross-attention.
+window.  The cursor ``pos`` is absolute in every layer.
+
+Multi-head latent attention (MLA, deepseek v2/v3; layer kinds ``"Md"`` and
+``"Mm"``) keeps one head-shared latent per token instead of per-head keys
+and values: an int8 latent ``ckv`` (B, L, kv_lora_rank) with per-row
+affines and a bf16 rope key ``k_rope`` (B, L, qk_rope_dim).  Its prefill
+runs the decompressed form (keys and values up-projected from the float
+latent, float scores, the causal mask); its decode runs the absorbed form,
+two act x act integer products against the latent cache with the heads
+folded into M.  Not ported yet: bitwise (binary) scores (a scores-only
+backend name is not in the port's registry), float caches (GQA and
+latent), sinusoidal positions and cross-attention.
 """
 
 from __future__ import annotations
@@ -28,12 +37,23 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, QuantConfig
+from repro_torch.core import flow_abstraction as FA
 from repro_torch.core import quantization as Q
 from repro_torch.core.constants import scalar
 from repro_torch.models import layers as L
 
-__all__ = ["init_attention", "cache_rows", "init_kv_cache", "attention"]
+__all__ = [
+    "init_attention",
+    "cache_rows",
+    "init_kv_cache",
+    "attention",
+    "init_mla",
+    "init_mla_cache",
+    "mla_attention",
+]
+
+MLA_KINDS = ("Md", "Mm")
 
 _NEG_INF = -1e30
 
@@ -54,17 +74,21 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig) -> dict:
 
 def _check_supported(cfg: ArchConfig, kind: str) -> None:
     q = cfg.quant
-    if kind not in ("g", "l"):
-        raise NotImplementedError(f"attention kind {kind!r} is not ported yet (only 'g', 'l')")
+    if kind not in ("g", "l") + MLA_KINDS:
+        raise NotImplementedError(
+            f"attention kind {kind!r} is not ported yet (only 'g', 'l', 'Md', 'Mm')")
     if not (q.enabled and q.quantize_attention and q.kv_cache_bits in (4, 8)):
-        raise NotImplementedError("only the quantized int8 KV-cache path is ported")
+        raise NotImplementedError("only the quantized int8 KV-cache (and latent-cache) path is ported")
+    if kind in MLA_KINDS and (cfg.mla is None or cfg.pos_embedding != "rope"):
+        raise NotImplementedError(f"{kind!r} layers need cfg.mla and rotary positions")
     if cfg.pos_embedding not in ("rope", "learned"):
         raise NotImplementedError("sinusoidal positions are not ported yet")
 
 
 def cache_rows(max_len: int, cfg: ArchConfig, kind: str) -> int:
     """Rows of a ``kind`` layer's cache for ``max_len`` positions: a local
-    layer never needs more than its window (the ring buffer)."""
+    layer never needs more than its window (the ring buffer); a global or
+    MLA layer holds ``max_len``."""
     if kind == "l" and cfg.window_size:
         return min(max_len, cfg.window_size)
     return max_len
@@ -74,8 +98,11 @@ def init_kv_cache(
     batch: int, max_len: int, cfg: ArchConfig, kind: str = "g", device="cuda"
 ) -> dict:
     """int8 KV cache with per-row ``pos`` cursors and calibration affines;
-    ``cache_rows(max_len, cfg, kind)`` rows."""
+    ``cache_rows(max_len, cfg, kind)`` rows (an MLA kind gets its latent
+    cache, ``init_mla_cache``)."""
     _check_supported(cfg, kind)
+    if kind in MLA_KINDS:
+        return init_mla_cache(batch, max_len, cfg, device=device)
     kvh, dh = cfg.n_kv_heads, cfg.d_head
     rows = cache_rows(max_len, cfg, kind)
     f32 = dict(dtype=torch.float32, device=device)
@@ -189,11 +216,6 @@ def _mask(s_q: int, s_k: int, causal: bool, window: int, device) -> torch.Tensor
     return torch.where(ok, zero, torch.full_like(zero, _NEG_INF))
 
 
-def _softmax(x: torch.Tensor) -> torch.Tensor:
-    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
-    return e / e.sum(dim=-1, keepdim=True)
-
-
 def _write_prefill_cache(cache, k_m, v_m, s, windowed, k_sc, k_off, v_sc, v_off) -> None:
     """Write prefilled rows into the cache, in place.
 
@@ -279,7 +301,7 @@ def attention(
         v_m = _quantize_to_cache(v, v_sc, v_off)
         scores = _scores_int(q, k_m, k_sc, k_off, bits)
         mask = _mask(s, s, cfg.causal, window, x.device)
-        probs = _softmax(scores / sqrt_dh + mask[None, None])
+        probs = L.softmax(scores / sqrt_dh + mask[None, None])
         ctx = _pv_int(probs, v_m, v_sc, v_off)
         _write_prefill_cache(cache, k_m, v_m, s, windowed, k_sc, k_off, v_sc, v_off)
     else:
@@ -297,8 +319,204 @@ def attention(
         scores = torch.where(
             valid[:, None, None, :], scores, torch.full_like(scores, _NEG_INF)
         )
-        probs = _softmax(scores)
+        probs = L.softmax(scores)
         ctx = _pv_int(probs, cache["v"], v_sc, v_off)
 
     ctx = ctx.reshape(b, s, h * dh).to(x.dtype)
+    return L.qlinear(p["o"], ctx, quant, name="attn.o"), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA -- multi-head latent attention (deepseek v2/v3)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    """Projections of the latent attention: q directly (``q_proj``) or
+    through a low-rank ``q_down`` / RMSNorm / ``q_up`` when
+    ``mla.q_lora_rank``; the latent ``kv_down`` and its norm, the shared
+    rope key ``k_rope``, the up-projections ``k_up`` / ``v_up`` and ``o``."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    qd = m.qk_nope_dim + m.qk_rope_dim
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=torch.float32, device=gen.device)
+
+    p = {}
+    if m.q_lora_rank:
+        p["q_down"] = L.init_linear(gen, d, m.q_lora_rank)
+        p["q_norm_lora"] = zeros(m.q_lora_rank)
+        p["q_up"] = L.init_linear(gen, m.q_lora_rank, h * qd)
+    else:
+        p["q_proj"] = L.init_linear(gen, d, h * qd)
+    p["kv_down"] = L.init_linear(gen, d, m.kv_lora_rank)
+    p["kv_norm"] = zeros(m.kv_lora_rank)
+    p["k_rope"] = L.init_linear(gen, d, m.qk_rope_dim)
+    p["k_up"] = L.init_linear(gen, m.kv_lora_rank, h * m.qk_nope_dim)
+    p["v_up"] = L.init_linear(gen, m.kv_lora_rank, h * m.v_head_dim)
+    p["o"] = L.init_linear(gen, h * m.v_head_dim, d, scale=0.5)
+    return p
+
+
+def init_mla_cache(batch: int, max_len: int, cfg: ArchConfig, device="cuda") -> dict:
+    """The quantized latent cache: int8 ``ckv`` (re-centered mantissas)
+    with per-row ``ckv_scale`` / ``ckv_offset``, bf16 ``k_rope`` and the
+    per-row cursor ``pos``."""
+    m = cfg.mla
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "ckv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=torch.int8, device=device),
+        "ckv_scale": torch.ones((batch,), **f32),
+        "ckv_offset": torch.zeros((batch,), **f32),
+        "k_rope": torch.zeros((batch, max_len, m.qk_rope_dim), dtype=torch.bfloat16, device=device),
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+def _mla_q(p, x, cfg: ArchConfig, positions):
+    """Queries -> (q_nope (B,S,H,dn), q_rope (B,S,H,dr) rotated)."""
+    m, h = cfg.mla, cfg.n_heads
+    if m.q_lora_rank:
+        qc = L.qlinear(p["q_down"], x, cfg.quant, name="attn.q_down")
+        qc = L.rmsnorm(p["q_norm_lora"], qc, cfg.norm_eps)
+        q = L.qlinear(p["q_up"], qc, cfg.quant, name="attn.q_up")
+    else:
+        q = L.qlinear(p["q_proj"], x, cfg.quant, name="attn.q")
+    q = q.reshape(*x.shape[:-1], h, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim :]
+    return q_nope, L.rope(q_rope, positions, cfg.rope_theta)
+
+
+def _serving_dense(p: dict, k: int, quant: QuantConfig) -> torch.Tensor:
+    """A small packed weight ``(k, N)`` back in float32 (the absorbed
+    decode's up-projections)."""
+    wq = Q.QuantTensor(
+        mantissa=p["w_packed"], scale=p["w_scale"], offset=p["w_offset"],
+        bits=quant.weight_bits, packed=True, packed_axis=0, length=k,
+    )
+    m = wq.unpack(dtype=torch.float32).mantissa
+    return m * wq.scale.to(torch.float32) + wq.offset.to(torch.float32)
+
+
+def _scores_int_latent(q_abs, ckv_m, ckv_scale, ckv_offset, attn_bits: int):
+    """Absorbed scores as one act x act integer product against the
+    head-shared latent cache, heads folded into M: ``(b, s*h, r) x (b, r,
+    t)``.  q_abs (B,S,H,R) float, quantized per row; returns float32
+    (B,H,S,T)."""
+    b, s, h, r = q_abs.shape
+    t = ckv_m.shape[1]
+    qq = Q.quantize_activation(q_abs.to(torch.float32), attn_bits, per_channel_axis=0)
+    qr = Q.recenter(qq)
+    x1 = qr.mantissa.reshape(b, s * h, r)
+    x2 = ckv_m.transpose(-1, -2)  # (b, r, t)
+    xy = FA.default_int_matmul(x1, x2, attn_bits, 8).to(torch.float32)
+    a1 = qr.scale.reshape(b, 1, 1)
+    g1 = qr.offset.reshape(b, 1, 1)
+    a2 = _per_row(ckv_scale, 3)
+    g2 = _per_row(ckv_offset, 3) + 128.0 * a2  # cache mantissa re-centered by 128
+    row = torch.sum(x1, dim=-1, dtype=torch.int32)[..., None].to(torch.float32)
+    col = torch.sum(x2, dim=-2, dtype=torch.int32)[..., None, :].to(torch.float32)
+    out = xy * (a1 * a2) + (a1 * g2) * row + (g1 * a2) * col + g1 * g2 * r
+    return out.reshape(b, s, h, t).permute(0, 2, 1, 3)
+
+
+def _pv_int_latent(p_probs, ckv_m, ckv_scale, ckv_offset):
+    """Absorbed context as an act x act integer product ``P (B,H,S,T) @
+    ckv (B,T,R)``, heads folded into M; probabilities on the W8 grid
+    (scale 1/255, re-centered by 128).  Returns float32 (B,S,H,R)."""
+    b, h, s, t = p_probs.shape
+    r = ckv_m.shape[-1]
+    pm = torch.clamp(torch.round(p_probs * 255.0), 0.0, 255.0)
+    x1 = (pm - 128.0).to(torch.int8).permute(0, 2, 1, 3).reshape(b, s * h, t)
+    dev = p_probs.device
+    a1 = scalar(1.0 / 255.0, torch.float32, dev)
+    g1 = scalar(128.0 / 255.0, torch.float32, dev)
+    a2 = _per_row(ckv_scale, 3)
+    g2 = _per_row(ckv_offset, 3) + 128.0 * a2
+    xy = FA.default_int_matmul(x1, ckv_m, 8, 8).to(torch.float32)
+    row = torch.sum(x1, dim=-1, dtype=torch.int32)[..., None].to(torch.float32)
+    col = torch.sum(ckv_m, dim=-2, dtype=torch.int32)[..., None, :].to(torch.float32)
+    out = xy * (a1 * a2) + (a1 * g2) * row + (g1 * a2) * col + g1 * g2 * t
+    return out.reshape(b, s, h, r)
+
+
+def _write_latent(cache: dict, c_m, r_u, s: int) -> None:
+    """Write the quantized latent and rope key in place: a prefill (``s >
+    1``) at row 0's cursor (it runs on a freshly reset cache), a decode
+    step each row at its own cursor; then advance the cursors."""
+    if s > 1:
+        idx = cache["pos"][0].to(torch.int64) + torch.arange(s, device=c_m.device)
+        cache["ckv"].index_copy_(1, idx, c_m)
+        cache["k_rope"].index_copy_(1, idx, r_u)
+    else:
+        rows = torch.arange(c_m.shape[0], device=c_m.device)
+        slot = cache["pos"].to(torch.int64)
+        cache["ckv"].index_put_((rows, slot), c_m[:, 0])
+        cache["k_rope"].index_put_((rows, slot), r_u[:, 0])
+    cache["pos"] += s
+
+
+def mla_attention(
+    p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, cache: dict
+) -> Tuple[torch.Tensor, dict]:
+    """One MLA mixer application over the quantized latent cache.
+
+    ``S > 1`` is a prefill from an empty cache in the decompressed form:
+    keys and values up-projected from the float latent through ``qlinear``,
+    float32 scores, the causal mask; the prompt's
+    latent calibrates the row's cache affine.  ``S == 1`` is a decode step
+    in the absorbed form: q_nope folded through the dequantized ``k_up``,
+    the integer score and context products against the cache
+    (``_scores_int_latent`` / ``_pv_int_latent``), and the context
+    unfolded through ``v_up``.  Returns (out (B, S, D), cache), the cache
+    updated in place.
+    """
+    m, h = cfg.mla, cfg.n_heads
+    b, s, _ = x.shape
+    quant = cfg.quant
+    dev = x.device
+    qd = m.qk_nope_dim + m.qk_rope_dim
+    scale = torch.div(scalar(1.0, torch.float32, dev), torch.sqrt(scalar(float(qd), torch.float32, dev)))
+
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    ckv = L.qlinear(p["kv_down"], x, quant, name="attn.kv_down")
+    ckv = L.rmsnorm(p["kv_norm"], ckv, cfg.norm_eps)
+    k_rope = L.qlinear(p["k_rope"], x, quant, name="attn.k_rope")  # (B, S, dr)
+    k_rope = L.rope(k_rope, positions, cfg.rope_theta)
+
+    if s > 1:
+        sc, off = _calibrate_rows(ckv)
+        cache["ckv_scale"].copy_(sc)
+        cache["ckv_offset"].copy_(off)
+    else:
+        sc, off = cache["ckv_scale"], cache["ckv_offset"]
+    _write_latent(cache, _quantize_to_cache(ckv, sc, off), k_rope.to(cache["k_rope"].dtype), s)
+
+    if s == 1:
+        # ---- absorbed decode over the latent cache
+        t = cache["ckv"].shape[1]
+        w_uk = _serving_dense(p["k_up"], m.kv_lora_rank, quant).reshape(m.kv_lora_rank, h, m.qk_nope_dim)
+        w_uv = _serving_dense(p["v_up"], m.kv_lora_rank, quant).reshape(m.kv_lora_rank, h, m.v_head_dim)
+        q_abs = torch.einsum("bshd,rhd->bshr", q_nope.to(torch.float32), w_uk)
+        scores_lat = _scores_int_latent(q_abs, cache["ckv"], sc, off, quant.attn_act_bits)
+        scores_rope = torch.einsum(
+            "bshd,btd->bhst", q_rope.to(torch.float32), cache["k_rope"].to(torch.float32)
+        )
+        scores = (scores_lat + scores_rope) * scale
+        valid = torch.arange(t, device=dev)[None, :] < cache["pos"].reshape(-1, 1)
+        scores = torch.where(valid[:, None, None, :], scores, torch.full_like(scores, _NEG_INF))
+        ctx_lat = _pv_int_latent(L.softmax(scores), cache["ckv"], sc, off)
+        ctx = torch.einsum("bshr,rhd->bshd", ctx_lat, w_uv)
+    else:
+        # ---- decompressed prefill
+        f32 = torch.float32
+        k_nope = L.qlinear(p["k_up"], ckv, quant, name="attn.k_up").reshape(b, s, h, m.qk_nope_dim)
+        v = L.qlinear(p["v_up"], ckv, quant, name="attn.v_up").reshape(b, s, h, m.v_head_dim)
+        scores = (
+            torch.einsum("bshd,bthd->bhst", q_nope.to(f32), k_nope.to(f32))
+            + torch.einsum("bshd,btd->bhst", q_rope.to(f32), k_rope.to(f32))
+        ) * scale
+        scores = scores + _mask(s, s, cfg.causal, 0, dev)[None, None]
+        ctx = torch.einsum("bhst,bthd->bshd", L.softmax(scores).to(x.dtype), v)
+    ctx = ctx.reshape(b, s, h * m.v_head_dim).to(x.dtype)
     return L.qlinear(p["o"], ctx, quant, name="attn.o"), cache

@@ -23,6 +23,7 @@ __all__ = [
     "init_linear",
     "pack_linear_for_serving",
     "qlinear",
+    "softmax",
     "rmsnorm",
     "rope",
     "ffn",
@@ -86,6 +87,12 @@ def qlinear(
     xq = Q.quantize_activation(x.to(torch.float32).reshape(-1, k), bits, per_channel_axis=0)
     out = QE.qmm(xq, wq, backend=quant.backend_for(name), w_colsum=p.get("w_colsum"))
     return out.reshape(*lead, -1).to(x.dtype)
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis as ``jax.nn.softmax`` evaluates it."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
 
 
 def rmsnorm(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -1,16 +1,22 @@
 """Public model API of the port (counterpart of ``repro.models.model_zoo``),
 serving subset for dense GQA decoders -- global (``"g"``) and
 sliding-window (``"l"``) layers, as granite-8b, mistral-nemo-12b, qwen3-32b
-and gemma3-27b have them -- and bidirectional encoders (bit-bert-base:
-learned positions, non-causal prefill).
+and gemma3-27b have them --, bidirectional encoders (bit-bert-base:
+learned positions, non-causal prefill) and the deepseek family (MLA layers
+``"Md"`` / ``"Mm"``, the latter with a mixture of experts).
 
 Params are plain dicts: ``{"embedding", "final_norm", "layers": [block,
 ...]}``, plus ``"unembedding"`` when the embeddings are untied and
 ``"pos_embedding"`` ``(max_seq, d)`` for learned positions, with one block
 per layer in ``cfg.layer_kinds`` order (the reference's scanned ``period``
-stack, unstacked).  Caches are ``{"layers": [kv_cache, ...]}``, one per
-layer; a ``"l"`` layer's holds ``min(max_len, window_size)`` rows (its ring
-buffer), every other layer's ``max_len`` (``cache_rows``).  Every layer's
+stack, unstacked).  An MoE block's routed experts are rank-3 ``(E, K, N)``
+linears, packed along K; its router stays float32 (``{"w"}``), as the
+reference keeps it.  deepseek-v3's multi-token-prediction head serves only
+the reference's training loss, so serving params carry none.  Caches are
+``{"layers": [cache, ...]}``, one per layer: an int8 KV cache, or an MLA
+layer's latent cache (``ckv``, ``k_rope``); a ``"l"`` layer's holds
+``min(max_len, window_size)`` rows (its ring buffer), every other layer's
+``max_len`` (``cache_rows``).  Every layer's
 cursor ``pos`` is absolute, so a decode step reads its positions from
 layer 0's, whatever its kind.
 
@@ -21,6 +27,8 @@ Entry points:
 * ``init_serving_params(seed, cfg)``   -- the two above one layer at a time,
   so a full-width model never holds every latent weight at once
 * ``init_cache`` / ``init_slot_cache`` / ``cache_insert`` / ``cache_reset``
+* ``cache_rows`` / ``cache_geometry`` -- each layer's rows for a
+  ``max_len``, and the ``(batch, rows)`` a cache holds
 * ``cache_copy`` / ``caches_equal`` -- a snapshot of a cache, and bitwise
   equality of two
 * ``prefill`` (exact length) / ``decode_step``
@@ -40,6 +48,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 
 __all__ = [
@@ -48,6 +57,7 @@ __all__ = [
     "init_serving_params",
     "check_max_len",
     "cache_rows",
+    "cache_geometry",
     "init_cache",
     "init_slot_cache",
     "cache_insert",
@@ -114,20 +124,34 @@ def init_params(seed: int, cfg: ArchConfig, device="cuda") -> dict:
     return p
 
 
-def _pack_tree(node, cfg: ArchConfig):
+#: linears kept full precision in serving (the reference's ``_FP_LEAF_PATHS``)
+_FP_LINEARS = ("router",)
+
+
+def _pack_site(node: dict, cfg: ArchConfig) -> dict:
+    """One latent linear ``{"w"}``: rank 2 packs as a linear, rank 3 as
+    stacked experts."""
+    if node["w"].ndim == 3:
+        return M.pack_experts_for_serving(node, cfg.quant)
+    return L.pack_linear_for_serving(node, cfg.quant)
+
+
+def _pack_tree(node, cfg: ArchConfig, path=()):
     if isinstance(node, dict):
         if set(node) == {"w"}:
-            return L.pack_linear_for_serving(node, cfg.quant)
-        return {k: _pack_tree(v, cfg) for k, v in node.items()}
+            if any(k in path for k in _FP_LINEARS):
+                return {"w": node["w"].to(torch.float32)}
+            return _pack_site(node, cfg)
+        return {k: _pack_tree(v, cfg, path + (k,)) for k, v in node.items()}
     if isinstance(node, list):
-        return [_pack_tree(v, cfg) for v in node]
+        return [_pack_tree(v, cfg, path) for v in node]
     return node
 
 
 def prepare_serving_params(params: dict, cfg: ArchConfig) -> dict:
-    """Binarize and bit-pack every linear; the embedding, unembedding and
-    position tables go to bf16 and norm gains stay float32, as in the
-    reference."""
+    """Binarize and bit-pack every linear (stacked experts per expert);
+    the embedding, unembedding and position tables go to bf16, norm gains
+    and the MoE router stay float32, as in the reference."""
     out = _serving_top(params)
     out["layers"] = _pack_tree(params["layers"], cfg)
     return out
@@ -137,18 +161,28 @@ def init_serving_params(seed: int, cfg: ArchConfig, device="cuda") -> dict:
     """Serving params built one layer at a time: each layer's latent
     weights are drawn, packed at once and freed, so the peak holds one
     layer of float32 latents (about 0.9 GB at granite-8b width, 1.65 GB at
-    gemma3-27b's) besides the packed model."""
+    gemma3-27b's) besides the packed model.  An MoE layer's routed experts
+    are packed one site as soon as it is drawn (a (64, 2048, 1408) float32
+    site is 0.74 GB at deepseek-v2-lite-16b's width)."""
     gen = _generator(seed, device)
     out = _serving_top(_init_top(gen, cfg))
     out["layers"] = []
     for kind in cfg.layer_kinds:
-        out["layers"].append(_pack_tree(T.init_block(gen, cfg, kind), cfg))
+        block = T.init_block(gen, cfg, kind, site=lambda p: _pack_site(p, cfg))
+        out["layers"].append(_pack_tree(block, cfg))
     return out
 
 
 def cache_rows(max_len: int, cfg: ArchConfig) -> list:
     """Rows of each layer's cache, in layer order, for ``max_len`` positions."""
     return [A.cache_rows(max_len, cfg, kind) for kind in cfg.layer_kinds]
+
+
+def cache_geometry(cache: dict) -> list:
+    """``(batch, rows)`` of each layer's cache, in layer order, read from
+    the layer's own rows: ``ckv`` for an MLA layer, ``k`` for a GQA one."""
+    return [tuple((layer["ckv"] if "ckv" in layer else layer["k"]).shape[:2])
+            for layer in cache["layers"]]
 
 
 def init_cache(batch: int, max_len: int, cfg: ArchConfig, device="cuda") -> dict:

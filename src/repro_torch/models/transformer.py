@@ -4,7 +4,9 @@ The reference scans one stacked ``period`` of params with ``lax.scan``;
 here the stack is a Python loop over per-layer param dicts, in
 ``cfg.layer_kinds`` order (the prefix layers, then each period in turn).
 Block kinds ``"g"`` (global attention) and ``"l"`` (sliding-window
-attention), each with a dense FFN.  Pre-norm residual blocks (RMSNorm).
+attention), each with a dense FFN; ``"Md"`` (multi-head latent attention
+with a dense FFN of ``d_ff``) and ``"Mm"`` (MLA with the mixture of
+experts).  Pre-norm residual blocks (RMSNorm).
 """
 
 from __future__ import annotations
@@ -16,29 +18,41 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 __all__ = ["init_block", "block_apply", "stack_apply"]
 
+KINDS = ("g", "l", "Md", "Mm")
 
-def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str) -> dict:
-    if kind not in ("g", "l"):
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet (only 'g', 'l')")
+
+def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str, site=lambda p: p) -> dict:
+    """One block's latent params; an ``"Mm"`` block's expert sites pass
+    through ``site`` as they are drawn (``moe.init_moe``)."""
+    if kind not in KINDS:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet (only {KINDS})")
     d = cfg.d_model
     zeros = dict(dtype=torch.float32, device=gen.device)
-    return {
-        "ln1": torch.zeros((d,), **zeros),
-        "attn": A.init_attention(gen, cfg),
-        "ln2": torch.zeros((d,), **zeros),
-        "ffn": L.init_ffn(gen, cfg.ffn_type, d, cfg.d_ff),
-    }
+    p = {"ln1": torch.zeros((d,), **zeros)}
+    p["attn"] = A.init_mla(gen, cfg) if kind in A.MLA_KINDS else A.init_attention(gen, cfg)
+    p["ln2"] = torch.zeros((d,), **zeros)
+    if kind == "Mm":
+        p["moe"] = M.init_moe(gen, cfg, site)
+    else:
+        p["ffn"] = L.init_ffn(gen, cfg.ffn_type, d, cfg.d_ff)
+    return p
 
 
 def block_apply(p: dict, x, cfg: ArchConfig, kind: str, positions, cache: dict):
     """Pre-norm residual block.  Returns (x, cache) (cache updated in place)."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    mix, cache = A.attention(p["attn"], h, cfg, kind, positions, cache)
+    if kind in A.MLA_KINDS:
+        mix, cache = A.mla_attention(p["attn"], h, cfg, positions, cache)
+    else:
+        mix, cache = A.attention(p["attn"], h, cfg, kind, positions, cache)
     x = x + mix
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if kind == "Mm":
+        return x + M.moe_ffn(p["moe"], h, cfg), cache
     return x + L.ffn(p["ffn"], h, cfg.ffn_type, cfg.quant), cache
 
 

@@ -108,7 +108,7 @@ class CompiledStep:
     def _check(self, tokens: torch.Tensor, cache: dict) -> None:
         if tuple(tokens.shape) != self.tokens_shape:
             raise ValueError(f"tokens of shape {tuple(tokens.shape)}, step takes {self.tokens_shape}")
-        got = [tuple(layer["k"].shape[:2]) for layer in cache["layers"]]
+        got = Z.cache_geometry(cache)
         if got != self._layer_rows:
             raise ValueError(f"cache layers of (batch, rows) {got}, step takes (batch, max_len) "
                              f"{self.cache_rows}: {self._layer_rows}")

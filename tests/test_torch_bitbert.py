@@ -54,6 +54,7 @@ from repro_torch.kernels import ops as TO
 from repro_torch.models import layers as TL
 from repro_torch.models import model_zoo as TZ
 from repro_torch.runtime.serve_loop import Request, ServeEngine, serve_sequential
+from torch_port_fixtures import release_jax_caches  # noqa: F401  (autouse)
 
 NAMES = {1: "bit-bert-base", 2: "bit-bert-base-a2", 4: "bit-bert-base-a4", 8: "bit-bert-base-a8"}
 BITS = sorted(NAMES)

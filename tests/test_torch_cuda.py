@@ -61,6 +61,15 @@ FAMILY_SITES = {
 }
 
 
+# (K, N) of every QMM site of deepseek-v2-lite-16b: attn.q (2048 -> 16 x
+# 192), attn.kv_down, attn.k_rope, attn.o, attn.k_up / v_up (512 -> 16 x
+# 128), the dense layer's ffn.up / gate and down, the shared experts' up /
+# gate and down, and a routed expert's up / gate and down
+DEEPSEEK_SITES = [(2048, 3072), (2048, 512), (2048, 64), (2048, 2048), (512, 2048),
+                  (2048, 10944), (10944, 2048), (2048, 2816), (2816, 2048),
+                  (2048, 1408), (1408, 2048)]
+
+
 @pytest.mark.parametrize("m,k,n", BINARY_SHAPES)
 def test_binary_qmm_equals_plain(dev, m, k, n):
     g = torch.Generator(device=dev).manual_seed(m * 7 + n)
@@ -77,6 +86,42 @@ def test_binary_qmm_equals_plain(dev, m, k, n):
                                       for k, n in sites])
 def test_binary_qmm_equals_plain_at_family_sites(dev, name, k, n, m):
     test_binary_qmm_equals_plain(dev, m, k, n)
+
+
+@pytest.mark.parametrize("m", [4, 128])
+@pytest.mark.parametrize("k,n", DEEPSEEK_SITES)
+def test_binary_qmm_equals_plain_at_deepseek_sites(dev, k, n, m):
+    test_binary_qmm_equals_plain(dev, m, k, n)
+
+
+@pytest.mark.parametrize("c", [1, 15, 176])  # capacity at a 4-slot tick, 128- and 1,500-token prompts
+@pytest.mark.parametrize("k,n", [(2048, 1408), (1408, 2048)])
+def test_expert_loop_equals_plain(dev, c, k, n):
+    """deepseek-v2-lite's 64 routed experts: one K1 launch per expert into
+    its slice of one (E, C, N) buffer, equal to the plain product expert
+    by expert; then ``expert_qlinear`` on K1 bitwise equal to the plain
+    integer backend (the epilogue runs once, batched over the experts)."""
+    from repro_torch.models import moe as M
+
+    e = 64
+    g = torch.Generator(device=dev).manual_seed(c * 3 + k)
+    a = torch.randint(-128, 128, (e, c, k), generator=g, device=dev, dtype=torch.int8)
+    wp = packing.pack_bits(torch.randint(0, 2, (e, k, n), generator=g, device=dev), 1, axis=1)
+    x = Q.QuantTensor(mantissa=a, scale=torch.ones(()), offset=torch.zeros(()), bits=8)
+    w = Q.QuantTensor(mantissa=wp, scale=torch.ones(()), offset=torch.zeros(()), bits=1,
+                      packed=True, packed_axis=1, length=k)
+    before = K1.binary_qmm.launches
+    got = M._experts_k1(x, w)
+    assert K1.binary_qmm.launches == before + e
+    for i in range(e):
+        assert torch.equal(got[i], ref.binary_qmm_ref(a[i], wp[i], k)), f"expert {i}"
+    p = M.pack_experts_for_serving({"w": torch.randn((e, k, n), generator=g, device=dev)},
+                                   get_config("deepseek-v2-lite-16b").quant)
+    h = torch.randn((e, c, k), generator=g, device=dev).to(torch.bfloat16)
+    quant = get_config("deepseek-v2-lite-16b").quant
+    on_k1 = M.expert_qlinear(p, h, dataclasses.replace(quant, backend="pallas"), k)
+    plain = M.expert_qlinear(p, h, dataclasses.replace(quant, backend="mxu"), k)
+    assert torch.equal(on_k1, plain)
 
 
 # K2's tile paths (16 rows up to M = 64, with 32 or 64 columns; 32 or 64
@@ -211,6 +256,17 @@ def test_smoke_model_card_matches_cpu(dev, backend):
 
 # ---- the compiled serving steps: replayed CUDA graphs against the eager step
 
+def deepseek_k1_per_forward(cfg, prefill: bool = False) -> int:
+    """K1 launches of one MLA + MoE forward: each layer's q (or q_down and
+    q_up), kv_down, k_rope and o, plus k_up and v_up in a prefill; a dense
+    layer's FFN up / gate / down, or an MoE layer's shared experts' 3 and
+    3 per routed expert."""
+    attn = (5 if cfg.mla.q_lora_rank else 4) + (2 if prefill else 0)
+    ffn = 3
+    moe = (3 if cfg.moe.n_shared else 0) + 3 * cfg.moe.n_routed
+    return sum(attn + (moe if kind == "Mm" else ffn) for kind in cfg.layer_kinds)
+
+
 STEP_MODELS = {  # name -> (config name, backend, kernel its forwards launch, sites a layer)
     # window 8 in the smoke: a ring beside global layers; _filled_cache's
     # 9-token row has wrapped, its 6-token row wraps on the third tick
@@ -219,6 +275,10 @@ STEP_MODELS = {  # name -> (config name, backend, kernel its forwards launch, si
     "granite-fused": ("granite-8b", "fused", "fused_qmm", 7),
     "bitbert-a1": ("bit-bert-base", "pallas", "popcount_qmm", 6),
     "bitbert-a8": ("bit-bert-base-a8", "pallas", "binary_qmm", 6),
+    # MLA + MoE (capacity 1 at 2 slots, top-2 of 8: routes drop); the
+    # sites vary by layer kind (deepseek_k1_per_forward)
+    "deepseek-v2-pallas": ("deepseek-v2-lite-16b", "pallas", "binary_qmm", deepseek_k1_per_forward),
+    "deepseek-v3-pallas": ("deepseek-v3-671b", "pallas", "binary_qmm", deepseek_k1_per_forward),
 }
 STEP_MAX_LEN = 48
 WRAPPERS = {k.__name__: k for k in (K1.binary_qmm, K2.fused_qmm, K3.popcount_qmm, K4.bitserial_qmm)}
@@ -233,7 +293,7 @@ def _step_model(name, dev):
     cfg = dataclasses.replace(cfg, quant=dataclasses.replace(cfg.quant, backend=backend))
     params = Z.init_serving_params(5, cfg, device=dev)
     per_forward = {k: 0 for k in WRAPPERS}
-    per_forward[kernel] = sites * cfg.n_layers
+    per_forward[kernel] = sites(cfg) if callable(sites) else sites * cfg.n_layers
     return cfg, params, per_forward
 
 
@@ -283,7 +343,7 @@ def test_replayed_decode_step_bitwise_equals_eager(dev, name):
     assert not any(torch.equal(a, b) for a, b in zip(held, held[1:]))
 
 
-@pytest.mark.parametrize("name", ["granite-pallas", "bitbert-a1"])
+@pytest.mark.parametrize("name", ["granite-pallas", "bitbert-a1", "deepseek-v2-pallas"])
 def test_replayed_prefill_bitwise_equals_eager(dev, name):
     from repro_torch.runtime.serve_loop import make_prefill
 

@@ -38,6 +38,7 @@ from repro_torch import convert
 from repro_torch.configs import get_config as tget
 from repro_torch.configs.smoke import smoke_variant as tsmoke
 from repro_torch.models import model_zoo as TZ
+from torch_port_fixtures import release_jax_caches  # noqa: F401  (autouse)
 
 TOL = 0.03  # tests/test_torch_model.py
 OPBYOP_ATOL = 1e-6

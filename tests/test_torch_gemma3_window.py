@@ -33,6 +33,7 @@ from test_torch_dense_families import (  # noqa: F401  (``models`` is a fixture)
     models,
     run_op_by_op,
 )
+from torch_port_fixtures import release_jax_caches  # noqa: F401  (autouse)
 
 CASES = {
     "ring-short-prompt-wraps": (5, 5, 32),

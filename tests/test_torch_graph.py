@@ -45,6 +45,7 @@ from repro_torch.runtime.serve_loop import (
     make_prefill,
     serve_sequential,
 )
+from torch_port_fixtures import release_jax_caches  # noqa: F401  (autouse)
 
 TOL = 0.03  # tests/test_torch_model.py, and tests/test_torch_bitbert.py's COMPILED_TOL[8]
 # At A1 the compiled reference moves a projection by one float32 ulp (fma
@@ -220,10 +221,10 @@ def _host_tensors_made(run) -> list:
         return make
 
     def stubbed(fn):
-        def call(*args):
+        def call(*args, **kwargs):
             inside[0] += 1
             try:
-                return fn(*args)
+                return fn(*args, **kwargs)
             finally:
                 inside[0] -= 1
         return call
@@ -409,5 +410,52 @@ def test_gemma3_step_glue_makes_no_tensor_from_host_data(gemma3, which):
 
         def run():
             TZ.prefill(params, tokens, tcfg, TZ.init_cache(1, GEMMA3_MAX_LEN, tcfg, device="cpu"))
+
+    assert _host_tensors_made(run) == []
+
+
+def test_compiled_step_checks_mla_cache_rows():
+    """An MLA layer's rows are its latent cache's (``ckv``; it has no
+    ``k``): a step refuses an MLA cache made for another max_len or batch,
+    and takes its own."""
+    tcfg = tsmoke(tget("deepseek-v2-lite-16b"))
+    tcfg = dataclasses.replace(tcfg, quant=dataclasses.replace(tcfg.quant, backend="pallas"))
+    params = TZ.init_serving_params(0, tcfg, device="cpu")
+    step = make_decode_step(tcfg, 2, 16, device="cpu")
+    cache = TZ.init_cache(2, 16, tcfg, device="cpu")
+    assert all("k" not in layer and layer["ckv"].shape[:2] == (2, 16) for layer in cache["layers"])
+    tokens = torch.zeros(2, dtype=torch.int64)
+    logits, out = step(params, tokens, cache)
+    assert out is cache and logits.shape == (2, tcfg.vocab_size)
+    assert [int(p) for p in cache["layers"][1]["pos"]] == [1, 1]
+    with pytest.raises(ValueError, match="max_len"):
+        step(params, tokens, TZ.init_cache(2, 24, tcfg, device="cpu"))
+    with pytest.raises(ValueError, match="max_len"):
+        step(params, tokens, TZ.init_cache(1, 16, tcfg, device="cpu"))
+
+
+@pytest.mark.parametrize("which", ["decode", "prefill"])
+def test_mla_moe_step_glue_makes_no_tensor_from_host_data(which):
+    """MLA (latent writes, the absorbed decode) and the MoE dispatch make no
+    tensor from host data after the warm-up call: the capacity is a Python
+    int, and the sorts and scatters stay on the device."""
+    tcfg = tsmoke(tget("deepseek-v3-671b"))
+    tcfg = dataclasses.replace(tcfg, quant=dataclasses.replace(tcfg.quant, backend="pallas"))
+    params = TZ.init_serving_params(0, tcfg, device="cpu")
+    if which == "decode":
+        cache = TZ.init_cache(2, 16, tcfg, device="cpu")
+        for row, n in enumerate((5, 3)):
+            slot = TZ.init_slot_cache(16, tcfg, device="cpu")
+            TZ.prefill(params, torch.from_numpy(_prompt(n, n).astype(np.int64)), tcfg, slot)
+            TZ.cache_insert(cache, slot, row)
+        tokens = torch.tensor([1, 2])
+
+        def run():
+            TZ.decode_step(params, tokens, tcfg, cache)
+    else:
+        tokens = torch.from_numpy(_prompt(7, 9).astype(np.int64))
+
+        def run():
+            TZ.prefill(params, tokens, tcfg, TZ.init_cache(1, 16, tcfg, device="cpu"))
 
     assert _host_tensors_made(run) == []

@@ -41,6 +41,7 @@ from repro_torch.kernels import fused_qmm as TFQ
 from repro_torch.kernels import popcount_qmm as TPQ
 from repro_torch.kernels import ops as TO
 from repro_torch.kernels import ref as TR
+from torch_port_fixtures import release_jax_caches  # noqa: F401  (autouse)
 
 RNG = np.random.default_rng(11)
 # M=1 (one live decode slot), block-aligned, ragged everything

@@ -36,6 +36,7 @@ from repro_torch.configs import get_config as tget
 from repro_torch.configs.smoke import smoke_variant as tsmoke
 from repro_torch.models import layers as TL
 from repro_torch.models import model_zoo as TZ
+from torch_port_fixtures import release_jax_caches  # noqa: F401  (autouse)
 
 TOL = 0.03
 # float32 unembed over d_model=64 summed in another order: a few ulps of |logit| < 1

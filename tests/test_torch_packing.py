@@ -10,6 +10,7 @@ import torch
 
 from repro.core import packing as JP
 from repro_torch.core import packing as TP
+from torch_port_fixtures import release_jax_caches  # noqa: F401  (autouse)
 
 SHAPES = [(1, 1), (7, 200), (3, 33), (5, 64), (2, 100)]
 BITS = [1, 2, 4, 8]

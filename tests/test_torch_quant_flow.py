@@ -16,6 +16,7 @@ from repro.core import flow_abstraction as JFA
 from repro.core import quantization as JQ
 from repro_torch.core import flow_abstraction as TFA
 from repro_torch.core import quantization as TQ
+from torch_port_fixtures import release_jax_caches  # noqa: F401  (autouse)
 
 RNG = np.random.default_rng(5)
 

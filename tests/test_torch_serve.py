@@ -22,6 +22,7 @@ from repro_torch import convert
 from repro_torch.configs import get_config as tget
 from repro_torch.configs.smoke import smoke_variant as tsmoke
 from repro_torch.runtime.serve_loop import Request, ServeEngine, serve_sequential
+from torch_port_fixtures import release_jax_caches  # noqa: F401  (autouse)
 
 MAX_LEN = 48
 
