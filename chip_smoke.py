@@ -18,7 +18,8 @@ Phases (each prints its own lines):
    granite-8b's and bit-bert-base's sites, with the tile and K splits its
    plan chose; and at gemma3-27b's decode sites and its 128-token up
    site; at deepseek-v2-lite-16b's decode sites and its prefill's k_up /
-   v_up), ``fused_qmm`` (K2, also at gemma3-27b's decode sites)
+   v_up; at the recurrent families' decode sites and 128-token prefills),
+   ``fused_qmm`` (K2, also at gemma3-27b's decode sites)
    bitwise-equal float32, ``popcount_qmm`` (K3, with its plan's tile and
    K splits, and K4 at A1xA1 -- the same sum -- timed beside it) and
    ``bitserial_qmm`` (K4) equal int32.  Each is timed on the device (a
@@ -105,7 +106,25 @@ Phases (each prints its own lines):
    1,500-token eager prefill profiled.  MoE routing depends on the batch,
    so the engine is not held to ``serve_sequential`` here (the CPU tests
    hold it to the reference's engine).
-9. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and last
+9. the recurrent families at full width and depth, random weights from a
+   seed, ``pallas`` backend, K1 at every binary site: recurrentgemma-2b
+   (26 layers: 18 RG-LRU ``"r"`` layers 2,560 wide and 8 local attention
+   ``"l"`` layers, MQA 10 heads of 256, window 2,048; gelu-glu FFN of
+   7,680; tied 256,000-row table; 200 K1 launches a forward) at max_len
+   4096 (2,048-row rings), and mamba2-130m (24 SSD ``"s"`` layers: d_inner
+   1,536, 24 heads of 64, d_state 128, chunk 128; tied 50,280-row table;
+   48 K1 launches a forward) at max_len 2048.  For each: one prefill and
+   decode step bitwise equal with K1 swapped for its plain version; then
+   ``ServeEngine`` with 4 slots serves 8 requests of 16 new tokens,
+   prompts of 32-128 tokens and one long one (2,100 tokens, which wraps
+   the ring inside its prefill; 1,000 tokens, 8 chunks with 24 rows of
+   padding).  Checks as in phase 7: every request ``ok``, K1's wrapper
+   count, greedy tokens equal ``serve_sequential``, and the 4-slot tick,
+   eager beside replayed, bitwise equal over 5 ticks (recurrentgemma's
+   from a row at position 2,046, which crosses 2,048), timed and profiled,
+   K1 ``per forward`` times in the profiled replay; the long eager prefill
+   profiled.
+10. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is its
    wrapper's count over its main path's run alone (phase 3's engine run for
    K1, phase 4's fused pass for K2, phase 5's engine run for K3, phase 6
@@ -113,8 +132,9 @@ Phases (each prints its own lines):
    ``replay_launches`` the kernel's launches counted on the device in one
    profiled replay of that path's decode graph (K3 adds
    ``prefill_replay_launches``, of the 128-token prefill graph; K1 adds
-   ``gemma3`` and ``deepseek``, the same three numbers for phases 7 and
-   8, ``deepseek`` with its ``expert_loop`` rows).
+   ``gemma3``, ``deepseek``, ``recurrentgemma`` and ``mamba2``, the same
+   three numbers for phases 7, 8 and 9, ``deepseek`` with its
+   ``expert_loop`` rows).
 """
 
 from __future__ import annotations
@@ -337,7 +357,22 @@ DEEPSEEK_SHAPES = [
     (4, 2816, 2048),
     (128, 512, 2048),
 ]
-K1_ONLY_SHAPES = BERT_K1_SHAPES + [(128, 5376, 21504)] + DEEPSEEK_SHAPES
+# the recurrent families' sites at the engine's 4-slot decode and a
+# 128-token prefill's widest site: recurrentgemma-2b's RG-LRU in_x / in_gate
+# / gate_a / gate_i / out and attn.q / o (2560x2560), attn.k / v (2560x256),
+# ffn.up / gate (2560x7680) and down (7680x2560); mamba2-130m's in_proj (768
+# -> 3352, not a multiple of K1's N tile) and out_proj (1536x768)
+RECURRENT_SHAPES = [
+    (4, 2560, 2560),
+    (4, 2560, 256),
+    (4, 2560, 7680),
+    (4, 7680, 2560),
+    (128, 2560, 7680),
+    (4, 768, 3352),
+    (4, 1536, 768),
+    (128, 768, 3352),
+]
+K1_ONLY_SHAPES = BERT_K1_SHAPES + [(128, 5376, 21504)] + DEEPSEEK_SHAPES + RECURRENT_SHAPES
 
 
 def _copies(nbytes: int) -> int:
@@ -1323,6 +1358,128 @@ def serve_deepseek(Z, model_cfg, device, Request, ServeEngine, make_decode_step,
     return path
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the recurrent families -- recurrentgemma-2b (RG-LRU beside local
+# attention) and mamba2-130m (chunked SSD)
+# ---------------------------------------------------------------------------
+
+# name -> (max_len, the long prompt, the 4-slot cache graph_vs_eager starts
+# from).  recurrentgemma: at max_len 4096 each "l" layer is a 2,048-row
+# ring; a 2,100-token prompt wraps it inside its prefill, and the tick's
+# 2,046-token row crosses position 2,048.  mamba2: 1,000 tokens are 8
+# chunks of 128, the last one padded by 24 rows.
+RECURRENT_RUNS = {
+    "recurrentgemma-2b": (4096, 2100, (2046, 2100, 100, 37)),
+    "mamba2-130m": (2048, 1000, (1000, 100, 37, 128)),
+}
+# (prompt tokens, temperature) after the long prompt: 6 greedy, 2 at T=0.8
+RECURRENT_PROMPTS = [(48, 0.0), (96, 0.0), (32, 0.0), (128, 0.0), (64, 0.0), (80, 0.8), (112, 0.8)]
+# K1 sites a layer: RG-LRU in_x / in_gate / gate_a / gate_i / out + the FFN's
+# 3; attention q / k / v / o + the FFN's 3; SSD in_proj / out_proj
+RECURRENT_K1_SITES = {"r": 8, "l": 7, "s": 2}
+
+
+def recurrent_k1_per_forward(cfg) -> int:
+    return sum(RECURRENT_K1_SITES[kind] for kind in cfg.layer_kinds)
+
+
+def serve_recurrent(Z, model_cfg, device, Request, ServeEngine, serve_sequential, make_decode_step,
+                    ops, ref, kernels, smi: str) -> dict:
+    """Serve one recurrent family at full width and depth through the engine
+    on the ``pallas`` backend (K1 at every binary site); hold K1 to its plain
+    version in the model, the engine to ``serve_sequential`` and the replayed
+    tick to the eager one.  Returns K1's numbers on this path."""
+    cfg = with_backend(model_cfg, "pallas")
+    k1 = kernels[0]
+    max_len, long_len, tick_prompts = RECURRENT_RUNS[cfg.name]
+    per_forward = recurrent_k1_per_forward(cfg)
+    t = time.perf_counter()
+    params = Z.init_serving_params(0, cfg, device=device)
+    torch.cuda.synchronize()
+    kinds = "".join(cfg.layer_kinds)
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        mixer = (f"{kinds.count('s')} SSD layers: d_inner {s.d_inner(cfg.d_model)}, "
+                 f"{s.n_heads(cfg.d_model)} heads of {s.head_dim}, d_state {s.d_state}, conv {s.d_conv}, "
+                 f"chunk {s.chunk}")
+    else:
+        mixer = (f"{kinds.count('r')} RG-LRU layers {cfg.d_model} wide and {kinds.count('l')} local "
+                 f"attention layers ({cfg.n_heads} heads / {cfg.n_kv_heads} kv of {cfg.d_head}, window "
+                 f"{cfg.window_size}, rope {cfg.rope_theta:g}), each with a {cfg.ffn_type} FFN of {cfg.d_ff}")
+    log(f"[9] {cfg.name}: {cfg.n_layers} layers ({cfg.prefix_layers} + {cfg.pattern_period} x "
+        f"{cfg.n_periods}): {mixer}; d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
+        f"tied={cfg.tie_embeddings}; serving params built on the card in {time.perf_counter() - t:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; K1 launches a forward: {per_forward} | {smi}")
+
+    # K1 against its plain version in a short prefill and a decode step;
+    # also the family's warm-up
+    prompt = np.random.default_rng(9).integers(0, cfg.vocab_size, size=(40,))
+    kern, fed = greedy_steps(Z, cfg, params, prompt, 1, device)
+    with mock.patch.object(ops._bq, "binary_qmm", ref.binary_qmm_ref):
+        plain, _ = greedy_steps(Z, cfg, params, prompt, 1, device, tokens=fed)
+    if not all(torch.equal(a, b) for a, b in zip(kern, plain)):
+        raise AssertionError(f"{cfg.name} logits differ with K1 swapped for its plain version")
+    if not all(bool(torch.isfinite(x).all()) and x.shape == (1, cfg.vocab_size) for x in kern):
+        raise AssertionError(f"{cfg.name} logits not finite or of the wrong shape")
+    log(f"[9] prefill ({len(prompt)} tokens) + decode: logits bitwise equal with binary_qmm swapped for "
+        f"binary_qmm_ref on the same tensors")
+
+    def requests():
+        rng = np.random.default_rng(0)
+        return [Request(prompt=rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int64),
+                        max_new_tokens=16, temperature=temp)
+                for n, temp in [(long_len, 0.0)] + RECURRENT_PROMPTS]
+
+    engine = ServeEngine(cfg, params, batch_slots=4, max_len=max_len, seed=0, device=device)
+    torch.cuda.synchronize()
+    _zero(kernels)
+    t = time.perf_counter()
+    done = engine.run(requests())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launched = _counts(kernels)
+    if not all(r.state == "ok" and len(r.output) == 16 for r in done):
+        raise AssertionError(f"{cfg.name} requests not ok: {[(r.state, len(r.output)) for r in done]}")
+    prefill_ms = [e["ms"] for e in engine.last_events if e["kind"] == "prefill"]
+    n_tok = sum(len(r.output) for r in done)
+    plens = [len(r.prompt) for r in done]
+    log(f"[9] served {len(done)} requests (prompts {sorted(plens)} tokens, 16 new each, 6 greedy + 2 at "
+        f"T=0.8, 4 slots, max_len {max_len}) in {wall:.2f} s: {n_tok / wall:.1f} generated tokens/s end "
+        f"to end; eager exact-length prefills {sum(prefill_ms) / 1e3:.2f} s of it")
+    engine_counts(engine, kernels, launched, per_forward, k1, phase=9)
+    path = dict(launches=launched[0], replays=engine.decode_fn.replays)
+    log("[9] prefill ms per prompt: " + ", ".join(f"{p}:{ms:.1f}" for p, ms in zip(plens, prefill_ms)))
+    long_ms = prefill_ms[plens.index(long_len)]
+    log(f"[9] the {long_len}-token prefill: {long_ms:.1f} ms in the engine, {long_len / long_ms * 1e3:.0f} "
+        "prompt tokens/s")
+    del engine
+    torch.cuda.empty_cache()
+    tokens = torch.as_tensor(np.asarray(done[plens.index(long_len)].prompt)[None], device=device)
+    report_profile(f"{cfg.name} eager prefill ({long_len} tokens)", *profile_forward(
+        lambda: Z.prefill(params, tokens, cfg, Z.init_slot_cache(max_len, cfg, device=device))), phase=9)
+
+    seq = serve_sequential(cfg, params, requests(), max_len=max_len, seed=0, device=device)
+    for got, want in zip(done, seq):
+        if got.temperature == 0 and got.output != want.output:
+            raise AssertionError(f"{cfg.name} engine greedy tokens ({len(got.prompt)}-token prompt) "
+                                 f"{got.output} != sequential {want.output}")
+    sampled_same = sum(g.output == w.output for g, w in zip(done, seq) if g.temperature > 0)
+    log(f"[9] engine greedy tokens equal serve_sequential for all 6 greedy requests, the {long_len}-token "
+        f"prompt among them (sampled requests equal: {sampled_same}/2)")
+    del seq, done
+
+    rng = np.random.default_rng(9)
+    cache = fill_cache(Z, cfg, params, [rng.integers(0, cfg.vocab_size, size=(n,)) for n in tick_prompts],
+                       device, max_len=max_len)
+    step = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(len(tick_prompts),))).to(device)
+    path["replay_launches"] = graph_vs_eager(
+        Z, make_decode_step, cfg, params, cache, max_len, step, k1, per_forward, phase=9,
+        tag=f"{cfg.name} pallas decode tick (4 slots at positions {', '.join(map(str, tick_prompts))})")
+    del cache, params
+    torch.cuda.empty_cache()
+    return path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1330,10 +1487,11 @@ def main() -> int:
     from repro_torch.configs import get_config
 
     return run(torch.device("cuda", 0), get_config("granite-8b"), get_config("bit-bert-base"),
-               get_config("gemma3-27b"), get_config("deepseek-v2-lite-16b"))
+               get_config("gemma3-27b"), get_config("deepseek-v2-lite-16b"),
+               (get_config("recurrentgemma-2b"), get_config("mamba2-130m")))
 
 
-def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg) -> int:
+def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg, recurrent_cfgs) -> int:
     from repro_torch.kernels import binary_qmm as K1
     from repro_torch.kernels import bitserial_qmm as K4
     from repro_torch.kernels import build, ref
@@ -1482,6 +1640,10 @@ def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg) -> 
                                 make_decode_step, ops, ref, all_kernels, smi)
     k1["deepseek"] = serve_deepseek(Z, deepseek_cfg, device, Request, ServeEngine, make_decode_step,
                                     ops, ref, all_kernels, smi, gen)
+    for rcfg in recurrent_cfgs:
+        k1[rcfg.name.split("-")[0]] = serve_recurrent(
+            Z, rcfg, device, Request, ServeEngine, serve_sequential, make_decode_step, ops, ref,
+            all_kernels, smi)
 
     main_path = {"binary_qmm": k1, "fused_qmm": k2, "popcount_qmm": k3, "bitserial_qmm": k4}
     sources = {
@@ -1500,7 +1662,7 @@ def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg) -> 
             bound_by=head["bound_by"], library_ms=head["library_ms"], shape=head["shape"],
             shapes=shapes,
         ))
-    log(f"[9] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[10] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,9 +6,11 @@ from repro_torch.configs import (  # noqa: F401  (registration)
     deepseek_v3_671b,
     gemma3_27b,
     granite_8b,
+    mamba2_130m,
     mistral_nemo_12b,
     qwen3_32b,
+    recurrentgemma_2b,
 )
-from repro_torch.configs.base import ArchConfig, MLAConfig, MoEConfig, QuantConfig, get_config
+from repro_torch.configs.base import ArchConfig, MLAConfig, MoEConfig, QuantConfig, SSMConfig, get_config
 
-__all__ = ["ArchConfig", "MLAConfig", "MoEConfig", "QuantConfig", "get_config"]
+__all__ = ["ArchConfig", "MLAConfig", "MoEConfig", "QuantConfig", "SSMConfig", "get_config"]

@@ -4,10 +4,15 @@ A copy, not an import: the port never imports the JAX package.  Field names
 and defaults match the reference so one config means the same model on
 both sides.  The port serves dense GQA decoders and encoders (block kinds
 ``"g"``, global attention, and ``"l"``, sliding-window attention over
-``window_size`` positions) and the deepseek family (``"Md"``: multi-head
+``window_size`` positions), the deepseek family (``"Md"``: multi-head
 latent attention with a dense FFN, ``"Mm"``: MLA with a mixture of
-experts; ``MLAConfig``, ``MoEConfig``).  The SSM and encoder sub-configs
-of the reference are not ported yet, so their fields are absent here.
+experts; ``MLAConfig``, ``MoEConfig``) and the recurrent families
+(``"r"``: an RG-LRU block with a dense FFN, as recurrentgemma has it;
+``"s"``: a Mamba-2 SSD mixer alone, geometry in ``SSMConfig``).  A model
+with no attention layer may set ``pos_embedding="none"`` and
+``quant.quantize_attention=False`` (mamba2); attention layers still refuse
+a float cache.  The encoder sub-config of the reference is not ported
+yet, so its field is absent here.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import dataclasses
 import fnmatch
 from typing import Dict, Optional, Tuple
 
-__all__ = ["QuantConfig", "MoEConfig", "MLAConfig", "ArchConfig", "register", "get_config"]
+__all__ = ["QuantConfig", "MoEConfig", "MLAConfig", "SSMConfig", "ArchConfig", "register", "get_config"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +107,24 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 SSD mixer geometry."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk: int = 128
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str
@@ -119,12 +142,13 @@ class ArchConfig:
     ffn_type: str = "silu_glu"  # "gelu" | "silu_glu" | "gelu_glu"
     rope_theta: float = 10000.0
     local_rope_theta: float = 0.0  # gemma3 uses a different theta locally
-    pos_embedding: str = "rope"
+    pos_embedding: str = "rope"  # "rope" | "learned" | "none" (sinusoidal: not ported)
     causal: bool = True
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     quant: QuantConfig = QuantConfig()
     mtp_depth: int = 0  # deepseek-v3 multi-token prediction heads (training only)
     max_seq: int = 131072

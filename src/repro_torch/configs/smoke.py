@@ -1,14 +1,14 @@
 """Reduced smoke variants (port of ``repro.configs.smoke``) for CPU tests.
 
-The dense-decoder, MLA and MoE branches are ported; the reference's SSM and
-encoder shrinking has no counterpart until those families are ported.
+The dense-decoder, MLA, MoE and SSM branches are ported; the reference's
+encoder shrinking has no counterpart until that family is ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ArchConfig, MLAConfig, MoEConfig
+from repro_torch.configs.base import ArchConfig, MLAConfig, MoEConfig, SSMConfig
 
 
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:
@@ -46,4 +46,11 @@ def smoke_variant(cfg: ArchConfig) -> ArchConfig:
             router_scoring=cfg.moe.router_scoring,
             route_scale=cfg.moe.route_scale,
         )
+    if cfg.ssm is not None:
+        changes["ssm"] = SSMConfig(
+            d_state=16, d_conv=4, expand=2, head_dim=16, n_groups=1, chunk=16
+        )
+        changes["n_heads"] = (changes["d_model"] * 2) // 16
+        changes["n_kv_heads"] = changes["n_heads"]
+        changes["d_ff"] = 0
     return dataclasses.replace(cfg, **changes)

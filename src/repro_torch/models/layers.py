@@ -27,6 +27,7 @@ __all__ = [
     "rmsnorm",
     "rope",
     "ffn",
+    "gelu",
     "init_ffn",
     "embed",
     "unembed",
@@ -140,6 +141,12 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     if name.startswith("silu"):
         return x * (1.0 / (1.0 + torch.exp(-x)))
     raise NotImplementedError(f"activation of ffn_type {name!r} is not ported yet")
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its tanh form), evaluated as ``_act`` evaluates the
+    FFN's: every constant and step in ``x.dtype``."""
+    return _act("gelu", x)
 
 
 def init_ffn(gen: torch.Generator, ffn_type: str, d_model: int, d_ff: int) -> dict:

@@ -2,8 +2,10 @@
 serving subset for dense GQA decoders -- global (``"g"``) and
 sliding-window (``"l"``) layers, as granite-8b, mistral-nemo-12b, qwen3-32b
 and gemma3-27b have them --, bidirectional encoders (bit-bert-base:
-learned positions, non-causal prefill) and the deepseek family (MLA layers
-``"Md"`` / ``"Mm"``, the latter with a mixture of experts).
+learned positions, non-causal prefill), the deepseek family (MLA layers
+``"Md"`` / ``"Mm"``, the latter with a mixture of experts) and the
+recurrent families (RG-LRU layers ``"r"`` beside local attention in
+recurrentgemma-2b, SSD layers ``"s"`` in mamba2-130m).
 
 Params are plain dicts: ``{"embedding", "final_norm", "layers": [block,
 ...]}``, plus ``"unembedding"`` when the embeddings are untied and
@@ -11,14 +13,17 @@ Params are plain dicts: ``{"embedding", "final_norm", "layers": [block,
 per layer in ``cfg.layer_kinds`` order (the reference's scanned ``period``
 stack, unstacked).  An MoE block's routed experts are rank-3 ``(E, K, N)``
 linears, packed along K; its router stays float32 (``{"w"}``), as the
-reference keeps it.  deepseek-v3's multi-token-prediction head serves only
-the reference's training loss, so serving params carry none.  Caches are
-``{"layers": [cache, ...]}``, one per layer: an int8 KV cache, or an MLA
-layer's latent cache (``ckv``, ``k_rope``); a ``"l"`` layer's holds
-``min(max_len, window_size)`` rows (its ring buffer), every other layer's
-``max_len`` (``cache_rows``).  Every layer's
-cursor ``pos`` is absolute, so a decode step reads its positions from
-layer 0's, whatever its kind.
+reference keeps it; a recurrent block's float leaves (``conv_w``,
+``A_log``, ``D``, ``dt_bias``, ``norm_g``, ``lambda_p``) stay float32.
+deepseek-v3's multi-token-prediction head serves only the reference's
+training loss, so serving params carry none.  Caches are ``{"layers":
+[cache, ...]}``, one per layer: an int8 KV cache, an MLA layer's latent
+cache (``ckv``, ``k_rope``), or a recurrent layer's state (``models/ssm.py``:
+``h`` / ``ssm`` and ``conv``, no rows axis); a ``"l"`` layer's cache holds
+``min(max_len, window_size)`` rows (its ring buffer), every other
+attention layer's ``max_len`` (``cache_rows``).  Every layer's cursor
+``pos`` is absolute, so a decode step reads its positions from layer 0's,
+whatever its kind.
 
 Entry points:
 
@@ -28,7 +33,8 @@ Entry points:
   so a full-width model never holds every latent weight at once
 * ``init_cache`` / ``init_slot_cache`` / ``cache_insert`` / ``cache_reset``
 * ``cache_rows`` / ``cache_geometry`` -- each layer's rows for a
-  ``max_len``, and the ``(batch, rows)`` a cache holds
+  ``max_len`` (None for a recurrent layer's state), and the ``(batch,
+  rows)`` a cache holds
 * ``cache_copy`` / ``caches_equal`` -- a snapshot of a cache, and bitwise
   equality of two
 * ``prefill`` (exact length) / ``decode_step``
@@ -174,22 +180,31 @@ def init_serving_params(seed: int, cfg: ArchConfig, device="cuda") -> dict:
 
 
 def cache_rows(max_len: int, cfg: ArchConfig) -> list:
-    """Rows of each layer's cache, in layer order, for ``max_len`` positions."""
-    return [A.cache_rows(max_len, cfg, kind) for kind in cfg.layer_kinds]
+    """Rows of each layer's cache, in layer order, for ``max_len``
+    positions; None for a recurrent layer, whose state has no rows."""
+    return [None if kind in T.RECURRENT_KINDS else A.cache_rows(max_len, cfg, kind)
+            for kind in cfg.layer_kinds]
+
+
+def _layer_geometry(layer: dict) -> tuple:
+    for rows in ("ckv", "k"):
+        if rows in layer:
+            return tuple(layer[rows].shape[:2])
+    return (layer["pos"].shape[0], None)
 
 
 def cache_geometry(cache: dict) -> list:
     """``(batch, rows)`` of each layer's cache, in layer order, read from
-    the layer's own rows: ``ckv`` for an MLA layer, ``k`` for a GQA one."""
-    return [tuple((layer["ckv"] if "ckv" in layer else layer["k"]).shape[:2])
-            for layer in cache["layers"]]
+    the layer's own rows: ``ckv`` for an MLA layer, ``k`` for a GQA one; a
+    recurrent layer's state has no rows, ``(batch, None)``."""
+    return [_layer_geometry(layer) for layer in cache["layers"]]
 
 
 def init_cache(batch: int, max_len: int, cfg: ArchConfig, device="cuda") -> dict:
     check_max_len(cfg, max_len)
     return {
         "layers": [
-            A.init_kv_cache(batch, max_len, cfg, kind, device=device)
+            T.init_block_cache(batch, max_len, cfg, kind, device=device)
             for kind in cfg.layer_kinds
         ]
     }
@@ -204,7 +219,8 @@ def init_slot_cache(max_len: int, cfg: ArchConfig, device="cuda") -> dict:
 
 def cache_insert(cache: dict, slot_cache: dict, slot: int) -> dict:
     """Copy a batch-1 ``slot_cache`` into row ``slot`` of a packed cache, in
-    place -- including the per-row cursor and calibration affines."""
+    place -- including the per-row cursor and calibration affines, and a
+    recurrent layer's whole state."""
     for dst, src in zip(cache["layers"], slot_cache["layers"]):
         idx = torch.tensor([slot], device=dst["pos"].device)
         for key, leaf in dst.items():
@@ -213,7 +229,8 @@ def cache_insert(cache: dict, slot_cache: dict, slot: int) -> dict:
 
 
 def cache_reset(cache: dict, slot: int, cfg: ArchConfig, max_len: int) -> dict:
-    """Reset row ``slot`` (cursor 0, identity affines, zero mantissas)."""
+    """Reset row ``slot`` (cursor 0, identity affines, zero mantissas and
+    recurrent state)."""
     device = cache["layers"][0]["pos"].device
     return cache_insert(cache, init_slot_cache(max_len, cfg, device=device), slot)
 

@@ -6,7 +6,10 @@ here the stack is a Python loop over per-layer param dicts, in
 Block kinds ``"g"`` (global attention) and ``"l"`` (sliding-window
 attention), each with a dense FFN; ``"Md"`` (multi-head latent attention
 with a dense FFN of ``d_ff``) and ``"Mm"`` (MLA with the mixture of
-experts).  Pre-norm residual blocks (RMSNorm).
+experts); ``"r"`` (the RG-LRU recurrence with a dense FFN) and ``"s"`` (a
+Mamba-2 SSD mixer alone: norm and mixer, no FFN).  Pre-norm residual
+blocks (RMSNorm).  A recurrent layer's cache is its state, with no rows
+axis (``models/ssm.py``).
 """
 
 from __future__ import annotations
@@ -19,10 +22,12 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 
-__all__ = ["init_block", "block_apply", "stack_apply"]
+__all__ = ["init_block", "init_block_cache", "block_apply", "stack_apply"]
 
-KINDS = ("g", "l", "Md", "Mm")
+RECURRENT_KINDS = ("r", "s")
+KINDS = ("g", "l") + A.MLA_KINDS + RECURRENT_KINDS
 
 
 def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str, site=lambda p: p) -> dict:
@@ -33,7 +38,13 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str, site=lambda p: 
     d = cfg.d_model
     zeros = dict(dtype=torch.float32, device=gen.device)
     p = {"ln1": torch.zeros((d,), **zeros)}
-    p["attn"] = A.init_mla(gen, cfg) if kind in A.MLA_KINDS else A.init_attention(gen, cfg)
+    if kind == "s":
+        p["ssd"] = S.init_ssd(gen, cfg)
+        return p  # a mamba2 block is norm + mixer only
+    if kind == "r":
+        p["rglru"] = S.init_rglru(gen, cfg)
+    else:
+        p["attn"] = A.init_mla(gen, cfg) if kind in A.MLA_KINDS else A.init_attention(gen, cfg)
     p["ln2"] = torch.zeros((d,), **zeros)
     if kind == "Mm":
         p["moe"] = M.init_moe(gen, cfg, site)
@@ -42,10 +53,25 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str, site=lambda p: 
     return p
 
 
+def init_block_cache(batch: int, max_len: int, cfg: ArchConfig, kind: str, device="cuda") -> dict:
+    """One layer's cache: a recurrent layer's state, else its KV or latent
+    cache of ``A.cache_rows`` rows."""
+    if kind == "r":
+        return S.init_rglru_state(batch, cfg, device=device)
+    if kind == "s":
+        return S.init_ssd_state(batch, cfg, device=device)
+    return A.init_kv_cache(batch, max_len, cfg, kind, device=device)
+
+
 def block_apply(p: dict, x, cfg: ArchConfig, kind: str, positions, cache: dict):
     """Pre-norm residual block.  Returns (x, cache) (cache updated in place)."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    if kind in A.MLA_KINDS:
+    if kind == "s":
+        mix, cache = S.ssd_mixer(p["ssd"], h, cfg, cache)
+        return x + mix, cache
+    if kind == "r":
+        mix, cache = S.rglru_mixer(p["rglru"], h, cfg, cache)
+    elif kind in A.MLA_KINDS:
         mix, cache = A.mla_attention(p["attn"], h, cfg, positions, cache)
     else:
         mix, cache = A.attention(p["attn"], h, cfg, kind, positions, cache)

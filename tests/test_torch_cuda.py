@@ -70,6 +70,17 @@ DEEPSEEK_SITES = [(2048, 3072), (2048, 512), (2048, 64), (2048, 2048), (512, 204
                   (2048, 1408), (1408, 2048)]
 
 
+# (K, N) of every QMM site of the recurrent families: recurrentgemma-2b's
+# RG-LRU in_x / in_gate / gate_a / gate_i / out and attn.q / o (2560x2560),
+# attn.k / v (2560x256), ffn.up / gate (2560x7680) and down (7680x2560);
+# mamba2-130m's in_proj (768 -> 2 x 1536 + 2 x 128 + 24 = 3352, not a
+# multiple of K1's N tile) and out_proj (1536x768)
+RECURRENT_SITES = {
+    "recurrentgemma-2b": [(2560, 2560), (2560, 256), (2560, 7680), (7680, 2560)],
+    "mamba2-130m": [(768, 3352), (1536, 768)],
+}
+
+
 @pytest.mark.parametrize("m,k,n", BINARY_SHAPES)
 def test_binary_qmm_equals_plain(dev, m, k, n):
     g = torch.Generator(device=dev).manual_seed(m * 7 + n)
@@ -85,6 +96,13 @@ def test_binary_qmm_equals_plain(dev, m, k, n):
 @pytest.mark.parametrize("name,k,n", [(name, k, n) for name, sites in FAMILY_SITES.items()
                                       for k, n in sites])
 def test_binary_qmm_equals_plain_at_family_sites(dev, name, k, n, m):
+    test_binary_qmm_equals_plain(dev, m, k, n)
+
+
+@pytest.mark.parametrize("m", [4, 128])  # a 4-slot decode tick, a 128-token prefill
+@pytest.mark.parametrize("name,k,n", [(name, k, n) for name, sites in RECURRENT_SITES.items()
+                                      for k, n in sites])
+def test_binary_qmm_equals_plain_at_recurrent_sites(dev, name, k, n, m):
     test_binary_qmm_equals_plain(dev, m, k, n)
 
 
@@ -267,6 +285,13 @@ def deepseek_k1_per_forward(cfg, prefill: bool = False) -> int:
     return sum(attn + (moe if kind == "Mm" else ffn) for kind in cfg.layer_kinds)
 
 
+def recurrent_k1_per_forward(cfg) -> int:
+    """K1 launches of one forward of a recurrent family: an RG-LRU layer's
+    5 sites and its FFN's 3, an attention layer's 4 and its FFN's 3, an SSD
+    layer's in_proj and out_proj."""
+    return sum({"r": 8, "l": 7, "s": 2}[kind] for kind in cfg.layer_kinds)
+
+
 STEP_MODELS = {  # name -> (config name, backend, kernel its forwards launch, sites a layer)
     # window 8 in the smoke: a ring beside global layers; _filled_cache's
     # 9-token row has wrapped, its 6-token row wraps on the third tick
@@ -279,6 +304,10 @@ STEP_MODELS = {  # name -> (config name, backend, kernel its forwards launch, si
     # sites vary by layer kind (deepseek_k1_per_forward)
     "deepseek-v2-pallas": ("deepseek-v2-lite-16b", "pallas", "binary_qmm", deepseek_k1_per_forward),
     "deepseek-v3-pallas": ("deepseek-v3-671b", "pallas", "binary_qmm", deepseek_k1_per_forward),
+    # recurrent states written in place beside a window-8 ring (recurrentgemma)
+    # and the SSD state alone (mamba2, one layer in the smoke)
+    "recurrentgemma-pallas": ("recurrentgemma-2b", "pallas", "binary_qmm", recurrent_k1_per_forward),
+    "mamba2-pallas": ("mamba2-130m", "pallas", "binary_qmm", recurrent_k1_per_forward),
 }
 STEP_MAX_LEN = 48
 WRAPPERS = {k.__name__: k for k in (K1.binary_qmm, K2.fused_qmm, K3.popcount_qmm, K4.bitserial_qmm)}
@@ -343,7 +372,8 @@ def test_replayed_decode_step_bitwise_equals_eager(dev, name):
     assert not any(torch.equal(a, b) for a, b in zip(held, held[1:]))
 
 
-@pytest.mark.parametrize("name", ["granite-pallas", "bitbert-a1", "deepseek-v2-pallas"])
+@pytest.mark.parametrize("name", ["granite-pallas", "bitbert-a1", "deepseek-v2-pallas",
+                                  "recurrentgemma-pallas", "mamba2-pallas"])
 def test_replayed_prefill_bitwise_equals_eager(dev, name):
     from repro_torch.runtime.serve_loop import make_prefill
 
@@ -377,12 +407,12 @@ def test_decode_step_captures_anew_for_another_cache(dev):
     assert (step.captures, step.replays) == (2, 2)
 
 
-def test_engine_on_card_equals_serve_sequential(dev):
+def test_engine_on_card_equals_serve_sequential(dev, name="granite-pallas"):
     """Greedy requests, two runs of one engine: one capture, replayed
     ticks, tokens equal to the eager one-at-a-time oracle."""
     from repro_torch.runtime.serve_loop import Request, ServeEngine, serve_sequential
 
-    cfg, params, _ = _step_model("granite-pallas", dev)
+    cfg, params, _ = _step_model(name, dev)
 
     def requests():
         rng = np.random.default_rng(2)
@@ -397,3 +427,9 @@ def test_engine_on_card_equals_serve_sequential(dev):
         kinds = [e["kind"] for e in engine.last_events]
         assert "decode_tick" in kinds
     assert engine.decode_fn.captures == 1 and engine.decode_fn.replays > 0
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-pallas", "mamba2-pallas"])
+def test_recurrent_engine_on_card_equals_serve_sequential(dev, name):
+    """As for granite: a row's recurrent state does not depend on its batch."""
+    test_engine_on_card_equals_serve_sequential(dev, name)

@@ -459,3 +459,31 @@ def test_mla_moe_step_glue_makes_no_tensor_from_host_data(which):
             TZ.prefill(params, tokens, tcfg, TZ.init_cache(1, 16, tcfg, device="cpu"))
 
     assert _host_tensors_made(run) == []
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "mamba2-130m"])
+@pytest.mark.parametrize("which", ["decode", "prefill"])
+def test_recurrent_step_glue_makes_no_tensor_from_host_data(name, which):
+    """The RG-LRU and SSD mixers -- conv windows, the associative scan, the
+    chunked SSD with its padding and cumulative sums -- make no tensor from
+    host data after the warm-up call."""
+    tcfg = tsmoke(tget(name))
+    tcfg = dataclasses.replace(tcfg, quant=dataclasses.replace(tcfg.quant, backend="pallas"))
+    params = TZ.init_serving_params(0, tcfg, device="cpu")
+    if which == "decode":
+        cache = TZ.init_cache(2, 32, tcfg, device="cpu")
+        for row, n in enumerate((11, 3)):
+            slot = TZ.init_slot_cache(32, tcfg, device="cpu")
+            TZ.prefill(params, torch.from_numpy(_prompt(n, n).astype(np.int64)), tcfg, slot)
+            TZ.cache_insert(cache, slot, row)
+        tokens = torch.tensor([1, 2])
+
+        def run():
+            TZ.decode_step(params, tokens, tcfg, cache)
+    else:
+        tokens = torch.from_numpy(_prompt(7, 19).astype(np.int64))  # 2 chunks of 16, padded
+
+        def run():
+            TZ.prefill(params, tokens, tcfg, TZ.init_cache(1, 32, tcfg, device="cpu"))
+
+    assert _host_tensors_made(run) == []
