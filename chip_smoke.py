@@ -18,7 +18,10 @@ Phases (each prints its own lines):
    granite-8b's and bit-bert-base's sites, with the tile and K splits its
    plan chose; and at gemma3-27b's decode sites and its 128-token up
    site; at deepseek-v2-lite-16b's decode sites and its prefill's k_up /
-   v_up; at the recurrent families' decode sites and 128-token prefills),
+   v_up; at the recurrent families' decode sites and 128-token prefills;
+   at internvl2-2b's decode sites and its 320-token image prefill's up
+   site, and at whisper-tiny's decode sites and its cross-attention k / v
+   over 4 x 1,500 encoder rows),
    ``fused_qmm`` (K2, also at gemma3-27b's decode sites)
    bitwise-equal float32, ``popcount_qmm`` (K3, with its plan's tile and
    K splits, and K4 at A1xA1 -- the same sum -- timed beside it) and
@@ -124,17 +127,43 @@ Phases (each prints its own lines):
    from a row at position 2,046, which crosses 2,048), timed and profiled,
    K1 ``per forward`` times in the profiled replay; the long eager prefill
    profiled.
-10. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and last
+10. the encoder families at full width and depth, random weights from a
+   seed, ``pallas`` backend, K1 at every binary site.  internvl2-2b (24
+   layers, d_model 2048, 16 / 8 heads, silu-glu 8,192, untied 92,553-row
+   tables; 168 K1 launches a forward; a patch stub of 256 x 1,024): an
+   image prompt of 256 patch positions + 64 text tokens through
+   ``make_prefill`` with its frontend (one capture, then two replays on
+   new patches, each bitwise equal to the eager prefill on the same
+   inputs, timed and profiled), then 8 greedy decode steps, logits bitwise
+   equal with K1 swapped for its plain version; then ``ServeEngine`` (text
+   only, as the reference's) with 4 slots and max_len 1024 serves 8
+   requests of 16 new tokens, checked and profiled as in phase 3.
+   whisper-tiny (4 encoder + 4 decoder layers, d_model 384, 6 heads, gelu
+   1,536, tied 51,865-row table, learned decoder positions up to 448; 64
+   K1 launches a prefill, 40 a decode step, 8 of them the cross-attention
+   k / v at M = 4 x 1,500): ``ServeEngine`` refuses it, as the
+   reference's does; a transcription -- ``make_prefill`` at batch 4 with a
+   4-token prompt and stub frames (4, 1,500, 384), then 32 greedy steps of
+   a replayed ``make_decode_step`` -- with K1's wrapper count; the prefill
+   replayed on new frames bitwise equal to the eager prefill; the decode
+   step replayed bitwise equal to the eager one over 32 ticks, timed and
+   profiled; logits bitwise equal with K1 swapped for its plain version;
+   the device time of the cross-attention k / v projections and of the
+   float cross-attention, each alone, against the replayed tick's.
+11. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is its
    wrapper's count over its main path's run alone (phase 3's engine run for
    K1, phase 4's fused pass for K2, phase 5's engine run for K3, phase 6
    for K4); ``replays`` is the number of replayed ticks in that run, and
    ``replay_launches`` the kernel's launches counted on the device in one
    profiled replay of that path's decode graph (K3 adds
-   ``prefill_replay_launches``, of the 128-token prefill graph; K1 adds
-   ``gemma3``, ``deepseek``, ``recurrentgemma`` and ``mamba2``, the same
-   three numbers for phases 7, 8 and 9, ``deepseek`` with its
-   ``expert_loop`` rows).
+   ``prefill_replay_launches``, of the 128-token prefill graph; each path
+   adds ``replay_busy_ms``, that replay's device busy time; K1 adds
+   ``gemma3``, ``deepseek``, ``recurrentgemma``, ``mamba2``, ``internvl2``
+   and ``whisper``, the same numbers for phases 7 to 10, ``deepseek`` with
+   its ``expert_loop`` rows, ``internvl2`` and ``whisper`` with their
+   prefill graph's launches; ``whisper``'s ``launches`` are its
+   transcription's).
 """
 
 from __future__ import annotations
@@ -372,7 +401,24 @@ RECURRENT_SHAPES = [
     (4, 1536, 768),
     (128, 768, 3352),
 ]
-K1_ONLY_SHAPES = BERT_K1_SHAPES + [(128, 5376, 21504)] + DEEPSEEK_SHAPES + RECURRENT_SHAPES
+# the encoder families' sites: internvl2-2b's attn.q / o (2048x2048), attn.k
+# / v (2048x1024), ffn.up / gate (2048x8192) and down (8192x2048) at the
+# engine's 4-slot decode, and up / gate in its 320-token image prefill;
+# whisper-tiny's cross-attention k / v over a 4-slot tick's 4 x 1,500
+# encoder rows (every decode step projects them anew) and its decode
+# ffn.up (384x1536) and down (1536x384)
+ENCODER_SHAPES = [
+    (4, 2048, 2048),
+    (4, 2048, 1024),
+    (4, 2048, 8192),
+    (4, 8192, 2048),
+    (320, 2048, 8192),
+    (6000, 384, 384),
+    (4, 384, 1536),
+    (4, 1536, 384),
+]
+K1_ONLY_SHAPES = (BERT_K1_SHAPES + [(128, 5376, 21504)] + DEEPSEEK_SHAPES + RECURRENT_SHAPES
+                  + ENCODER_SHAPES)
 
 
 def _copies(nbytes: int) -> int:
@@ -609,12 +655,13 @@ def make_requests(Request, vocab: int, n: int = 8, seed: int = 0, lo: int = 32, 
     ]
 
 
-def greedy_steps(Z, cfg, params, prompt, n_decode: int, device, tokens=None):
-    """Prefill ``prompt`` then ``n_decode`` decode steps at batch 1; feeds
-    ``tokens`` when given (teacher forcing), else its own greedy choices.
-    Returns (logits per step, tokens fed)."""
+def greedy_steps(Z, cfg, params, prompt, n_decode: int, device, tokens=None, frontend=None):
+    """Prefill ``prompt`` (with ``frontend``, where given) then ``n_decode``
+    decode steps at batch 1; feeds ``tokens`` when given (teacher
+    forcing), else its own greedy choices.  Returns (logits per step,
+    tokens fed)."""
     cache = Z.init_cache(1, 512, cfg, device=device)
-    logits, cache = Z.prefill(params, torch.as_tensor(prompt[None], device=device), cfg, cache)
+    logits, cache = Z.prefill(params, torch.as_tensor(prompt[None], device=device), cfg, cache, frontend)
     out, fed = [logits.float().cpu()], []
     for i in range(n_decode):
         tok = int(out[-1].argmax()) if tokens is None else tokens[i]
@@ -627,28 +674,58 @@ def greedy_steps(Z, cfg, params, prompt, n_decode: int, device, tokens=None):
 KERNEL_NAMES = ("binary_qmm", "fused_qmm", "popcount_qmm", "bitserial_qmm")
 
 
+# The trace drops the device operations of a window's first moments, and
+# more of them the longer the process has run: by phase 10 it lost the
+# first ~0.5 ms, 26 operations of an eager tick, 248 of a replayed prefill
+# (measured with spin kernels, ``torch.cuda._sleep``, at both edges of the
+# window: those at the start went, those at the end stayed).  So each
+# profile opens with PROFILE_MARGIN spin kernels and PROFILE_MARGIN_S of
+# idle time before the work, closes with PROFILE_MARGIN spin kernels, and
+# counts neither; a trace that lost some of them is logged.
+PROFILE_MARGIN = 64
+PROFILE_MARGIN_S = 0.05
+_MARGIN_NAME = "spin_kernel"
+
+
+def _spin_kernels() -> None:
+    for _ in range(PROFILE_MARGIN):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
 def profile_forward(fn):
     """Run ``fn`` once under ``torch.profiler`` (CPU + CUDA activities).
     Returns (wall ms, device-busy ms, device operations, {kernel: device
     ms}, {kernel: launches}, device span ms) summed over the CUDA events
     (kernels, memsets and copies, whether launched one by one or by a graph
     replay); the span runs from the first device operation's start to the
-    last one's end (None where the trace gives no device timestamps)."""
+    last one's end (None where the trace gives no device timestamps).  The
+    margins before and after ``fn`` are not counted (``PROFILE_MARGIN``)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _spin_kernels()
+        time.sleep(PROFILE_MARGIN_S)
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
+        _spin_kernels()
     by_kernel, counts = {}, {}
+    cuda = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spins = sorted(e.time_range.start for e in cuda if _MARGIN_NAME in e.name)
+    work = [e for e in cuda if _MARGIN_NAME not in e.name]
+    if len(spins) != 2 * PROFILE_MARGIN:
+        first = min((e.time_range.start for e in work), default=None)
+        before = sum(x < first for x in spins) if first is not None else 0
+        log(f"  (the trace holds {len(spins)} of the profile's {2 * PROFILE_MARGIN} margin spin "
+            f"kernels, {before} of them before the work)")
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if e.device_type == torch.autograd.DeviceType.CUDA and _MARGIN_NAME not in e.key:
             by_kernel[e.key] = by_kernel.get(e.key, 0.0) + e.self_device_time_total / 1e3
             counts[e.key] = counts.get(e.key, 0) + e.count
-    ranges = [(e.time_range.start, e.time_range.end) for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    ranges = [(e.time_range.start, e.time_range.end) for e in work]
     span = (max(r[1] for r in ranges) - min(r[0] for r in ranges)) / 1e3 if ranges else None
     return wall, sum(by_kernel.values()), sum(counts.values()), by_kernel, counts, span
 
@@ -763,7 +840,8 @@ def graph_vs_eager(Z, make_decode_step, cfg, params, cache, max_len: int, tokens
     and each profiled once.  The capturing call goes through ``kernel``'s
     wrapper 2 x ``per_forward`` times (warm-up run, capture) and a replay
     not at all; the profiled replay must run ``kernel`` ``per_forward``
-    times on the device.  Returns that device count."""
+    times on the device.  Returns that device count and the replay's
+    device busy ms (``replay_launches``, ``replay_busy_ms``)."""
     eager, graphed = Z.cache_copy(cache), Z.cache_copy(cache)
     step = make_decode_step(cfg, tokens.shape[0], max_len, device=tokens.device)
     tok, calls = tokens, []
@@ -804,7 +882,7 @@ def graph_vs_eager(Z, make_decode_step, cfg, params, cache, max_len: int, tokens
         f"time a call; {kernel.__name__} {on_device} times in the profiled replay")
     del step, eager, graphed
     torch.cuda.empty_cache()
-    return on_device
+    return dict(replay_launches=on_device, replay_busy_ms=prof[1])
 
 
 def fill_cache(Z, cfg, params, prompts, device, max_len: int = 512):
@@ -913,8 +991,8 @@ def serve_bitbert(Z, cfg_a1, device, Request, ServeEngine, serve_sequential, mak
 
     cache = fill_cache(Z, cfg, params, [r.prompt for r in done[:4]], device)
     step = torch.tensor([r.output[0] for r in done[:4]], device=device)
-    path["replay_launches"] = graph_vs_eager(Z, make_decode_step, cfg, params, cache, 512, step, kernels[2],
-                                           per_forward, phase=5, tag="W1A1 decode tick (4 slots)")
+    path.update(graph_vs_eager(Z, make_decode_step, cfg, params, cache, 512, step, kernels[2],
+                               per_forward, phase=5, tag="W1A1 decode tick (4 slots)"))
     del cache
     path["prefill_replay_launches"] = compiled_prefill(Z, make_prefill, cfg, params, kernels[2],
                                                      per_forward, device)
@@ -971,63 +1049,70 @@ def serve_bitbert(Z, cfg_a1, device, Request, ServeEngine, serve_sequential, mak
 
 
 def compiled_prefill(Z, make_prefill, cfg, params, kernel, per_forward: int, device,
-                     prompt_len: int = 128) -> int:
-    """The paper's metric, one ``prompt_len``-token forward: ``make_prefill``
-    (one capture, then replays on the same cache, reset between them)
-    against the eager prefill of the same tokens, logits and cache bitwise
-    equal; both timed and profiled.  The capturing call goes through
-    ``kernel``'s wrapper 2 x ``per_forward`` times, a replay not at all.
-    Returns ``kernel``'s device launches in the profiled replay."""
-    max_len = 512
-    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, size=(1, prompt_len)))
-    fn = make_prefill(cfg, 1, prompt_len, max_len, device=device)
-    cache = Z.init_cache(1, max_len, cfg, device=device)
+                     prompt_len: int = 128, batch: int = 1, max_len: int = 512, frontends=None,
+                     phase: int = 5, tag: str = "") -> int:
+    """One ``prompt_len``-token forward of ``batch`` rows (bit-bert's is the
+    paper's metric): ``make_prefill`` (one capture, then replays on the
+    same cache, reset between them) against the eager prefill of the same
+    tokens, logits and cache bitwise equal; both timed and profiled.
+    ``frontends``, where the model takes one, holds a frontend for each of
+    the three calls (capture, two replays), each call held to the eager
+    prefill on its own.  The capturing call goes through ``kernel``'s
+    wrapper 2 x ``per_forward`` times, a replay not at all.  Returns
+    ``kernel``'s device launches in the profiled replay."""
+    tag = tag or f"{prompt_len}-token prefill"
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, size=(batch, prompt_len)))
+    fn = make_prefill(cfg, batch, prompt_len, max_len, device=device)
+    cache = Z.init_cache(batch, max_len, cfg, device=device)
+
+    def extra(i):
+        return () if frontends is None else (frontends[i],)
 
     def fresh():  # an empty cache for the eager prefill, reset in place for the compiled one
-        Z.cache_reset(cache, 0, cfg, max_len)
-        return Z.init_cache(1, max_len, cfg, device=device)
+        for row in range(batch):
+            Z.cache_reset(cache, row, cfg, max_len)
+        return Z.init_cache(batch, max_len, cfg, device=device)
 
-    def eager(empty):
-        return Z.prefill(params, tokens.to(device), cfg, empty)
+    def eager(empty, i=2):
+        return Z.prefill(params, tokens.to(device), cfg, empty, *extra(i))
 
-    def compiled(_):
-        return fn(params, tokens, cache)
+    def compiled(i=2):
+        return fn(params, tokens, cache, *extra(i))
 
-    want, want_cache = eager(fresh())
     calls = []
     for i in range(3):  # the capture (its warm-up run is the result), then replays
-        fresh()
+        want, want_cache = eager(fresh(), i)
         before = kernel.launches
         torch.cuda.synchronize()
         t = time.perf_counter()
-        got, _ = compiled(None)
+        got, _ = compiled(i)
         torch.cuda.synchronize()
         if i == 0:
             capture_ms = (time.perf_counter() - t) * 1e3
         calls.append(kernel.launches - before)
         if not torch.equal(got, want) or not Z.caches_equal(cache, want_cache):
-            raise AssertionError(f"{prompt_len}-token make_prefill call {i} not bitwise equal to the eager prefill")
-    if not bool(torch.isfinite(got).all()) or got.shape != (1, cfg.vocab_size):
-        raise AssertionError("compiled prefill logits not finite or of the wrong shape")
+            raise AssertionError(f"{tag}: make_prefill call {i} not bitwise equal to the eager prefill")
+    if not bool(torch.isfinite(got).all()) or got.shape != (batch, cfg.vocab_size):
+        raise AssertionError(f"{tag}: compiled prefill logits not finite or of the wrong shape")
     if (fn.captures, fn.replays) != (1, 2) or calls != [2 * per_forward, 0, 0]:
-        raise AssertionError(f"make_prefill: {fn.captures} captures, {fn.replays} replays, "
+        raise AssertionError(f"{tag}: make_prefill {fn.captures} captures, {fn.replays} replays, "
                              f"{kernel.__name__} wrapper calls per call {calls}")
-    log(f"[5] {prompt_len}-token make_prefill: 1 capture + 2 replays, logits and cache bitwise equal "
-        f"to the eager prefill of the same tokens; {kernel.__name__} wrapper calls per call {calls}")
-    log_capture(5, f"{prompt_len}-token prefill", fn, capture_ms)
+    inputs = "tokens" if frontends is None else "tokens, each call its own frontend"
+    log(f"[{phase}] {tag} through make_prefill: 1 capture + 2 replays, logits and cache bitwise equal "
+        f"to the eager prefill of the same {inputs}; {kernel.__name__} wrapper calls per call {calls}")
+    log_capture(phase, tag, fn, capture_ms)
     eager_ms = wall_ms(eager, setup=fresh)
-    replay_ms, span, launch = replay_times(lambda: compiled(None), fn, reps=REPLAY_REPS, setup=fresh)
+    replay_ms, span, launch = replay_times(lambda: compiled(), fn, reps=REPLAY_REPS, setup=fresh)
     empty = fresh()
-    report_profile(f"{prompt_len}-token prefill, eager", *profile_forward(lambda: eager(empty)),
-                   phase=5, wall_ms=eager_ms)
+    report_profile(f"{tag}, eager", *profile_forward(lambda: eager(empty)), phase=phase, wall_ms=eager_ms)
     fresh()
-    prof = profile_forward(lambda: compiled(None))
-    report_profile(f"{prompt_len}-token prefill, replayed", *prof, phase=5, wall_ms=replay_ms)
+    prof = profile_forward(lambda: compiled())
+    report_profile(f"{tag}, replayed", *prof, phase=phase, wall_ms=replay_ms)
     on_device = ours(prof[4])[kernel.__name__]
     if on_device != per_forward:
-        raise AssertionError(f"{prompt_len}-token prefill: {kernel.__name__} {on_device} times in the "
-                             f"profiled replay, expected {per_forward}")
-    log(f"[5] {prompt_len}-token prefill wall: eager {eager_ms:.2f} ms, replayed {replay_ms:.2f} ms "
+        raise AssertionError(f"{tag}: {kernel.__name__} {on_device} times in the profiled replay, "
+                             f"expected {per_forward}")
+    log(f"[{phase}] {tag} wall: eager {eager_ms:.2f} ms, replayed {replay_ms:.2f} ms "
         f"(x{eager_ms / replay_ms:.1f}; cache set up outside the timed call); a bare graph replay "
         f"spans {span:.2f} ms on the card (its launch {launch:.2f} ms of host time), device busy "
         f"{prof[1]:.2f} ms; {kernel.__name__} {on_device} times in the profiled replay")
@@ -1182,9 +1267,9 @@ def serve_gemma3(Z, model_cfg, device, Request, ServeEngine, serve_sequential, m
     cache = fill_cache(Z, cfg, params, [rng.integers(0, cfg.vocab_size, size=(n,)) for n in GEMMA3_TICK_PROMPTS],
                        device, max_len=max_len)
     step = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(len(GEMMA3_TICK_PROMPTS),))).to(device)
-    path["replay_launches"] = graph_vs_eager(
+    path.update(graph_vs_eager(
         Z, make_decode_step, cfg, params, cache, max_len, step, k1, per_forward, phase=7,
-        tag=f"gemma3 pallas decode tick (4 slots at positions {', '.join(map(str, GEMMA3_TICK_PROMPTS))})")
+        tag=f"gemma3 pallas decode tick (4 slots at positions {', '.join(map(str, GEMMA3_TICK_PROMPTS))})"))
     del cache, params
     torch.cuda.empty_cache()
     return path
@@ -1349,9 +1434,9 @@ def serve_deepseek(Z, model_cfg, device, Request, ServeEngine, make_decode_step,
     cache = fill_cache(Z, cfg, params, [rng.integers(0, cfg.vocab_size, size=(n,)) for n in DEEPSEEK_TICK_PROMPTS],
                        device, max_len=max_len)
     step = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(len(DEEPSEEK_TICK_PROMPTS),))).to(device)
-    path["replay_launches"] = graph_vs_eager(
+    path.update(graph_vs_eager(
         Z, make_decode_step, cfg, params, cache, max_len, step, k1, per_decode, phase=8,
-        tag=f"deepseek pallas decode tick (4 slots at positions {', '.join(map(str, DEEPSEEK_TICK_PROMPTS))})")
+        tag=f"deepseek pallas decode tick (4 slots at positions {', '.join(map(str, DEEPSEEK_TICK_PROMPTS))})"))
     path["expert_loop"] = expert_rows
     del cache, params
     torch.cuda.empty_cache()
@@ -1472,10 +1557,274 @@ def serve_recurrent(Z, model_cfg, device, Request, ServeEngine, serve_sequential
     cache = fill_cache(Z, cfg, params, [rng.integers(0, cfg.vocab_size, size=(n,)) for n in tick_prompts],
                        device, max_len=max_len)
     step = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(len(tick_prompts),))).to(device)
-    path["replay_launches"] = graph_vs_eager(
+    path.update(graph_vs_eager(
         Z, make_decode_step, cfg, params, cache, max_len, step, k1, per_forward, phase=9,
-        tag=f"{cfg.name} pallas decode tick (4 slots at positions {', '.join(map(str, tick_prompts))})")
+        tag=f"{cfg.name} pallas decode tick (4 slots at positions {', '.join(map(str, tick_prompts))})"))
     del cache, params
+    torch.cuda.empty_cache()
+    return path
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the encoder families -- internvl2-2b (patch stub) and
+# whisper-tiny (audio encoder + cross-attention)
+# ---------------------------------------------------------------------------
+
+INTERNVL_MAX_LEN = 1024
+INTERNVL_TEXT = 64  # text tokens after an image's patch positions
+WHISPER_MAX_LEN = 448  # the decoder's learned positions
+WHISPER_BATCH = 4
+WHISPER_PROMPT = 4  # Whisper's start-of-transcript sequence: <sot> <lang> <task> <notimestamps>
+WHISPER_STEPS = 32
+# K1 sites a layer: attention q / k / v / o; cross-attention q / k / v / o;
+# whisper's plain gelu FFN up / down
+WHISPER_DECODER_SITES, WHISPER_ENCODER_SITES = 4 + 4 + 2, 4 + 2
+
+
+def _frontends(cfg, batch: int, n: int, seed: int, device) -> list:
+    """``n`` stub frontends (batch, n_positions, d_input or d_model), float32
+    normal, from ``seed``."""
+    enc = cfg.encoder
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    shape = (batch, enc.n_positions, enc.d_input or cfg.d_model)
+    return [torch.randn(shape, generator=gen, device=device) for _ in range(n)]
+
+
+def serve_internvl(Z, model_cfg, device, Request, ServeEngine, serve_sequential, make_decode_step,
+                   make_prefill, ops, ref, kernels, smi: str) -> dict:
+    """internvl2-2b at full width and depth on the ``pallas`` backend (K1 at
+    every binary site): an image prompt through ``make_prefill`` and greedy
+    decode steps, held to the eager prefill and to K1's plain version; then
+    the engine, text only, held to ``serve_sequential`` and its replayed
+    tick to the eager one.  Returns K1's numbers on this path."""
+    cfg = with_backend(model_cfg, "pallas")
+    k1, enc = kernels[0], cfg.encoder
+    per_forward = SITES_PER_LAYER * cfg.n_layers
+    t = time.perf_counter()
+    params = Z.init_serving_params(0, cfg, device=device)
+    torch.cuda.synchronize()
+    log(f"[10] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads / "
+        f"{cfg.n_kv_heads} kv of {cfg.d_head}, d_ff {cfg.d_ff} ({cfg.ffn_type}), rope {cfg.rope_theta:g}, "
+        f"vocab {cfg.vocab_size}, tied={cfg.tie_embeddings}; {enc.kind} of {enc.n_positions} x "
+        f"{enc.d_input} (a float32 stub projection, run in bf16); serving params built on the card in "
+        f"{time.perf_counter() - t:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; K1 "
+        f"launches a forward: {per_forward} | {smi}")
+
+    # the image prompt: patches over the first positions, then text
+    plen = enc.n_positions + INTERNVL_TEXT
+    frontends = _frontends(cfg, 1, 3, 10, device)
+    prompt = np.random.default_rng(10).integers(0, cfg.vocab_size, size=(plen,))
+    kern, fed = greedy_steps(Z, cfg, params, prompt, 8, device, frontend=frontends[0])
+    with mock.patch.object(ops._bq, "binary_qmm", ref.binary_qmm_ref):
+        plain, _ = greedy_steps(Z, cfg, params, prompt, 8, device, tokens=fed, frontend=frontends[0])
+    if not all(torch.equal(a, b) for a, b in zip(kern, plain)):
+        raise AssertionError("internvl2 logits differ with K1 swapped for its plain version")
+    if not all(bool(torch.isfinite(x).all()) and x.shape == (1, cfg.vocab_size) for x in kern):
+        raise AssertionError("internvl2 logits not finite or of the wrong shape")
+    text, _ = greedy_steps(Z, cfg, params, prompt, 0, device)
+    if torch.equal(text[0], kern[0]):
+        raise AssertionError("internvl2: the patches did not change the prefill's logits")
+    log(f"[10] image prompt ({enc.n_positions} patch positions + {INTERNVL_TEXT} tokens) + 8 greedy decode "
+        f"steps {fed}: logits bitwise equal with binary_qmm swapped for binary_qmm_ref on the same "
+        f"tensors; the patches change the prefill's logits (max |diff| against the text-only prefill "
+        f"{float((text[0] - kern[0]).abs().max()):.3g})")
+    path = dict(prefill_replay_launches=compiled_prefill(
+        Z, make_prefill, cfg, params, k1, per_forward, device, prompt_len=plen, max_len=INTERNVL_MAX_LEN,
+        frontends=frontends, phase=10, tag=f"internvl2 image prefill ({plen} tokens)"))
+
+    # the engine, text only (as the reference's serves this arch)
+    engine = ServeEngine(cfg, params, batch_slots=4, max_len=INTERNVL_MAX_LEN, seed=0, device=device)
+    torch.cuda.synchronize()
+    reqs = make_requests(Request, vocab=cfg.vocab_size)
+    _zero(kernels)
+    t = time.perf_counter()
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launched = _counts(kernels)
+    if not all(r.state == "ok" and len(r.output) == 16 for r in done):
+        raise AssertionError(f"internvl2 requests not ok: {[(r.state, len(r.output)) for r in done]}")
+    prefill_ms = [e["ms"] for e in engine.last_events if e["kind"] == "prefill"]
+    n_tok = sum(len(r.output) for r in done)
+    plens = [len(r.prompt) for r in done]
+    log(f"[10] internvl2 engine (text only): served {len(done)} requests (prompts {sorted(plens)} tokens, "
+        f"16 new each, 6 greedy + 2 at T=0.8, 4 slots, max_len {INTERNVL_MAX_LEN}) in {wall:.2f} s: "
+        f"{n_tok / wall:.1f} generated tokens/s end to end; eager exact-length prefills "
+        f"{sum(prefill_ms) / 1e3:.2f} s of it")
+    engine_counts(engine, kernels, launched, per_forward, k1, phase=10)
+    path.update(launches=launched[0], replays=engine.decode_fn.replays)
+    log("[10] prefill ms per prompt: " + ", ".join(f"{p}:{ms:.1f}" for p, ms in zip(plens, prefill_ms)))
+    del engine
+    torch.cuda.empty_cache()
+    long = max(done, key=lambda r: len(r.prompt))
+    tokens = torch.as_tensor(np.asarray(long.prompt)[None], device=device)
+    report_profile(f"internvl2 eager prefill ({len(long.prompt)} tokens)", *profile_forward(
+        lambda: Z.prefill(params, tokens, cfg, Z.init_slot_cache(INTERNVL_MAX_LEN, cfg, device=device))),
+        phase=10)
+
+    seq = serve_sequential(cfg, params, make_requests(Request, vocab=cfg.vocab_size),
+                           max_len=INTERNVL_MAX_LEN, seed=0, device=device)
+    for got, want in zip(done, seq):
+        if got.temperature == 0 and got.output != want.output:
+            raise AssertionError(f"internvl2 engine greedy tokens {got.output} != sequential {want.output}")
+    sampled_same = sum(g.output == w.output for g, w in zip(done, seq) if g.temperature > 0)
+    log(f"[10] internvl2 engine greedy tokens equal serve_sequential for all 6 greedy requests "
+        f"(sampled requests equal: {sampled_same}/2)")
+    cache = fill_cache(Z, cfg, params, [r.prompt for r in done[:4]], device, max_len=INTERNVL_MAX_LEN)
+    step = torch.tensor([r.output[0] for r in done[:4]], device=device)
+    path.update(graph_vs_eager(Z, make_decode_step, cfg, params, cache, INTERNVL_MAX_LEN, step, k1,
+                               per_forward, phase=10, tag="internvl2 pallas decode tick (4 slots)"))
+    del cache, params, seq, done
+    torch.cuda.empty_cache()
+    return path
+
+
+def serve_whisper(Z, model_cfg, device, ServeEngine, make_decode_step, make_prefill, ops, ref,
+                  kernels, smi: str) -> dict:
+    """whisper-tiny at full width and depth on the ``pallas`` backend (K1 at
+    every binary site): a batch-4 transcription through ``make_prefill``
+    (stub frames through the encoder) and a replayed ``make_decode_step``
+    (cross-attention onto the cached encoder output); the compiled steps
+    held to the eager ones and K1 to its plain version.  Returns K1's
+    numbers on this path."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+
+    cfg = with_backend(model_cfg, "pallas")
+    k1, enc = kernels[0], cfg.encoder
+    b, max_len = WHISPER_BATCH, WHISPER_MAX_LEN
+    per_decode = WHISPER_DECODER_SITES * cfg.n_layers
+    per_prefill = per_decode + WHISPER_ENCODER_SITES * enc.n_layers
+    t = time.perf_counter()
+    params = Z.init_serving_params(0, cfg, device=device)
+    torch.cuda.synchronize()
+    log(f"[10] {cfg.name}: {enc.n_layers} encoder layers over {enc.n_positions} stub frames (sinusoidal "
+        f"positions, non-causal, stateless) + {cfg.n_layers} decoder layers (learned positions up to "
+        f"{cfg.max_seq}, cross-attention onto the encoder's output); d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads of {cfg.d_head}, d_ff {cfg.d_ff} ({cfg.ffn_type}), vocab {cfg.vocab_size}, "
+        f"tied={cfg.tie_embeddings}; serving params built on the card in {time.perf_counter() - t:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; K1 launches: {per_prefill} a prefill, "
+        f"{per_decode} a decode step | {smi}")
+    try:
+        ServeEngine(cfg, params, batch_slots=b, max_len=max_len, device=device)
+    except NotImplementedError as e:
+        log(f"[10] ServeEngine refuses {cfg.name}, as the reference's does: {e}")
+    else:
+        raise AssertionError("ServeEngine accepted a model with an encoder stack")
+
+    rng = np.random.default_rng(11)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(b, WHISPER_PROMPT))).to(device)
+    frontends = _frontends(cfg, b, 4, 11, device)
+
+    def eager_steps(frontend, n_decode: int, tokens=None):
+        """An eager prefill and ``n_decode`` decode steps, greedy or fed
+        ``tokens``; returns (logits per step, tokens fed, cache)."""
+        cache = Z.init_cache(b, max_len, cfg, device=device)
+        logits, _ = Z.prefill(params, prompt, cfg, cache, frontend)
+        out, fed = [logits], []
+        for i in range(n_decode):
+            tok = out[-1].argmax(-1) if tokens is None else tokens[i]
+            fed.append(tok)
+            logits, _ = Z.decode_step(params, tok, cfg, cache)
+            out.append(logits)
+        return out, fed, cache
+
+    # K1 against its plain version in a prefill and a decode step; K1's
+    # calls counted by their M (also the phase's warm-up)
+    rows_m = []
+    real = ops.binary_qmm_int
+
+    def recording(a, *args):
+        rows_m.append(a.shape[0])
+        return real(a, *args)
+
+    with mock.patch.object(ops, "binary_qmm_int", recording):
+        kern, fed, _ = eager_steps(frontends[0], 1)
+    n_pre = len(rows_m) - per_decode
+    m_cross = sum(m == b * enc.n_positions for m in rows_m[n_pre:])
+    if n_pre != per_prefill or m_cross != 2 * cfg.n_layers:
+        raise AssertionError(f"whisper K1 calls {n_pre} a prefill, {len(rows_m) - n_pre} a decode step, "
+                             f"{m_cross} at M = {b * enc.n_positions}")
+    with mock.patch.object(ops._bq, "binary_qmm", ref.binary_qmm_ref):
+        plain, _, _ = eager_steps(frontends[0], 1, tokens=fed)
+    if not all(torch.equal(a, b_) for a, b_ in zip(kern, plain)):
+        raise AssertionError("whisper logits differ with K1 swapped for its plain version")
+    if not all(bool(torch.isfinite(x).all()) and x.shape == (b, cfg.vocab_size) for x in kern):
+        raise AssertionError("whisper logits not finite or of the wrong shape")
+    log(f"[10] whisper prefill ({b} x {WHISPER_PROMPT} tokens, {b} x {enc.n_positions} frames) + decode "
+        f"step: binary_qmm calls {n_pre} + {len(rows_m) - n_pre}, {m_cross} of the decode step's at "
+        f"M = {b * enc.n_positions} (cross-attention k / v); logits bitwise equal with binary_qmm "
+        f"swapped for binary_qmm_ref on the same tensors")
+
+    # the transcription: a captured prefill, then greedy replayed decode steps
+    pre = make_prefill(cfg, b, WHISPER_PROMPT, max_len, device=device)
+    dec = make_decode_step(cfg, b, max_len, device=device)
+    cache = Z.init_cache(b, max_len, cfg, device=device)
+    torch.cuda.synchronize()
+    _zero(kernels)
+    t = time.perf_counter()
+    logits, _ = pre(params, prompt, cache, frontends[1])
+    tokens = [logits.argmax(-1)]
+    for _ in range(WHISPER_STEPS):
+        logits, _ = dec(params, tokens[-1], cache)
+        tokens.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launched = _counts(kernels)
+    want = [2 * (per_prefill + per_decode), 0, 0, 0]
+    if launched != want or (pre.captures, dec.captures, dec.replays) != (1, 1, WHISPER_STEPS - 1):
+        raise AssertionError(f"whisper transcription launches {launched}, expected {want}; "
+                             f"{pre.captures} / {dec.captures} captures, {dec.replays} replays")
+    if not bool(torch.isfinite(logits).all()) or logits.shape != (b, cfg.vocab_size):
+        raise AssertionError("whisper transcription logits not finite or of the wrong shape")
+    path = dict(launches=launched[0], replays=dec.replays)
+    log(f"[10] whisper transcription: make_prefill (capture) + {WHISPER_STEPS} greedy make_decode_step "
+        f"calls (1 capture + {dec.replays} replays) in {wall * 1e3:.1f} ms, {b * (WHISPER_STEPS + 1)} tokens; "
+        f"binary_qmm wrapper launches {launched[0]} = 2 x ({per_prefill} + {per_decode}) for the two "
+        f"captures (warm-up run + capture), replays call none; row 0's tokens "
+        f"{[int(x[0]) for x in tokens[:12]]}...")
+    del pre, dec, cache
+    torch.cuda.empty_cache()
+
+    path["prefill_replay_launches"] = compiled_prefill(
+        Z, make_prefill, cfg, params, k1, per_prefill, device, prompt_len=WHISPER_PROMPT, batch=b,
+        max_len=max_len, frontends=frontends[1:], phase=10,
+        tag=f"whisper prefill ({b} x {WHISPER_PROMPT} tokens + {enc.n_positions} frames)")
+    first, _, cache = eager_steps(frontends[2], 0)
+    path.update(graph_vs_eager(Z, make_decode_step, cfg, params, cache, max_len, first[0].argmax(-1), k1, per_decode,
+                               phase=10, tag=f"whisper pallas decode step ({b} rows)", n_ticks=WHISPER_STEPS))
+
+    # the cross-attention's share of the replayed tick: its k / v
+    # projections over every encoder row, and its float core, each alone
+    enc_out = cache["encoder_out"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(12)
+    q = torch.randn((b, 1, cfg.n_heads, cfg.d_head), generator=gen, device=device).to(torch.bfloat16)
+    layers = [p["cross_attn"] for p in params["layers"]]
+    kv = [tuple(L.qlinear(p[s], enc_out, cfg.quant).reshape(b, enc.n_positions, cfg.n_kv_heads, cfg.d_head)
+                for s in ("k", "v")) for p in layers]
+    sqrt_dh = torch.sqrt(torch.tensor(float(cfg.d_head), device=device))
+    mask = A._mask(1, enc.n_positions, False, 0, device)
+
+    def projections():
+        for p in layers:
+            L.qlinear(p["k"], enc_out, cfg.quant)
+            L.qlinear(p["v"], enc_out, cfg.quant)
+
+    def float_core():
+        for ck, cv in kv:
+            A._pv_float(L.softmax(A._scores_float(q, ck) / sqrt_dh + mask), cv, torch.bfloat16)
+
+    kv_ms, core_ms = device_ms([projections], 10), device_ms([float_core], 10)
+    busy = path["replay_busy_ms"]
+    log(f"[10] whisper decode step, each alone in a replayed graph: the cross-attention k / v projections "
+        f"({2 * cfg.n_layers} binary_qmm at M = {b * enc.n_positions}, with their per-token quantization and "
+        f"epilogue) {kv_ms:.3f} ms ({kv_ms / busy:.1%} of the replayed step's {busy:.3f} ms busy); the "
+        f"float cross-attention (float32 scores over {enc.n_positions} rows, softmax, bf16 P.V; "
+        f"{cfg.n_layers} layers) {core_ms:.3f} ms ({core_ms / busy:.1%})")
+    path.update(cross_kv_ms=kv_ms, cross_float_ms=core_ms)
+    del cache, params, kv
     torch.cuda.empty_cache()
     return path
 
@@ -1488,10 +1837,12 @@ def main() -> int:
 
     return run(torch.device("cuda", 0), get_config("granite-8b"), get_config("bit-bert-base"),
                get_config("gemma3-27b"), get_config("deepseek-v2-lite-16b"),
-               (get_config("recurrentgemma-2b"), get_config("mamba2-130m")))
+               (get_config("recurrentgemma-2b"), get_config("mamba2-130m")),
+               (get_config("internvl2-2b"), get_config("whisper-tiny")))
 
 
-def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg, recurrent_cfgs) -> int:
+def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg, recurrent_cfgs,
+        encoder_cfgs) -> int:
     from repro_torch.kernels import binary_qmm as K1
     from repro_torch.kernels import bitserial_qmm as K4
     from repro_torch.kernels import build, ref
@@ -1578,8 +1929,8 @@ def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg, rec
     # (eager, exact-length) prefill, profiled
     cache = fill_cache(Z, cfg, params, [r.prompt for r in done[:4]], device)
     step = torch.tensor([r.output[0] for r in done[:4]], device=device)
-    k1["replay_launches"] = graph_vs_eager(Z, make_decode_step, cfg, params, cache, 512, step, K1.binary_qmm,
-                                           per_forward, phase=3, tag="pallas decode tick (4 slots)")
+    k1.update(graph_vs_eager(Z, make_decode_step, cfg, params, cache, 512, step, K1.binary_qmm,
+                             per_forward, phase=3, tag="pallas decode tick (4 slots)"))
     long = max(done, key=lambda r: len(r.prompt))
     tokens = torch.as_tensor(np.asarray(long.prompt)[None], device=device)
     report_profile(f"eager prefill ({len(long.prompt)} tokens)", *profile_forward(
@@ -1624,8 +1975,8 @@ def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg, rec
         f"argmax equal at {same}/9 steps")
     # where the time goes on the fused backend: the same 4-slot tick, eager
     # and replayed, and prefill that phase 3 profiles for the pallas backend
-    k2["replay_launches"] = graph_vs_eager(Z, make_decode_step, fcfg, params, cache, 512, step, K2.fused_qmm,
-                                           per_forward, phase=4, tag="fused decode tick (4 slots)")
+    k2.update(graph_vs_eager(Z, make_decode_step, fcfg, params, cache, 512, step, K2.fused_qmm,
+                             per_forward, phase=4, tag="fused decode tick (4 slots)"))
     report_profile(f"fused eager prefill ({len(long.prompt)} tokens)", *profile_forward(
         lambda: Z.prefill(params, tokens, fcfg, Z.init_slot_cache(512, fcfg, device=device))), phase=4)
     del cache
@@ -1644,6 +1995,11 @@ def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg, rec
         k1[rcfg.name.split("-")[0]] = serve_recurrent(
             Z, rcfg, device, Request, ServeEngine, serve_sequential, make_decode_step, ops, ref,
             all_kernels, smi)
+    internvl_cfg, whisper_cfg = encoder_cfgs
+    k1["internvl2"] = serve_internvl(Z, internvl_cfg, device, Request, ServeEngine, serve_sequential,
+                                     make_decode_step, make_prefill, ops, ref, all_kernels, smi)
+    k1["whisper"] = serve_whisper(Z, whisper_cfg, device, ServeEngine, make_decode_step, make_prefill,
+                                  ops, ref, all_kernels, smi)
 
     main_path = {"binary_qmm": k1, "fused_qmm": k2, "popcount_qmm": k3, "bitserial_qmm": k4}
     sources = {
@@ -1662,7 +2018,7 @@ def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg, rec
             bound_by=head["bound_by"], library_ms=head["library_ms"], shape=head["shape"],
             shapes=shapes,
         ))
-    log(f"[10] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[11] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,8 +11,10 @@ experts; ``MLAConfig``, ``MoEConfig``) and the recurrent families
 ``"s"``: a Mamba-2 SSD mixer alone, geometry in ``SSMConfig``).  A model
 with no attention layer may set ``pos_embedding="none"`` and
 ``quant.quantize_attention=False`` (mamba2); attention layers still refuse
-a float cache.  The encoder sub-config of the reference is not ported
-yet, so its field is absent here.
+a float cache.  ``EncoderConfig`` describes a stub frontend: precomputed
+patch embeddings spliced over the first positions (internvl2), or frame
+embeddings under a transformer encoder that the decoder cross-attends to
+(whisper).
 """
 
 from __future__ import annotations
@@ -21,7 +23,16 @@ import dataclasses
 import fnmatch
 from typing import Dict, Optional, Tuple
 
-__all__ = ["QuantConfig", "MoEConfig", "MLAConfig", "SSMConfig", "ArchConfig", "register", "get_config"]
+__all__ = [
+    "QuantConfig",
+    "MoEConfig",
+    "MLAConfig",
+    "SSMConfig",
+    "EncoderConfig",
+    "ArchConfig",
+    "register",
+    "get_config",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +136,22 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Stub frontend of the enc-dec (whisper) and VLM (internvl2) archs.
+
+    The caller supplies precomputed frame or patch embeddings ``(batch,
+    n_positions, d_input or d_model)``, projected in by one float linear
+    (``stub_proj``); with ``n_layers`` a non-causal transformer encoder runs
+    on top and the decoder cross-attends to its output.
+    """
+
+    kind: str  # "audio_stub" | "patch_stub"
+    n_positions: int  # 1500 audio frames / vision patches per image
+    n_layers: int = 0  # transformer layers on top of the stub (whisper: 4)
+    d_input: int = 0  # stub embedding dim before projection (0 -> d_model)
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str
@@ -142,13 +169,14 @@ class ArchConfig:
     ffn_type: str = "silu_glu"  # "gelu" | "silu_glu" | "gelu_glu"
     rope_theta: float = 10000.0
     local_rope_theta: float = 0.0  # gemma3 uses a different theta locally
-    pos_embedding: str = "rope"  # "rope" | "learned" | "none" (sinusoidal: not ported)
+    pos_embedding: str = "rope"  # "rope" | "learned" | "sinusoidal" | "none"
     causal: bool = True
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    encoder: Optional[EncoderConfig] = None
     quant: QuantConfig = QuantConfig()
     mtp_depth: int = 0  # deepseek-v3 multi-token prediction heads (training only)
     max_seq: int = 131072

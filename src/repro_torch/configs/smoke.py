@@ -1,14 +1,11 @@
-"""Reduced smoke variants (port of ``repro.configs.smoke``) for CPU tests.
-
-The dense-decoder, MLA, MoE and SSM branches are ported; the reference's
-encoder shrinking has no counterpart until that family is ported.
-"""
+"""Reduced smoke variants (port of ``repro.configs.smoke``) for CPU tests:
+the dense-decoder, MLA, MoE, SSM and encoder branches of the reference."""
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ArchConfig, MLAConfig, MoEConfig, SSMConfig
+from repro_torch.configs.base import ArchConfig, EncoderConfig, MLAConfig, MoEConfig, SSMConfig
 
 
 def smoke_variant(cfg: ArchConfig) -> ArchConfig:
@@ -53,4 +50,11 @@ def smoke_variant(cfg: ArchConfig) -> ArchConfig:
         changes["n_heads"] = (changes["d_model"] * 2) // 16
         changes["n_kv_heads"] = changes["n_heads"]
         changes["d_ff"] = 0
+    if cfg.encoder is not None:
+        changes["encoder"] = EncoderConfig(
+            kind=cfg.encoder.kind,
+            n_positions=12,
+            n_layers=min(cfg.encoder.n_layers, 2),
+            d_input=24 if cfg.encoder.d_input else 0,
+        )
     return dataclasses.replace(cfg, **changes)

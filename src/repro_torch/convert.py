@@ -9,9 +9,12 @@ the port keeps one dict per layer, so the stack is cut apart in
 Leaves are converted bit for bit: ``uint32`` packed words become ``int32``
 tensors holding the same bits (rank-3 stacked experts ``(E, K/32, N)``
 included), ``bfloat16`` arrays keep their bits, and everything else keeps
-its dtype (the float32 MoE router among them).  deepseek-v3's ``mtp``
-subtree is dropped: the multi-token-prediction head serves only the
-reference's training loss, and the port's serving params have none.
+its dtype (the float32 MoE router and a frontend's ``stub_proj`` among
+them).  deepseek-v3's ``mtp`` subtree is dropped: the multi-token-prediction
+head serves only the reference's training loss, and the port's serving
+params have none.  A frontend's ``encoder`` subtree keeps ``stub_proj`` and
+``final_norm``; its scanned encoder ``stack`` (a period of one global
+layer, ``encoder.n_layers`` times) becomes its own ``layers`` list.
 """
 
 from __future__ import annotations
@@ -45,14 +48,26 @@ def _leaves(node, fn):
     return fn(node)
 
 
-def from_reference(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
-    """Reference params (``init_params`` latents or ``prepare_serving_params``
-    output, as numpy) -> the port's ``{"embedding", "final_norm", "layers"}``."""
-    stack = tree["stack"]
+def _unstack(stack: dict, n_periods: int, device) -> list:
+    """A reference stack -> one param dict per layer, prefix layers first,
+    then each period in turn."""
     layers = [_leaves(p, lambda a: to_tensor(a, device)) for p in stack["prefix"]]
-    for i in range(cfg.n_periods):
+    for i in range(n_periods):
         for stacked in stack["period"]:
             layers.append(_leaves(stacked, lambda a: to_tensor(np.asarray(a)[i], device)))
-    out = {k: to_tensor(v, device) for k, v in tree.items() if k not in ("stack", "mtp")}
-    out["layers"] = layers
+    return layers
+
+
+def from_reference(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
+    """Reference params (``init_params`` latents or ``prepare_serving_params``
+    output, as numpy) -> the port's ``{"embedding", "final_norm", "layers"}``
+    (and ``"encoder"``)."""
+    out = {k: to_tensor(v, device) for k, v in tree.items() if k not in ("stack", "mtp", "encoder")}
+    out["layers"] = _unstack(tree["stack"], cfg.n_periods, device)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {k: _leaves(v, lambda a: to_tensor(a, device))
+                          for k, v in enc.items() if k != "stack"}
+        if "stack" in enc:
+            out["encoder"]["layers"] = _unstack(enc["stack"], cfg.encoder.n_layers, device)
     return out

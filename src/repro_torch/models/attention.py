@@ -26,14 +26,22 @@ affines and a bf16 rope key ``k_rope`` (B, L, qk_rope_dim).  Its prefill
 runs the decompressed form (keys and values up-projected from the float
 latent, float scores, the causal mask); its decode runs the absorbed form,
 two act x act integer products against the latent cache with the heads
-folded into M.  Not ported yet: bitwise (binary) scores (a scores-only
-backend name is not in the port's registry), float caches (GQA and
-latent), sinusoidal positions and cross-attention.
+folded into M.
+
+Without a cache (``cache=None``) GQA attention is stateless: the integer
+path over the in-flight keys and values of the whole sequence, nothing
+written (an encoder's self-attention).  Cross-attention passes the
+encoder's keys and values as ``kv_override``: no rope and no cache, float32
+scores and a float P.V in the activation dtype, as the reference computes
+it.  Sinusoidal positions are added at an encoder's input, so attention
+applies rope only for ``"rope"``.  Not ported yet: bitwise (binary) scores
+(a scores-only backend name is not in the port's registry) and float
+caches (GQA and latent).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -81,8 +89,8 @@ def _check_supported(cfg: ArchConfig, kind: str) -> None:
         raise NotImplementedError("only the quantized int8 KV-cache (and latent-cache) path is ported")
     if kind in MLA_KINDS and (cfg.mla is None or cfg.pos_embedding != "rope"):
         raise NotImplementedError(f"{kind!r} layers need cfg.mla and rotary positions")
-    if cfg.pos_embedding not in ("rope", "learned"):
-        raise NotImplementedError("sinusoidal positions are not ported yet")
+    if cfg.pos_embedding not in ("rope", "learned", "sinusoidal"):
+        raise NotImplementedError(f"attention with pos_embedding {cfg.pos_embedding!r}")
 
 
 def cache_rows(max_len: int, cfg: ArchConfig, kind: str) -> int:
@@ -202,6 +210,26 @@ def _pv_int(p_probs, v_mantissa, v_scale, v_offset):
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh)
 
 
+def _scores_float(q, k):
+    """Grouped float32 scores: q (B,S,H,dh) x k (B,T,kvH,dh) -> (B,H,S,T),
+    head ``h`` against kv head ``h // (H / kvH)``."""
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, dh).to(torch.float32)
+    out = torch.einsum("bskgd,btkd->bkgst", qg, k.to(torch.float32))
+    return out.reshape(b, h, s, k.shape[1])
+
+
+def _pv_float(probs, v, dtype):
+    """Grouped context in ``dtype``: probs (B,H,S,T) x v (B,T,kvH,dh) ->
+    (B,S,H,dh)."""
+    b, h, s, t = probs.shape
+    kvh = v.shape[2]
+    pg = probs.reshape(b, kvh, h // kvh, s, t).to(dtype)
+    ctx = torch.einsum("bkgst,btkd->bskgd", pg, v.to(dtype))
+    return ctx.reshape(b, s, h, v.shape[3])
+
+
 def _mask(s_q: int, s_k: int, causal: bool, window: int, device) -> torch.Tensor:
     """(s_q, s_k) additive mask for a prefill starting at position 0; a
     nonzero ``window`` keeps only the last ``window`` positions."""
@@ -260,52 +288,69 @@ def attention(
     cfg: ArchConfig,
     kind: str,
     positions: torch.Tensor,
-    cache: dict,
-) -> Tuple[torch.Tensor, dict]:
-    """One GQA mixer application over the int8 cache.
+    cache: Optional[dict] = None,
+    kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    causal: Optional[bool] = None,
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """One GQA mixer application.
 
-    x: (B, S, D); positions: (B, S) absolute positions.  ``S > 1`` is a
-    prefill from an empty cache; ``S == 1`` a decode step at each row's own
-    cursor.  Prefill attends causally unless ``cfg.causal`` is False (an
-    encoder such as bit-bert-base); a decode step attends to every cached
-    position up to its own.  ``kind`` ``"l"`` limits both to the last
-    ``cfg.window_size`` positions.  Returns (out (B, S, D), cache), the
-    cache updated in place.
+    x: (B, S, D); positions: (B, S) absolute positions.  With a cache,
+    ``S > 1`` is a prefill from an empty cache and ``S == 1`` a decode step
+    at each row's own cursor, which attends to every cached position up to
+    its own.  With ``cache=None`` the whole sequence attends over its own
+    keys and values and nothing is stored.  A prefill or stateless pass is
+    causal as ``causal`` says (default ``cfg.causal``); ``kind`` ``"l"``
+    limits attention to the last ``cfg.window_size`` positions.
+
+    ``kv_override=(k, v)``, each (B, T, kvH, dh), is cross-attention onto
+    an encoder's T rows: float scores and context, no rope, no cache.
+    Returns (out (B, S, D), cache), the cache updated in place.
     """
     _check_supported(cfg, kind)
     quant = cfg.quant
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     b, s, _ = x.shape
     bits = quant.attn_act_bits
+    causal = cfg.causal if causal is None else causal
     window = cfg.window_size if kind == "l" else 0
 
     q = L.qlinear(p["q"], x, quant, name="attn.q").reshape(b, s, h, dh)
-    k = L.qlinear(p["k"], x, quant, name="attn.k").reshape(b, s, kvh, dh)
-    v = L.qlinear(p["v"], x, quant, name="attn.v").reshape(b, s, kvh, dh)
+    if kv_override is None:
+        k = L.qlinear(p["k"], x, quant, name="attn.k").reshape(b, s, kvh, dh)
+        v = L.qlinear(p["v"], x, quant, name="attn.v").reshape(b, s, kvh, dh)
+    else:
+        k, v = kv_override
     if cfg.qk_norm:
         q = L.rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        k = L.rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    if cfg.pos_embedding == "rope":  # learned positions were added to x at the embedding
+        if kv_override is None:
+            k = L.rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    # learned and sinusoidal positions were added to x at the input
+    if cfg.pos_embedding == "rope" and kv_override is None:
         theta = cfg.local_rope_theta if kind == "l" and cfg.local_rope_theta else cfg.rope_theta
         q = L.rope(q, positions, theta)
         k = L.rope(k, positions, theta)
     sqrt_dh = torch.sqrt(scalar(float(dh), torch.float32, x.device))
-    # a local layer's cache is a ring when it holds exactly the window
-    cache_len = cache["k"].shape[1]
-    windowed = kind == "l" and 0 < cfg.window_size == cache_len
 
-    if s > 1:
+    if kv_override is not None:
+        scores = _scores_float(q, k) / sqrt_dh + _mask(s, k.shape[1], causal, window, x.device)
+        ctx = _pv_float(L.softmax(scores), v, x.dtype)
+    elif s > 1 or cache is None:
         k_sc, k_off = _calibrate_rows(k)
         v_sc, v_off = _calibrate_rows(v)
         k_m = _quantize_to_cache(k, k_sc, k_off)
         v_m = _quantize_to_cache(v, v_sc, v_off)
         scores = _scores_int(q, k_m, k_sc, k_off, bits)
-        mask = _mask(s, s, cfg.causal, window, x.device)
+        mask = _mask(s, s, causal, window, x.device)
         probs = L.softmax(scores / sqrt_dh + mask[None, None])
         ctx = _pv_int(probs, v_m, v_sc, v_off)
-        _write_prefill_cache(cache, k_m, v_m, s, windowed, k_sc, k_off, v_sc, v_off)
+        if cache is not None:
+            # a local layer's cache is a ring when it holds exactly the window
+            windowed = kind == "l" and 0 < cfg.window_size == cache["k"].shape[1]
+            _write_prefill_cache(cache, k_m, v_m, s, windowed, k_sc, k_off, v_sc, v_off)
     else:
         # each row writes at, and attends up to, its own cursor
+        cache_len = cache["k"].shape[1]
+        windowed = kind == "l" and 0 < cfg.window_size == cache_len
         pos = cache["pos"].to(torch.int64)  # a copy: the cursor advances below
         slot = pos % cache_len if windowed else pos
         k_sc, k_off = cache["k_scale"], cache["k_offset"]

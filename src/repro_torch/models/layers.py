@@ -2,7 +2,8 @@
 
 Serving params are plain dicts of tensors: a packed linear is
 ``{"w_packed", "w_scale", "w_offset", "w_colsum"}`` and a latent one
-``{"w"}``.  Every cast of the reference is mirrored (float32 before
+``{"w"}`` (the float linears the reference keeps full precision, such as
+a frontend's stub projection, run through ``float_linear``).  Every cast of the reference is mirrored (float32 before
 quantizing, back to the activation dtype after each product).
 """
 
@@ -23,6 +24,7 @@ __all__ = [
     "init_linear",
     "pack_linear_for_serving",
     "qlinear",
+    "float_linear",
     "softmax",
     "rmsnorm",
     "rope",
@@ -88,6 +90,13 @@ def qlinear(
     xq = Q.quantize_activation(x.to(torch.float32).reshape(-1, k), bits, per_channel_axis=0)
     out = QE.qmm(xq, wq, backend=quant.backend_for(name), w_colsum=p.get("w_colsum"))
     return out.reshape(*lead, -1).to(x.dtype)
+
+
+def float_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """``x (..., K) @ W (K, N)`` in full precision, as the reference's
+    ``qlinear(..., mode="float")``: the weight cast to ``x.dtype`` and the
+    product taken in that dtype."""
+    return torch.einsum("...k,kn->...n", x, p["w"].to(x.dtype))
 
 
 def softmax(x: torch.Tensor) -> torch.Tensor:

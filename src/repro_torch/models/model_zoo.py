@@ -5,7 +5,11 @@ and gemma3-27b have them --, bidirectional encoders (bit-bert-base:
 learned positions, non-causal prefill), the deepseek family (MLA layers
 ``"Md"`` / ``"Mm"``, the latter with a mixture of experts) and the
 recurrent families (RG-LRU layers ``"r"`` beside local attention in
-recurrentgemma-2b, SSD layers ``"s"`` in mamba2-130m).
+recurrentgemma-2b, SSD layers ``"s"`` in mamba2-130m) and the stub
+frontends (``cfg.encoder``): internvl2-2b's projected patch embeddings over
+the first positions of the prompt, and whisper-tiny's non-causal encoder
+over projected frame embeddings, which every decoder layer cross-attends
+to.
 
 Params are plain dicts: ``{"embedding", "final_norm", "layers": [block,
 ...]}``, plus ``"unembedding"`` when the embeddings are untied and
@@ -16,14 +20,20 @@ linears, packed along K; its router stays float32 (``{"w"}``), as the
 reference keeps it; a recurrent block's float leaves (``conv_w``,
 ``A_log``, ``D``, ``dt_bias``, ``norm_g``, ``lambda_p``) stay float32.
 deepseek-v3's multi-token-prediction head serves only the reference's
-training loss, so serving params carry none.  Caches are ``{"layers":
-[cache, ...]}``, one per layer: an int8 KV cache, an MLA layer's latent
+training loss, so serving params carry none.  A model with a frontend has
+``"encoder": {"stub_proj": {"w"}, ...}``, the stub projection kept float32,
+plus ``"layers"`` (the encoder's blocks) and ``"final_norm"`` when it has
+an encoder stack; then every decoder block carries ``ln_cross`` and
+``cross_attn``.  Caches are ``{"layers": [cache, ...]}``, one per layer: an int8 KV cache, an MLA layer's latent
 cache (``ckv``, ``k_rope``), or a recurrent layer's state (``models/ssm.py``:
 ``h`` / ``ssm`` and ``conv``, no rows axis); a ``"l"`` layer's cache holds
 ``min(max_len, window_size)`` rows (its ring buffer), every other
 attention layer's ``max_len`` (``cache_rows``).  Every layer's cursor
 ``pos`` is absolute, so a decode step reads its positions from layer 0's,
-whatever its kind.
+whatever its kind.  A model with an encoder stack adds the bf16
+``"encoder_out"`` leaf ``(batch, n_positions, d_model)``: a prefill with a
+frontend stores the encoder's output there, and every decode step projects
+its cross-attention keys and values from it.
 
 Entry points:
 
@@ -37,7 +47,8 @@ Entry points:
   rows)`` a cache holds
 * ``cache_copy`` / ``caches_equal`` -- a snapshot of a cache, and bitwise
   equality of two
-* ``prefill`` (exact length) / ``decode_step``
+* ``prefill`` (exact length, with an optional ``frontend``) /
+  ``decode_step``
 
 Caches are updated IN PLACE: ``prefill``, ``decode_step``, ``cache_insert``
 and ``cache_reset`` return the dict they were given, mutated.  Entry points
@@ -47,11 +58,13 @@ CPU.
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.constants import scalar
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -118,20 +131,55 @@ def _serving_top(params: dict) -> dict:
     return {
         k: v.to(torch.bfloat16) if k in _TABLES else v
         for k, v in params.items()
-        if k != "layers"
+        if k not in ("layers", "encoder")
     }
+
+
+def _has_encoder_stack(cfg: ArchConfig) -> bool:
+    return cfg.encoder is not None and cfg.encoder.n_layers > 0
+
+
+def _encoder_cfg(cfg: ArchConfig) -> ArchConfig:
+    """The encoder stack's own config: ``encoder.n_layers`` global layers,
+    non-causal, sinusoidal positions added at its input."""
+    return dataclasses.replace(
+        cfg,
+        name=cfg.name + "-encoder",
+        n_layers=cfg.encoder.n_layers,
+        prefix_layers=(),
+        pattern_period=("g",),
+        causal=False,
+        pos_embedding="sinusoidal",
+        encoder=None,
+        mtp_depth=0,
+    )
+
+
+def _init_encoder(gen: torch.Generator, cfg: ArchConfig, block=lambda p: p) -> dict:
+    """The frontend's latent params: the stub projection and, with an
+    encoder stack, its blocks (each passed through ``block`` as it is
+    drawn) and final norm."""
+    enc = {"stub_proj": L.init_linear(gen, cfg.encoder.d_input or cfg.d_model, cfg.d_model)}
+    if _has_encoder_stack(cfg):
+        enc_cfg = _encoder_cfg(cfg)
+        enc["layers"] = [block(T.init_block(gen, enc_cfg, kind)) for kind in enc_cfg.layer_kinds]
+        enc["final_norm"] = torch.zeros((cfg.d_model,), dtype=torch.float32, device=gen.device)
+    return enc
 
 
 def init_params(seed: int, cfg: ArchConfig, device="cuda") -> dict:
     """Latent float32 params from ``torch.Generator(device).manual_seed(seed)``."""
     gen = _generator(seed, device)
     p = _init_top(gen, cfg)
-    p["layers"] = [T.init_block(gen, cfg, kind) for kind in cfg.layer_kinds]
+    cross = _has_encoder_stack(cfg)
+    p["layers"] = [T.init_block(gen, cfg, kind, cross=cross) for kind in cfg.layer_kinds]
+    if cfg.encoder is not None:
+        p["encoder"] = _init_encoder(gen, cfg)
     return p
 
 
 #: linears kept full precision in serving (the reference's ``_FP_LEAF_PATHS``)
-_FP_LINEARS = ("router",)
+_FP_LINEARS = ("router", "stub_proj")
 
 
 def _pack_site(node: dict, cfg: ArchConfig) -> dict:
@@ -156,10 +204,13 @@ def _pack_tree(node, cfg: ArchConfig, path=()):
 
 def prepare_serving_params(params: dict, cfg: ArchConfig) -> dict:
     """Binarize and bit-pack every linear (stacked experts per expert);
-    the embedding, unembedding and position tables go to bf16, norm gains
-    and the MoE router stay float32, as in the reference."""
+    the embedding, unembedding and position tables go to bf16, norm gains,
+    the MoE router and a frontend's stub projection stay float32, as in
+    the reference."""
     out = _serving_top(params)
     out["layers"] = _pack_tree(params["layers"], cfg)
+    if "encoder" in params:
+        out["encoder"] = _pack_tree(params["encoder"], cfg)
     return out
 
 
@@ -173,17 +224,23 @@ def init_serving_params(seed: int, cfg: ArchConfig, device="cuda") -> dict:
     gen = _generator(seed, device)
     out = _serving_top(_init_top(gen, cfg))
     out["layers"] = []
+    cross = _has_encoder_stack(cfg)
     for kind in cfg.layer_kinds:
-        block = T.init_block(gen, cfg, kind, site=lambda p: _pack_site(p, cfg))
+        block = T.init_block(gen, cfg, kind, site=lambda p: _pack_site(p, cfg), cross=cross)
         out["layers"].append(_pack_tree(block, cfg))
+    if cfg.encoder is not None:
+        out["encoder"] = _init_encoder(gen, cfg, lambda b: _pack_tree(b, cfg))
     return out
 
 
 def cache_rows(max_len: int, cfg: ArchConfig) -> list:
     """Rows of each layer's cache, in layer order, for ``max_len``
-    positions; None for a recurrent layer, whose state has no rows."""
-    return [None if kind in T.RECURRENT_KINDS else A.cache_rows(max_len, cfg, kind)
+    positions; None for a recurrent layer, whose state has no rows.  A
+    model with an encoder stack adds, last, its ``encoder_out`` leaf's
+    ``n_positions``."""
+    rows = [None if kind in T.RECURRENT_KINDS else A.cache_rows(max_len, cfg, kind)
             for kind in cfg.layer_kinds]
+    return rows + ([cfg.encoder.n_positions] if _has_encoder_stack(cfg) else [])
 
 
 def _layer_geometry(layer: dict) -> tuple:
@@ -196,18 +253,25 @@ def _layer_geometry(layer: dict) -> tuple:
 def cache_geometry(cache: dict) -> list:
     """``(batch, rows)`` of each layer's cache, in layer order, read from
     the layer's own rows: ``ckv`` for an MLA layer, ``k`` for a GQA one; a
-    recurrent layer's state has no rows, ``(batch, None)``."""
-    return [_layer_geometry(layer) for layer in cache["layers"]]
+    recurrent layer's state has no rows, ``(batch, None)``.  Last, where
+    the cache has one, ``encoder_out``'s ``(batch, n_positions)``."""
+    enc = [tuple(cache["encoder_out"].shape[:2])] if "encoder_out" in cache else []
+    return [_layer_geometry(layer) for layer in cache["layers"]] + enc
 
 
 def init_cache(batch: int, max_len: int, cfg: ArchConfig, device="cuda") -> dict:
     check_max_len(cfg, max_len)
-    return {
+    cache = {
         "layers": [
             T.init_block_cache(batch, max_len, cfg, kind, device=device)
             for kind in cfg.layer_kinds
         ]
     }
+    if _has_encoder_stack(cfg):
+        cache["encoder_out"] = torch.zeros(
+            (batch, cfg.encoder.n_positions, cfg.d_model), dtype=torch.bfloat16, device=device
+        )
+    return cache
 
 
 def init_slot_cache(max_len: int, cfg: ArchConfig, device="cuda") -> dict:
@@ -219,65 +283,138 @@ def init_slot_cache(max_len: int, cfg: ArchConfig, device="cuda") -> dict:
 
 def cache_insert(cache: dict, slot_cache: dict, slot: int) -> dict:
     """Copy a batch-1 ``slot_cache`` into row ``slot`` of a packed cache, in
-    place -- including the per-row cursor and calibration affines, and a
-    recurrent layer's whole state."""
+    place -- including the per-row cursor and calibration affines, a
+    recurrent layer's whole state, and the row's ``encoder_out``."""
     for dst, src in zip(cache["layers"], slot_cache["layers"]):
         idx = torch.tensor([slot], device=dst["pos"].device)
         for key, leaf in dst.items():
             leaf.index_copy_(0, idx, src[key].to(leaf.dtype))
+    if "encoder_out" in cache:
+        leaf = cache["encoder_out"]
+        leaf.index_copy_(0, torch.tensor([slot], device=leaf.device), slot_cache["encoder_out"].to(leaf.dtype))
     return cache
 
 
 def cache_reset(cache: dict, slot: int, cfg: ArchConfig, max_len: int) -> dict:
-    """Reset row ``slot`` (cursor 0, identity affines, zero mantissas and
-    recurrent state)."""
+    """Reset row ``slot`` (cursor 0, identity affines, zero mantissas,
+    recurrent state and ``encoder_out``)."""
     device = cache["layers"][0]["pos"].device
     return cache_insert(cache, init_slot_cache(max_len, cfg, device=device), slot)
 
 
 def cache_copy(cache: dict) -> dict:
     """A copy of every leaf of ``cache``, at new addresses."""
-    return {"layers": [{k: v.clone() for k, v in layer.items()} for layer in cache["layers"]]}
+    out = {"layers": [{k: v.clone() for k, v in layer.items()} for layer in cache["layers"]]}
+    if "encoder_out" in cache:
+        out["encoder_out"] = cache["encoder_out"].clone()
+    return out
+
+
+def _leaves_equal(x: dict, y: dict) -> bool:
+    return x.keys() == y.keys() and all(
+        x[k].dtype == y[k].dtype and torch.equal(x[k], y[k]) for k in x
+    )
 
 
 def caches_equal(a: dict, b: dict) -> bool:
     """Whether two caches hold the same leaves, bit for bit and of the same
     dtypes."""
-    return len(a["layers"]) == len(b["layers"]) and all(
-        x.keys() == y.keys() and all(x[k].dtype == y[k].dtype and torch.equal(x[k], y[k]) for k in x)
-        for x, y in zip(a["layers"], b["layers"])
+    top = {k: v for k, v in a.items() if k != "layers"}
+    return (
+        len(a["layers"]) == len(b["layers"])
+        and _leaves_equal(top, {k: v for k, v in b.items() if k != "layers"})
+        and all(_leaves_equal(x, y) for x, y in zip(a["layers"], b["layers"]))
     )
 
 
-def _embed_inputs(params: dict, tokens: torch.Tensor, cfg: ArchConfig, positions) -> torch.Tensor:
+def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """float32 ``[sin, cos]`` position rows (..., d) of an encoder's input,
+    frequencies ``exp(-i * log(10000) / (d/2 - 1))``."""
+    half = d // 2
+    dev = positions.device
+    step = torch.log(scalar(10000.0, torch.float32, dev)) / (half - 1)
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=dev) * step)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _embed_inputs(params: dict, tokens: torch.Tensor, cfg: ArchConfig, positions,
+                  frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scaled bf16 token embedding plus, for learned positions, the bf16
     position rows added in bf16 (``positions`` < ``cfg.max_seq``: the
-    caches are sized so)."""
+    caches are sized so).  A patch frontend is projected in bf16 and its
+    rows replace the first positions."""
     x = L.embed(params, tokens, cfg.d_model)
     if cfg.pos_embedding == "learned":
         x = x + params["pos_embedding"][positions].to(x.dtype)
+    if frontend is not None and cfg.encoder.kind == "patch_stub":
+        patches = L.float_linear(params["encoder"]["stub_proj"], frontend.to(x.dtype))
+        x = torch.cat([patches.to(x.dtype), x[:, patches.shape[1]:]], dim=1)
     return x.to(torch.bfloat16)
 
 
-def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict) -> Tuple[torch.Tensor, dict]:
+def _run_encoder(params: dict, frontend: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The encoder over stub frame embeddings, in the frontend's dtype:
+    projection, sinusoidal positions, the non-causal stack without caches,
+    final norm.  Returns (B, T, d_model)."""
+    enc = params["encoder"]
+    x = L.float_linear(enc["stub_proj"], frontend)
+    b, t = x.shape[:2]
+    pos = torch.arange(t, device=x.device).broadcast_to(b, t)
+    x = x + _sinusoidal(pos, cfg.d_model).to(x.dtype)
+    x, _ = T.stack_apply(enc["layers"], x, _encoder_cfg(cfg), pos)
+    return L.rmsnorm(enc["final_norm"], x, cfg.norm_eps)
+
+
+def _check_frontend(cfg: ArchConfig, tokens: torch.Tensor, frontend: torch.Tensor) -> None:
+    enc = cfg.encoder
+    if enc is None:
+        raise ValueError(f"{cfg.name} has no frontend")
+    b, s = tokens.shape
+    if _has_encoder_stack(cfg):
+        want = (b, enc.n_positions, enc.d_input or cfg.d_model)
+        if tuple(frontend.shape) != want:
+            raise ValueError(f"frontend of shape {tuple(frontend.shape)}, {cfg.name} takes {want}")
+    if enc.kind == "patch_stub" and frontend.shape[1] > s:
+        raise ValueError(f"a prompt of {s} tokens is shorter than its {frontend.shape[1]} patch "
+                         "embeddings, which replace the prompt's first positions")
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict,
+            frontend: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
     """Process whole prompts (exact length, no padding) from an empty cache.
 
-    tokens: (B, S) int.  Returns (last-position logits (B, V) float32, cache).
+    tokens: (B, S) int.  ``frontend``: stub embeddings of a model with an
+    encoder config -- patches (B, P <= S, d_input) spliced over the first P
+    positions, or frames (B, n_positions, d_input or d_model) through the
+    encoder, whose output the decoder cross-attends to and the cache keeps
+    (as bf16) for the decode steps.  The prefill's cross-attention reads
+    the encoder's output in the frontend's own dtype, as the reference
+    does.  Returns (last-position logits (B, V) float32, cache).
     """
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).broadcast_to(b, s)
-    x = _embed_inputs(params, tokens, cfg, positions)
-    x, _ = T.stack_apply(params["layers"], x, cfg, positions, cache["layers"])
+    encoder_out = None
+    if frontend is not None:
+        _check_frontend(cfg, tokens, frontend)
+        if _has_encoder_stack(cfg):
+            encoder_out = _run_encoder(params, frontend, cfg)
+            cache["encoder_out"].copy_(encoder_out)
+    x = _embed_inputs(params, tokens, cfg, positions, frontend)
+    x, _ = T.stack_apply(params["layers"], x, cfg, positions, cache["layers"], encoder_out)
     x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     return L.unembed(params, x, cfg.tie_embeddings)[:, 0], cache
 
 
 def decode_step(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict) -> Tuple[torch.Tensor, dict]:
-    """One decode step.  tokens (B,) -> logits (B, V) float32 + cache."""
+    """One decode step.  tokens (B,) -> logits (B, V) float32 + cache.
+    Cross-attention, where the model has it, reads the cache's
+    ``encoder_out``: zeros until a prefill with a frontend fills it."""
     b = tokens.shape[0]
     # a copy: the first layer advances its cursor in place
     positions = cache["layers"][0]["pos"].to(torch.int64, copy=True).reshape(b, 1)
     x = _embed_inputs(params, tokens[:, None], cfg, positions)
-    x, _ = T.stack_apply(params["layers"], x, cfg, positions, cache["layers"])
+    x, _ = T.stack_apply(params["layers"], x, cfg, positions, cache["layers"],
+                         cache.get("encoder_out"))
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params, x, cfg.tie_embeddings)[:, 0], cache

@@ -9,12 +9,14 @@ with a dense FFN of ``d_ff``) and ``"Mm"`` (MLA with the mixture of
 experts); ``"r"`` (the RG-LRU recurrence with a dense FFN) and ``"s"`` (a
 Mamba-2 SSD mixer alone: norm and mixer, no FFN).  Pre-norm residual
 blocks (RMSNorm).  A recurrent layer's cache is its state, with no rows
-axis (``models/ssm.py``).
+axis (``models/ssm.py``).  A decoder block built with ``cross=True`` adds
+cross-attention (``ln_cross``, ``cross_attn``) onto an encoder's output
+between its mixer and its FFN; an encoder stack runs without caches.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -30,9 +32,11 @@ RECURRENT_KINDS = ("r", "s")
 KINDS = ("g", "l") + A.MLA_KINDS + RECURRENT_KINDS
 
 
-def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str, site=lambda p: p) -> dict:
+def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str, site=lambda p: p,
+               cross: bool = False) -> dict:
     """One block's latent params; an ``"Mm"`` block's expert sites pass
-    through ``site`` as they are drawn (``moe.init_moe``)."""
+    through ``site`` as they are drawn (``moe.init_moe``); ``cross`` adds
+    cross-attention to an attention block."""
     if kind not in KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet (only {KINDS})")
     d = cfg.d_model
@@ -45,6 +49,9 @@ def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str, site=lambda p: 
         p["rglru"] = S.init_rglru(gen, cfg)
     else:
         p["attn"] = A.init_mla(gen, cfg) if kind in A.MLA_KINDS else A.init_attention(gen, cfg)
+    if cross:
+        p["ln_cross"] = torch.zeros((d,), **zeros)
+        p["cross_attn"] = A.init_attention(gen, cfg)
     p["ln2"] = torch.zeros((d,), **zeros)
     if kind == "Mm":
         p["moe"] = M.init_moe(gen, cfg, site)
@@ -63,8 +70,12 @@ def init_block_cache(batch: int, max_len: int, cfg: ArchConfig, kind: str, devic
     return A.init_kv_cache(batch, max_len, cfg, kind, device=device)
 
 
-def block_apply(p: dict, x, cfg: ArchConfig, kind: str, positions, cache: dict):
-    """Pre-norm residual block.  Returns (x, cache) (cache updated in place)."""
+def block_apply(p: dict, x, cfg: ArchConfig, kind: str, positions, cache: Optional[dict],
+                encoder_out=None):
+    """Pre-norm residual block.  Returns (x, cache) (cache updated in place).
+
+    A block with ``cross_attn`` attends to ``encoder_out`` (B, T, D) when it
+    is given: keys and values projected from all T rows, non-causal."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "s":
         mix, cache = S.ssd_mixer(p["ssd"], h, cfg, cache)
@@ -76,14 +87,25 @@ def block_apply(p: dict, x, cfg: ArchConfig, kind: str, positions, cache: dict):
     else:
         mix, cache = A.attention(p["attn"], h, cfg, kind, positions, cache)
     x = x + mix
+    if "cross_attn" in p and encoder_out is not None:
+        h = L.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
+        rows = (*encoder_out.shape[:-1], cfg.n_kv_heads, cfg.d_head)
+        ck = L.qlinear(p["cross_attn"]["k"], encoder_out, cfg.quant, name="cross_attn.k").reshape(rows)
+        cv = L.qlinear(p["cross_attn"]["v"], encoder_out, cfg.quant, name="cross_attn.v").reshape(rows)
+        mix, _ = A.attention(p["cross_attn"], h, cfg, "g", positions, None,
+                             kv_override=(ck, cv), causal=False)
+        x = x + mix
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if kind == "Mm":
         return x + M.moe_ffn(p["moe"], h, cfg), cache
     return x + L.ffn(p["ffn"], h, cfg.ffn_type, cfg.quant), cache
 
 
-def stack_apply(layers: List[dict], x, cfg: ArchConfig, positions, caches: List[dict]):
-    """Apply every layer in order; returns (x, caches)."""
-    for p, kind, c in zip(layers, cfg.layer_kinds, caches):
-        x, _ = block_apply(p, x, cfg, kind, positions, c)
+def stack_apply(layers: List[dict], x, cfg: ArchConfig, positions,
+                caches: Optional[List[dict]] = None, encoder_out=None):
+    """Apply every layer in order; returns (x, caches).  ``caches=None``
+    runs the stack stateless (an encoder)."""
+    for i, (p, kind) in enumerate(zip(layers, cfg.layer_kinds)):
+        x, _ = block_apply(p, x, cfg, kind, positions, None if caches is None else caches[i],
+                           encoder_out)
     return x, caches

@@ -18,6 +18,11 @@ batch -- the engine must equal ``serve_sequential`` token for token.
 Sampling uses the host numpy stream ``default_rng([seed, rid])``, as in
 the reference.
 
+A model with an encoder stack (whisper) serves through ``make_prefill``
+(with its ``frontend``) and ``make_decode_step``; ``ServeEngine`` refuses
+it, as the reference's does.  A patch-stub model (internvl2) goes through
+the engine text only.
+
 Not ported yet: fault injection, deadlines and retries, snapshots and
 ``resume``, backend demotion and autotuned dispatch.  (A demotion changes
 the kernels a step launches, so it will have to capture the step anew, as
@@ -81,6 +86,11 @@ class CompiledStep:
     capture raises; nothing falls back to eager on CUDA.  On the CPU, which
     has no graphs, every call runs the step eagerly.
 
+    A step built with ``frontend_shape`` (``make_prefill`` of a model with
+    a frontend) takes ``fn(params, tokens, cache, frontend)``: the frontend
+    must have that shape, and after a capture the captured buffer's dtype;
+    each replay copies it into that buffer, as it does the tokens.
+
     ``graph`` is the captured ``torch.cuda.CUDAGraph`` (None before the
     first capture, and on the CPU).  ``captures`` / ``replays`` count the
     calls of each kind.  A capturing call goes through the kernel wrappers
@@ -89,10 +99,12 @@ class CompiledStep:
     """
 
     def __init__(self, step: Callable, cfg: ArchConfig, tokens_shape: Tuple[int, ...],
-                 cache_rows: Tuple[int, int], device="cuda"):
+                 cache_rows: Tuple[int, int], device="cuda",
+                 frontend_shape: Optional[Tuple[int, ...]] = None):
         self._step = step
         self.cfg = cfg
         self.tokens_shape = tuple(tokens_shape)
+        self.frontend_shape = None if frontend_shape is None else tuple(frontend_shape)
         self.cache_rows = tuple(cache_rows)
         batch, max_len = self.cache_rows
         # each layer's own rows: a ring layer holds its window, not max_len
@@ -103,24 +115,35 @@ class CompiledStep:
         self.graph = None
         self._held: List[torch.Tensor] = []  # what the graph reads, and their addresses
         self._ptrs: List[int] = []
-        self._tokens = self._out = self._stream = None
+        self._tokens = self._frontend = self._out = self._stream = None
 
-    def _check(self, tokens: torch.Tensor, cache: dict) -> None:
+    def _check(self, tokens: torch.Tensor, cache: dict, frontend) -> None:
         if tuple(tokens.shape) != self.tokens_shape:
             raise ValueError(f"tokens of shape {tuple(tokens.shape)}, step takes {self.tokens_shape}")
+        if (frontend is None) != (self.frontend_shape is None):
+            raise ValueError(f"step takes a frontend of shape {self.frontend_shape}, got "
+                             f"{None if frontend is None else tuple(frontend.shape)}")
+        if frontend is not None:
+            if tuple(frontend.shape) != self.frontend_shape:
+                raise ValueError(f"frontend of shape {tuple(frontend.shape)}, step takes {self.frontend_shape}")
+            if self._frontend is not None and frontend.dtype != self._frontend.dtype:
+                raise ValueError(f"frontend of dtype {frontend.dtype}, step captured {self._frontend.dtype}")
         got = Z.cache_geometry(cache)
         if got != self._layer_rows:
             raise ValueError(f"cache layers of (batch, rows) {got}, step takes (batch, max_len) "
                              f"{self.cache_rows}: {self._layer_rows}")
 
-    def __call__(self, params: dict, tokens, cache: dict):
+    def __call__(self, params: dict, tokens, cache: dict, frontend=None):
         tokens = torch.as_tensor(tokens)
-        self._check(tokens, cache)
+        self._check(tokens, cache, frontend)
         if self.device.type != "cuda":
-            return self._step(params, tokens.to(self.device), self.cfg, cache)
+            extra = () if frontend is None else (frontend.to(self.device),)
+            return self._step(params, tokens.to(self.device), self.cfg, cache, *extra)
         if not self.captured_on(params, cache):
-            return self._capture(params, tokens, cache)
+            return self._capture(params, tokens, cache, frontend)
         self._tokens.copy_(tokens)
+        if frontend is not None:
+            self._frontend.copy_(frontend)
         self.graph.replay()
         self.replays += 1
         return self._out.clone(), cache
@@ -138,7 +161,7 @@ class CompiledStep:
             a.shape == b.shape and a.dtype == b.dtype for a, b in zip(leaves, self._held)
         )
 
-    def _capture(self, params, tokens, cache):
+    def _capture(self, params, tokens, cache, frontend):
         dev = self.device
         self.graph = self._out = None  # the old graph's memory pool goes first
         self._held, self._ptrs = [], []
@@ -146,12 +169,17 @@ class CompiledStep:
             self._stream = torch.cuda.Stream(dev)
         self._tokens = torch.empty(self.tokens_shape, dtype=torch.int64, device=dev)
         self._tokens.copy_(tokens)
+        extra = ()
+        if frontend is not None:
+            self._frontend = torch.empty(self.frontend_shape, dtype=frontend.dtype, device=dev)
+            self._frontend.copy_(frontend)
+            extra = (self._frontend,)
         self._stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(self._stream):
-            logits, _ = self._step(params, self._tokens, self.cfg, cache)
+            logits, _ = self._step(params, self._tokens, self.cfg, cache, *extra)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=self._stream):
-            out, _ = self._step(params, self._tokens, self.cfg, cache)
+            out, _ = self._step(params, self._tokens, self.cfg, cache, *extra)
         torch.cuda.current_stream(dev).wait_stream(self._stream)
         torch.cuda.synchronize(dev)
         self.graph, self._out = graph, out
@@ -166,9 +194,13 @@ def make_prefill(cfg: ArchConfig, batch: int, prompt_len: int, max_len: int,
     """``fn(params, tokens (batch, prompt_len), cache) -> (logits, cache)``:
     ``model_zoo.prefill`` from an empty ``(batch, max_len)`` cache, captured
     once and replayed.  To replay, pass the same cache again, reset
-    (``model_zoo.cache_reset``)."""
+    (``model_zoo.cache_reset``).  A model with a frontend (``cfg.encoder``)
+    takes ``fn(params, tokens, cache, frontend)``, the frontend of shape
+    ``(batch, n_positions, d_input or d_model)``."""
     Z.check_max_len(cfg, max_len)
-    return CompiledStep(Z.prefill, cfg, (batch, prompt_len), (batch, max_len), device)
+    enc = cfg.encoder
+    frontend = None if enc is None else (batch, enc.n_positions, enc.d_input or cfg.d_model)
+    return CompiledStep(Z.prefill, cfg, (batch, prompt_len), (batch, max_len), device, frontend)
 
 
 def make_decode_step(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> CompiledStep:
@@ -265,6 +297,11 @@ class ServeEngine:
         self.max_len = max_len
         self.seed = seed
         self.device = torch.device(device)
+        if cfg.encoder is not None and cfg.encoder.n_layers:
+            raise NotImplementedError(
+                "continuous batching drives decoder-only stacks; a model with an encoder "
+                "stack goes through make_prefill / make_decode_step"
+            )
         Z.check_max_len(cfg, max_len)
         got = params["embedding"].device
         if got.type != self.device.type:

@@ -81,6 +81,14 @@ RECURRENT_SITES = {
 }
 
 
+# (M, K, N) of the encoder families' K1 sites: internvl2-2b's attn.q / o,
+# attn.k / v, ffn.up / gate and down at a 4-slot decode, and up / gate in
+# its 320-token image prefill; whisper-tiny's cross-attention k / v over 4 x
+# 1,500 encoder rows (every decode step) and its decode ffn.up and down
+ENCODER_SITES = [(4, 2048, 2048), (4, 2048, 1024), (4, 2048, 8192), (4, 8192, 2048),
+                 (320, 2048, 8192), (6000, 384, 384), (4, 384, 1536), (4, 1536, 384)]
+
+
 @pytest.mark.parametrize("m,k,n", BINARY_SHAPES)
 def test_binary_qmm_equals_plain(dev, m, k, n):
     g = torch.Generator(device=dev).manual_seed(m * 7 + n)
@@ -103,6 +111,11 @@ def test_binary_qmm_equals_plain_at_family_sites(dev, name, k, n, m):
 @pytest.mark.parametrize("name,k,n", [(name, k, n) for name, sites in RECURRENT_SITES.items()
                                       for k, n in sites])
 def test_binary_qmm_equals_plain_at_recurrent_sites(dev, name, k, n, m):
+    test_binary_qmm_equals_plain(dev, m, k, n)
+
+
+@pytest.mark.parametrize("m,k,n", ENCODER_SITES)
+def test_binary_qmm_equals_plain_at_encoder_sites(dev, m, k, n):
     test_binary_qmm_equals_plain(dev, m, k, n)
 
 
@@ -272,6 +285,45 @@ def test_smoke_model_card_matches_cpu(dev, backend):
         assert float((a - b).abs().max()) <= CROSS_DEVICE_TOL
 
 
+@pytest.mark.parametrize("path", ["stateless", "cross"])
+def test_encoder_attention_card_matches_cpu(dev, path):
+    """whisper's attention paths over 1,500 encoder rows, on the card
+    against the CPU port on the same inputs: the encoder's stateless
+    self-attention (the integer path, non-causal, float32 in and out) and
+    the decoder's cross-attention (float32 scores, bf16 P.V).  Within
+    CROSS_DEVICE_TOL of the largest |output|: float32 exp and products
+    differ in their last bits between devices, which can move one 8-bit
+    bucket of a per-token quantization downstream."""
+    from repro_torch.models import attention as A
+
+    cfg = smoke_variant(get_config("whisper-tiny"))
+    cfg = dataclasses.replace(cfg, quant=dataclasses.replace(cfg.quant, backend="pallas"))
+    params = Z.init_serving_params(4, cfg, device="cpu")
+    rng = np.random.default_rng(4)
+    frames = 1500
+    if path == "stateless":
+        p, acfg = params["encoder"]["layers"][0]["attn"], Z._encoder_cfg(cfg)
+        x = torch.from_numpy(rng.standard_normal((2, frames, cfg.d_model)).astype(np.float32))
+        pos = torch.arange(frames).broadcast_to(2, frames)
+        kv = None
+    else:
+        p, acfg = params["layers"][0]["cross_attn"], cfg
+        x = torch.from_numpy(rng.standard_normal((2, 3, cfg.d_model)).astype(np.float32)).bfloat16()
+        pos = torch.zeros((2, 3), dtype=torch.int64)
+        kv = [torch.from_numpy(rng.standard_normal((2, frames, cfg.n_kv_heads, cfg.d_head)).astype(np.float32))
+              .bfloat16() for _ in range(2)]
+    outs = []
+    for device in ("cpu", dev):
+        override = None if kv is None else tuple(t.to(device) for t in kv)
+        out, cache = A.attention(_to(p, device), x.to(device), acfg, "g", pos.to(device), None,
+                                 kv_override=override, causal=False if kv is not None else None)
+        assert cache is None and out.dtype == x.dtype and out.shape == x.shape
+        outs.append(out.float().cpu())
+    want, got = outs
+    assert bool(torch.isfinite(got).all()) and float(want.abs().max()) > 0
+    assert float((got - want).abs().max()) <= CROSS_DEVICE_TOL * float(want.abs().max())
+
+
 # ---- the compiled serving steps: replayed CUDA graphs against the eager step
 
 def deepseek_k1_per_forward(cfg, prefill: bool = False) -> int:
@@ -308,6 +360,11 @@ STEP_MODELS = {  # name -> (config name, backend, kernel its forwards launch, si
     # and the SSD state alone (mamba2, one layer in the smoke)
     "recurrentgemma-pallas": ("recurrentgemma-2b", "pallas", "binary_qmm", recurrent_k1_per_forward),
     "mamba2-pallas": ("mamba2-130m", "pallas", "binary_qmm", recurrent_k1_per_forward),
+    # cross-attention onto the cache's encoder_out (whisper: self + cross
+    # attention and a gelu FFN, 10 sites a layer), and a patch stub's
+    # plain decoder (internvl2)
+    "whisper-pallas": ("whisper-tiny", "pallas", "binary_qmm", 10),
+    "internvl2-pallas": ("internvl2-2b", "pallas", "binary_qmm", 7),
 }
 STEP_MAX_LEN = 48
 WRAPPERS = {k.__name__: k for k in (K1.binary_qmm, K2.fused_qmm, K3.popcount_qmm, K4.bitserial_qmm)}
@@ -386,6 +443,30 @@ def test_replayed_prefill_bitwise_equals_eager(dev, name):
         got, _ = fn(params, prompt, cache)
         want, want_cache = Z.prefill(params, prompt.to(dev), cfg,
                                      Z.init_cache(1, STEP_MAX_LEN, cfg, device=dev))
+        assert torch.equal(got, want), f"prompt {seed}: logits differ"
+        assert Z.caches_equal(cache, want_cache), f"prompt {seed}: caches differ"
+    assert (fn.captures, fn.replays) == (1, 2)
+
+
+@pytest.mark.parametrize("name", ["whisper-pallas", "internvl2-pallas"])
+def test_replayed_prefill_with_frontend_bitwise_equals_eager(dev, name):
+    """``make_prefill`` with a frontend: one capture, then two replays on
+    new prompts and new stub embeddings, each bitwise equal to the eager
+    prefill on the same inputs (whisper's cache keeps the encoder output)."""
+    from repro_torch.runtime.serve_loop import make_prefill
+
+    cfg, params, _ = _step_model(name, dev)
+    fn = make_prefill(cfg, 2, 14, STEP_MAX_LEN, device=dev)
+    cache = Z.init_cache(2, STEP_MAX_LEN, cfg, device=dev)
+    for seed in range(3):
+        prompt = torch.from_numpy(np.random.default_rng(seed).integers(0, 256, size=(2, 14)))
+        frontend = torch.from_numpy(np.random.default_rng(seed).standard_normal(fn.frontend_shape)
+                                    .astype(np.float32)).to(dev)
+        for row in range(2):
+            Z.cache_reset(cache, row, cfg, STEP_MAX_LEN)
+        got, _ = fn(params, prompt, cache, frontend)
+        want, want_cache = Z.prefill(params, prompt.to(dev), cfg,
+                                     Z.init_cache(2, STEP_MAX_LEN, cfg, device=dev), frontend)
         assert torch.equal(got, want), f"prompt {seed}: logits differ"
         assert Z.caches_equal(cache, want_cache), f"prompt {seed}: caches differ"
     assert (fn.captures, fn.replays) == (1, 2)
