@@ -150,20 +150,47 @@ Phases (each prints its own lines):
    profiled; logits bitwise equal with K1 swapped for its plain version;
    the device time of the cross-attention k / v projections and of the
    float cross-attention, each alone, against the replayed tick's.
-11. one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and last
-   ``{"ok": true, "device": {...}}``.  Each kernel's ``launches`` is its
-   wrapper's count over its main path's run alone (phase 3's engine run for
-   K1, phase 4's fused pass for K2, phase 5's engine run for K3, phase 6
-   for K4); ``replays`` is the number of replayed ticks in that run, and
+12. bitwise attention.  [12a] the AND-popcount scores kernel
+   ``binary_attn_scores_planes`` (``csrc/binary_attn.cu``) bitwise against
+   its plain version at bit-bert-base's 128-token prefill and 4-slot decode
+   over 512 keys, a GQA decode, MLA's latent decode (dh 512, 2,048 keys)
+   and ragged dh / T, on the layouts the model hands it (Q a transposed
+   view, K the packed cache permuted), timed as phase 2 with its plan,
+   bound and ``torch.bmm`` in float32 on the planes unpacked beforehand.
+   [12b] bit-bert-base W1A1 at full width with ``attn.qk -> binary`` and
+   autotuning off (``REPRO_QMM_AUTOTUNE=0``: the scores core is the
+   kernel), ``ServeEngine`` with 4 slots and max_len 512 serving 8 requests
+   of 16 new tokens: every request ``ok``; K3 72 and the scores kernel 12
+   wrapper launches a forward; greedy tokens equal ``serve_sequential``'s
+   and the ``float`` core's; the K cache's bytes beside phase 5's int8
+   cache (8x fewer); the 4-slot tick and the 128-token ``make_prefill``,
+   eager beside replayed, bitwise equal, timed and profiled (12 scores
+   launches in each profiled replay); one prefill and decode step bitwise
+   equal with the kernel swapped for its plain version.  [12c]
+   ``backend="auto"`` at every site with autotuning on and a cache file in
+   a temporary directory: on the card the candidates are the hand-written
+   kernels only (the scores family has one, the kernel, and is not timed),
+   each timed as replays of a CUDA graph of 16 calls; each key's
+   candidates, times and winner logged, and every key timed again in a
+   fresh cache, with how many winners agree; a second engine loading the
+   file makes 0 timing runs and serves the same tokens.
+11. (printed last) one JSON line of per-kernel numbers, the ``nvidia-smi``
+   line, and last ``{"ok": true, "device": {...}}``.  Each kernel's
+   ``launches`` is its wrapper's count over its main path's run alone
+   (phase 3's engine run for K1, phase 4's fused pass for K2, phase 5's
+   engine run for K3, phase 6 for K4, phase 12's engine run for the scores
+   kernel, which adds ``autotune``, [12c]'s keys, timing runs and winners);
+   ``replays`` is the number of replayed ticks in that run, and
    ``replay_launches`` the kernel's launches counted on the device in one
-   profiled replay of that path's decode graph (K3 adds
+   profiled replay of that path's decode graph (K3 and the scores kernel add
    ``prefill_replay_launches``, of the 128-token prefill graph; each path
    adds ``replay_busy_ms``, that replay's device busy time; K1 adds
    ``gemma3``, ``deepseek``, ``recurrentgemma``, ``mamba2``, ``internvl2``
    and ``whisper``, the same numbers for phases 7 to 10, ``deepseek`` with
    its ``expert_loop`` rows, ``internvl2`` and ``whisper`` with their
    prefill graph's launches; ``whisper``'s ``launches`` are its
-   transcription's).
+   transcription's).  The whole run took 542.5-546.7 s on an H100 80GB HBM3 at
+   700 W (phase 12 about 90 s of it).
 """
 
 from __future__ import annotations
@@ -671,7 +698,7 @@ def greedy_steps(Z, cfg, params, prompt, n_decode: int, device, tokens=None, fro
     return out, fed
 
 
-KERNEL_NAMES = ("binary_qmm", "fused_qmm", "popcount_qmm", "bitserial_qmm")
+KERNEL_NAMES = ("binary_qmm", "fused_qmm", "popcount_qmm", "bitserial_qmm", "binary_attn_scores_planes")
 
 
 # The trace drops the device operations of a window's first moments, and
@@ -896,12 +923,13 @@ def fill_cache(Z, cfg, params, prompts, device, max_len: int = 512):
 
 
 def engine_counts(engine, kernels, launched, per_forward: int, main, phase: int,
-                  prefill_per_forward=None) -> None:
+                  prefill_per_forward=None, also=()) -> None:
     """Check the engine run's wrapper launches ``launched`` (counts zeroed
     just before the run, read just after): ``main`` ``prefill_per_forward``
     (default ``per_forward``) times for each eager prefill and twice
-    ``per_forward`` for the capturing tick (warm-up run, capture), every
-    other kernel never; log the ticks."""
+    ``per_forward`` for the capturing tick (warm-up run, capture), each
+    ``(kernel, per_forward)`` of ``also`` likewise, every other kernel
+    never; log the ticks."""
     step = engine.decode_fn
     events = engine.last_events
     prefills = sum(e["kind"] == "prefill" for e in events)
@@ -911,12 +939,16 @@ def engine_counts(engine, kernels, launched, per_forward: int, main, phase: int,
     got = {k.__name__: n for k, n in zip(kernels, launched)}
     want = {k.__name__: pre * prefills + per_forward * 2 * len(compiles) if k is main else 0
             for k in kernels}
+    for k, n in also:
+        want[k.__name__] = n * prefills + n * 2 * len(compiles)
     if got != want or len(compiles) != 1 or step.captures != 1 or step.replays != len(ticks):
         raise AssertionError(f"engine launches {got}, expected {want}; {len(compiles)} capturing "
                              f"ticks, {step.captures} captures, {step.replays} replays, {len(ticks)} ticks")
-    log(f"[{phase}] {main.__name__} launches {got[main.__name__]} = {pre} x {prefills} eager "
-        f"prefills + {per_forward} x 2 for the capturing tick (warm-up run and capture); the other "
-        f"kernels 0; {len(ticks)} replayed ticks ran the captured step, which calls no wrapper")
+    for k, n, p in [(main, per_forward, pre)] + [(k, n, n) for k, n in also]:
+        log(f"[{phase}] {k.__name__} launches {got[k.__name__]} = {p} x {prefills} eager "
+            f"prefills + {n} x 2 for the capturing tick (warm-up run and capture)")
+    log(f"[{phase}] the other kernels 0; {len(ticks)} replayed ticks ran the captured step, which "
+        "calls no wrapper")
     log_capture(phase, "engine decode step", step, compiles[0])
     log(f"[{phase}] replayed decode tick ms (4 slots, synchronised, logits copy to the host "
         f"excluded): median {np.median(ticks):.2f} mean {np.mean(ticks):.2f} min {np.min(ticks):.2f}")
@@ -1829,6 +1861,223 @@ def serve_whisper(Z, model_cfg, device, ServeEngine, make_decode_step, make_pref
     return path
 
 
+# ---------------------------------------------------------------------------
+# phase 12: bitwise attention -- the AND-popcount scores kernel, bit-bert-base
+# with attn.qk -> binary, and measured dispatch
+# ---------------------------------------------------------------------------
+
+# (tag, (B, H, S), (B, G, T), dh): bit-bert-base's 128-token prefill and
+# its 4-slot decode over max_len 512, a GQA decode (32 query heads over 8
+# kv heads of 128), MLA's latent decode (16 heads over the kv_lora 512
+# latent, 2,048 rows), and ragged dh and T.  The first is the headline row.
+BINARY_ATTN_CASES = [
+    ("bit-bert prefill", (1, 12, 128), (1, 12, 128), 64),
+    ("bit-bert decode", (4, 12, 1), (4, 12, 512), 64),
+    ("GQA decode", (4, 32, 1), (4, 8, 512), 128),
+    ("MLA latent decode", (4, 16, 1), (4, 1, 2048), 512),
+    ("ragged", (2, 6, 5), (2, 3, 333), 100),
+]
+BINARY_ATTN_LAYERS = 12  # bit-bert-base: one scores launch a layer
+AUTOTUNE_REQUESTS = 4
+
+
+def check_binary_attn(gen: torch.Generator) -> list:
+    """The scores kernel against its plain version, bit for bit, on the
+    layouts the model hands it: Q a transposed view of ``(B, S, H, dw)``
+    words, K the packed cache ``(B, T, G, dw)`` permuted to ``(B, G, T,
+    dw)`` (strided, read in place).  Timed as phase 2 times K3, beside its
+    bound, its plain version and ``torch.bmm`` in float32 on the planes
+    unpacked beforehand."""
+    from repro_torch.core import packing
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.binary_attn import binary_attn_scores_planes as kernel
+    from repro_torch.kernels.binary_attn import plan
+
+    dev = gen.device
+    rows = []
+    for tag, (b, h, s), (_, g, t), dh in BINARY_ATTN_CASES:
+        dw = packing.packed_len(dh, 1)
+
+        def planes(shape):
+            bits = torch.randint(0, 2, shape + (dh,), generator=gen, device=dev, dtype=torch.int8)
+            return packing.pack_bits(bits, 1, axis=-1)
+
+        q = planes((b, s, h)).transpose(1, 2)
+        ks = [planes((b, t, g)).permute(0, 2, 1, 3) for _ in range(_copies(4 * b * g * t * dw))]
+        got, want = kernel(q, ks[0], dh=dh), ref.binary_attn_scores_ref(q, ks[0], dh)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"binary_attn_scores_planes != plain at {tag}: max |diff| "
+                                 f"{(got - want).abs().max().item()}")
+        qf = packing.unpack_bits(q, 1, dh, dtype=torch.float32).reshape(b * g, (h // g) * s, dh)
+        kf = packing.unpack_bits(ks[0], 1, dh, dtype=torch.float32).reshape(b * g, t, dh).transpose(1, 2)
+        if not torch.equal(torch.bmm(qf, kf).reshape(b, h, s, t).to(torch.int32), want):
+            raise AssertionError(f"torch.bmm disagrees with binary_attn_scores_ref at {tag}")
+        n_out = b * h * s * t
+        nb, bb = bound(4 * (b * h * s * dw + b * g * t * dw) + 4 * n_out, 2 * n_out * dh, PEAK_B1_OPS_PER_S)
+        calls = [lambda k=k: kernel(q, k, dh=dh) for k in ks]
+        rows.append(dict(
+            case=tag, shape=[[b, h, s, dw], [b, g, t, dw]], dh=dh, plan=plan(b, h, g, s, t),
+            max_abs_err=int((got - want).abs().max()),
+            ms=device_ms(calls, 20 * len(calls)), eager_ms=time_ms(calls, 20 * len(calls)),
+            plain_ms=time_ms([lambda: ref.binary_attn_scores_ref(q, ks[0], dh)], 3),
+            bound_ms=nb, bound_by=bb,
+            library="torch.bmm (float32, planes unpacked beforehand)",
+            library_ms=device_ms([lambda: torch.bmm(qf, kf)], 20),
+        ))
+        r = rows[-1]
+        log(f"  binary_attn   {tag:18s} q {tuple(q.shape)} k {tuple(ks[0].shape)} dh {dh}: plan "
+            f"{r['plan']['rows']} rows x {r['plan']['keys']} keys a block, grid {r['plan']['grid']}; "
+            f"equal ms={r['ms']:.4f} eager_ms={r['eager_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+            f"({bb}) plain_ms={r['plain_ms']:.3f} library_ms={r['library_ms']:.4f} [{r['library']}]")
+        del ks
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _with_qk(cfg, backend: str):
+    return dataclasses.replace(cfg, quant=dataclasses.replace(
+        cfg.quant, backend_overrides=(("attn.qk", backend),)))
+
+
+def _k_bytes(cache) -> int:
+    return sum(layer["k"].numel() * layer["k"].element_size() for layer in cache["layers"])
+
+
+def serve_binary_attention(Z, bert_cfg, device, Request, ServeEngine, serve_sequential,
+                           make_decode_step, make_prefill, ops, ref, kernels) -> dict:
+    """[12b] bit-bert-base W1A1 with ``attn.qk -> binary`` at full width,
+    autotuning off (the scores core is then the kernel): the engine run,
+    its tokens against ``serve_sequential`` and the ``float`` core, the
+    replayed tick and 128-token prefill against the eager ones, the K
+    cache's bytes.  [12c] autotuning on over a cache file, then a second
+    engine that loads it.  Returns the kernel's main-path numbers."""
+    import os
+    import tempfile
+
+    from repro_torch.core import backend_registry, dispatch
+
+    attn = kernels[4]
+    cfg = _with_qk(with_backend(bert_cfg, "pallas"), "binary")
+    k3_per_forward = BERT_SITES_PER_LAYER * cfg.n_layers
+    per_forward = BINARY_ATTN_LAYERS
+    if cfg.n_layers != per_forward and device.type == "cuda":
+        raise AssertionError(f"{cfg.name} has {cfg.n_layers} layers, expected {per_forward}")
+    params = Z.init_serving_params(0, cfg, device=device)
+
+    def requests(n=8, seed=0):
+        return make_requests(Request, n=n, seed=seed, vocab=cfg.vocab_size, lo=64, hi=128)
+
+    with mock.patch.dict(os.environ, {"REPRO_QMM_AUTOTUNE": "0"}):
+        ServeEngine(cfg, params, batch_slots=4, max_len=512, seed=0, device=device).run(requests(n=2, seed=1))
+        engine = ServeEngine(cfg, params, batch_slots=4, max_len=512, seed=0, device=device)
+        torch.cuda.synchronize()
+        _zero(kernels)
+        t = time.perf_counter()
+        done = engine.run(requests())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launched = _counts(kernels)
+        if not all(r.state == "ok" and len(r.output) == 16 for r in done):
+            raise AssertionError(f"binary-attention requests not ok: {[(r.state, len(r.output)) for r in done]}")
+        prefill_ms = [e["ms"] for e in engine.last_events if e["kind"] == "prefill"]
+        n_tok = sum(len(r.output) for r in done)
+        log(f"[12] {cfg.name} W1A1, attn.qk -> binary (autotuning off: the scores core is the kernel): "
+            f"served {len(done)} requests, 16 new tokens each, in {wall:.2f} s: {n_tok / wall:.1f} "
+            f"generated tokens/s end to end; eager prefills {sum(prefill_ms) / 1e3:.2f} s of it")
+        engine_counts(engine, kernels, launched, k3_per_forward, kernels[2], phase=12,
+                      also=((attn, per_forward),))
+        path = dict(launches=launched[4], replays=engine.decode_fn.replays)
+        binary_k, int8_k = _k_bytes(engine._cache), _k_bytes(Z.init_cache(4, 512, bert_cfg, device=device))
+        dh = cfg.d_head
+        if binary_k * dh != int8_k * 4 * -(-dh // 32):  # 8x at d_head 64: 2 words for 64 bytes
+            raise AssertionError(f"packed K cache {binary_k} bytes, int8 {int8_k}: not {dh} bytes "
+                                 f"for {-(-dh // 32)} words a row")
+        log(f"[12] K cache of the 4-slot engine at max_len 512, {cfg.n_layers} layers: packed {binary_k / 1e6:.3f} "
+            f"MB beside phase 5's int8 {int8_k / 1e6:.3f} MB ({int8_k / binary_k:.0f}x smaller); V int8 as there")
+        del engine
+
+        seq = serve_sequential(cfg, params, requests(), max_len=512, seed=0, device=device)
+        fl = serve_sequential(_with_qk(cfg, "float"), params, requests(), max_len=512, seed=0, device=device)
+        for got, want, flt in zip(done, seq, fl):
+            if got.temperature == 0 and not (got.output == want.output == flt.output):
+                raise AssertionError(f"binary-attention greedy tokens: engine {got.output}, sequential "
+                                     f"{want.output}, float core {flt.output}")
+        log("[12] engine greedy tokens equal serve_sequential's and the float core's (attn.qk -> float) "
+            "for all 6 greedy requests")
+
+        cache = fill_cache(Z, cfg, params, [r.prompt for r in done[:4]], device)
+        step = torch.tensor([r.output[0] for r in done[:4]], device=device)
+        path.update(graph_vs_eager(Z, make_decode_step, cfg, params, cache, 512, step, attn,
+                                   per_forward, phase=12, tag="W1A1 binary-attention decode tick (4 slots)"))
+        del cache
+        path["prefill_replay_launches"] = compiled_prefill(
+            Z, make_prefill, cfg, params, attn, per_forward, device, phase=12,
+            tag="128-token binary-attention prefill")
+
+        prompt = np.asarray(max(done, key=lambda r: len(r.prompt)).prompt)
+        kern, fed = greedy_steps(Z, cfg, params, prompt, 1, device)
+        spec = backend_registry.get_backend("binary")
+        plain = dataclasses.replace(spec, run_scores=lambda q, k, *, dh: ref.binary_attn_scores_ref(q, k, dh))
+        with mock.patch.dict(backend_registry._REGISTRY, {"binary": plain}):
+            plain_out, _ = greedy_steps(Z, cfg, params, prompt, 1, device, tokens=fed)
+        if not all(torch.equal(a, b) for a, b in zip(kern, plain_out)):
+            raise AssertionError("binary-attention logits differ with the scores kernel swapped for its plain version")
+        if not all(bool(torch.isfinite(x).all()) and x.shape == (1, cfg.vocab_size) for x in kern):
+            raise AssertionError("binary-attention logits not finite or of the wrong shape")
+        log(f"[12] prefill ({len(prompt)} tokens) + decode logits bitwise equal with "
+            "binary_attn_scores_planes swapped for binary_attn_scores_ref on the same tensors")
+
+    # [12c] autotuning on: every linear site "auto", the scores core "auto"
+    acfg = _with_qk(with_backend(bert_cfg, "auto"), "binary")
+    reqs = lambda: requests(n=AUTOTUNE_REQUESTS, seed=2)  # noqa: E731
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.dict(os.environ, {"REPRO_QMM_AUTOTUNE": "1"}):
+        file = os.path.join(tmp, "autotune.json")
+        first = dispatch.reset_cache()
+        t = time.perf_counter()
+        a = ServeEngine(acfg, params, batch_slots=4, max_len=512, seed=0, device=device,
+                        autotune_cache_path=file).run(reqs())
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t
+        if any(b not in ("pallas", "fused", "binary") for key in first.entries for b in key.candidates):
+            raise AssertionError(f"a plain core is an autotune candidate on the card: {list(first.entries)}")
+        again = dispatch.AutotuneCache()
+        agree = 0
+        for key, rec in sorted(first.entries.items(), key=lambda kv: (kv[0].family, kv[0].tag, kv[0].m, kv[0].n)):
+            redo = again.choose(key.m, key.k, key.n, key.act_bits, key.weight_bits, tag=key.tag,
+                                family=key.family, device=device)
+            agree += redo == rec.backend
+            times = ", ".join(f"{b} {us:.2f}" for b, us in rec.timings_us.items()) or "one candidate, untimed"
+            redo_times = ", ".join(f"{b} {us:.2f}" for b, us in again.entries[key].timings_us.items())
+            log(f"[12] autotune {key.family} {key.tag} m={key.m} k={key.k} n={key.n} "
+                f"A{key.act_bits}W{key.weight_bits} {key.candidates}: us {times} -> {rec.backend}"
+                + (f"; timed again: us {redo_times} -> {redo}" if redo_times else ""))
+        log(f"[12] autotune winners timed again in a fresh cache: {agree} of {len(first)} keys agree")
+        second = dispatch.reset_cache()
+        t = time.perf_counter()
+        b_ = ServeEngine(acfg, params, batch_slots=4, max_len=512, seed=0, device=device,
+                         autotune_cache_path=file).run(reqs())
+        torch.cuda.synchronize()
+        t_second = time.perf_counter() - t
+        if [r.output for r in a] != [r.output for r in b_] or second.timing_runs != 0:
+            raise AssertionError(f"the engine loading the autotune file: {second.timing_runs} timing runs, "
+                                 "tokens equal: " + str([r.output for r in a] == [r.output for r in b_]))
+        if not all(r.state == "ok" for r in a + b_):
+            raise AssertionError("autotuned requests not ok")
+        winners = {}
+        for rec in first.entries.values():
+            winners[rec.backend] = winners.get(rec.backend, 0) + 1
+        log(f"[12] autotuning on: {len(first)} keys, {first.timing_runs} timing runs, winners {winners}; "
+            f"{AUTOTUNE_REQUESTS} requests in {t_first:.2f} s; a second engine loading the file: "
+            f"{len(second)} keys, 0 timing runs, the same tokens, {t_second:.2f} s")
+        path["autotune"] = dict(keys=len(first), timing_runs=first.timing_runs, winners=winners,
+                                winners_agree_when_timed_again=agree)
+        dispatch.reset_cache()
+    del params
+    torch.cuda.empty_cache()
+    return path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1843,6 +2092,7 @@ def main() -> int:
 
 def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg, recurrent_cfgs,
         encoder_cfgs) -> int:
+    from repro_torch.kernels import binary_attn as K5
     from repro_torch.kernels import binary_qmm as K1
     from repro_torch.kernels import bitserial_qmm as K4
     from repro_torch.kernels import build, ref
@@ -2001,12 +2251,22 @@ def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg, rec
     k1["whisper"] = serve_whisper(Z, whisper_cfg, device, ServeEngine, make_decode_step, make_prefill,
                                   ops, ref, all_kernels, smi)
 
-    main_path = {"binary_qmm": k1, "fused_qmm": k2, "popcount_qmm": k3, "bitserial_qmm": k4}
+    log("[12] the scores kernel against its plain version (B, H, S, dw) x (B, G, T, dw):")
+    rows["binary_attn_scores_planes"] = check_binary_attn(gen)
+    k5 = serve_binary_attention(Z, bert_cfg, device, Request, ServeEngine, serve_sequential,
+                                make_decode_step, make_prefill, ops, ref,
+                                all_kernels + (K5.binary_attn_scores_planes,))
+
+    main_path = {"binary_qmm": k1, "fused_qmm": k2, "popcount_qmm": k3, "bitserial_qmm": k4,
+                 "binary_attn_scores_planes": k5}
     sources = {
         "binary_qmm": ("src/repro_torch/csrc/binary_qmm.cu", "src/repro/kernels/binary_qmm.py:95"),
         "fused_qmm": ("src/repro_torch/csrc/fused_qmm.cu", "src/repro/kernels/fused_qmm.py:180"),
         "popcount_qmm": ("src/repro_torch/csrc/popcount_qmm.cu", "src/repro/kernels/popcount_qmm.py:95"),
         "bitserial_qmm": ("src/repro_torch/csrc/bitserial_qmm.cu", "src/repro/kernels/bitserial_qmm.py:83"),
+        # the reference's plain jnp scores core (no pallas_call)
+        "binary_attn_scores_planes": ("src/repro_torch/csrc/binary_attn.cu",
+                                      "src/repro/kernels/binary_attn.py:39"),
     }
     kernels = []
     for name, shapes in rows.items():

@@ -51,7 +51,16 @@ class QuantConfig:
       multi-bit act x act, each returning the integer product, and the
       affine epilogue after it;
     * ``"fused"``  -- the hand-written ``fused_qmm`` kernel (K2): bit-serial
-      AND-popcount core plus the affine epilogue in one launch.
+      AND-popcount core plus the affine epilogue in one launch;
+    * ``"auto"``   -- measured dispatch (``repro_torch.core.dispatch``): the
+      fastest eligible backend for each shape, timed once and cached.
+
+    The scores-only names ``"binary"`` (the hand-written AND-popcount
+    scores kernel, its core picked by ``"auto"`` over the scores family)
+    and ``"float"`` (the float-dot core) engage bitwise attention where a
+    site override names them: ``(("attn.qk", "binary"),)`` binarizes Q and K
+    and packs the K cache, ``(("attn.qk_latent", "binary"),)`` runs MLA's
+    absorbed decode scores bitwise.
     """
 
     enabled: bool = True
@@ -68,7 +77,7 @@ class QuantConfig:
     def known_backends() -> Tuple[str, ...]:
         from repro_torch.core import backend_registry
 
-        return backend_registry.backend_names()
+        return ("auto",) + backend_registry.backend_names()
 
     def __post_init__(self):
         known = self.known_backends()

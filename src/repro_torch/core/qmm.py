@@ -12,9 +12,13 @@ backends:
   re-centering.  Plain tensor code in the reference too (jnp, not a
   Pallas kernel).
 
-The hand-written kernels register as ``pallas`` and ``fused`` in
-``repro_torch.kernels.ops``.  ``backend="auto"`` (measured dispatch) is not
-ported yet.
+``mxu`` also serves the attention-scores family (``run_scores``: the
+{0, 1} planes unpacked and a grouped float64 product, exact).  The
+hand-written kernels register as ``pallas`` and ``fused`` in
+``repro_torch.kernels.ops``, beside the scores-only ``binary`` and
+``float``, which ``qmm`` refuses.  ``backend="auto"`` resolves through the
+measured dispatcher (``repro_torch.core.dispatch``); an explicit name
+through its demotion table.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from repro_torch.core import backend_registry, flow_abstraction, packing
 from repro_torch.core.precision import PrecisionMode
 from repro_torch.core.quantization import QuantTensor
 
-__all__ = ["qmm", "and_popcount_matmul", "popcount_int_matmul"]
+__all__ = ["qmm", "and_popcount_matmul", "popcount_int_matmul", "unpacked_scores"]
 
 # Columns of the right operand per popcount sweep: bounds the broadcast
 # intermediate to ``M * 256 * Kw`` words, as in the reference.
@@ -72,7 +76,9 @@ def qmm(
     w_colsum: Optional[torch.Tensor] = None,
     out_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """Quantized matmul through the flow abstraction on a named backend."""
+    """Quantized matmul through the flow abstraction on a named backend,
+    or on the one ``backend="auto"`` measures fastest for this (M, K, N,
+    precisions, tuning phase) on the operands' device."""
     if mode is not None and (x.bits, w.bits) not in {
         (mode.act_bits, mode.weight_bits),
         (mode.act_bits, mode.act_bits),
@@ -80,8 +86,45 @@ def qmm(
         raise ValueError(
             f"operands W{w.bits}A{x.bits} do not match engine mode {mode.name}"
         )
+    from repro_torch.core import dispatch
+
+    if backend == "auto":
+        x_l, w_l = x.logical_shape, w.logical_shape
+        m = 1
+        for d in x_l[:-1]:
+            m *= int(d)
+        backend = dispatch.choose_backend(
+            m, int(x_l[-1]), int(w_l[-1]), x.bits, w.bits,
+            rank2=len(x_l) == 2 and len(w_l) == 2, device=x.mantissa.device,
+        )
+    else:
+        backend = dispatch.resolve_backend(backend)
     spec = backend_registry.get_backend(backend)
+    if "qmm" not in spec.families:
+        raise ValueError(
+            f"backend {backend!r} serves families {sorted(spec.families)}, not the qmm "
+            "family; scores-only backends go through kernels.ops.binary_attn_scores"
+        )
     return spec.run(x, w, w_colsum=w_colsum, out_dtype=out_dtype)
+
+
+def unpacked_scores(q_planes: torch.Tensor, k_planes: torch.Tensor, dh: int, dtype: torch.dtype) -> torch.Tensor:
+    """Attention scores as a grouped product of packed planes (int32 words,
+    ``(B, H, S, dw)`` and ``(B, G, T, dw)``) unpacked to {0, 1} ``dtype``
+    values -> ``(B, H, S, T)`` in ``dtype``; exact wherever ``dtype`` holds
+    every integer up to ``dh``."""
+    qb = packing.unpack_bits(q_planes, 1, dh, axis=-1, dtype=dtype)
+    kb = packing.unpack_bits(k_planes, 1, dh, axis=-1, dtype=dtype)
+    b, h, s, _ = qb.shape
+    g, t = kb.shape[1], kb.shape[2]
+    out = torch.einsum("bgxsd,bgtd->bgxst", qb.reshape(b, g, h // g, s, dh), kb)
+    return out.reshape(b, h, s, t)
+
+
+def _mxu_scores(q_planes: torch.Tensor, k_planes: torch.Tensor, *, dh: int) -> torch.Tensor:
+    """Scores-family core of ``mxu``: the integer product of the unpacked
+    planes, exact in float64 as the port's ``mxu`` integer products are."""
+    return unpacked_scores(q_planes, k_planes, dh, torch.float64).to(torch.int32)
 
 
 def _run_mxu(x: QuantTensor, w: QuantTensor, *, w_colsum=None, out_dtype=torch.float32):
@@ -93,6 +136,8 @@ backend_registry.register(
         name="mxu",
         run=_run_mxu,
         description="plain PyTorch integer product (float64, exact) + flow epilogue",
+        families=frozenset({"qmm", "scores"}),
+        run_scores=_mxu_scores,
     )
 )
 

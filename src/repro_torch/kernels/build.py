@@ -26,7 +26,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "nvcc_path", "build_all", "load"]
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
-SOURCES = ("binary_qmm", "fused_qmm", "popcount_qmm", "bitserial_qmm")
+SOURCES = ("binary_qmm", "fused_qmm", "popcount_qmm", "bitserial_qmm", "binary_attn")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

@@ -1,6 +1,9 @@
 """QuantTensor entry points over the kernels (port of ``repro.kernels.ops``):
-operand preparation for the kernels and the registration of
-the ``pallas`` and ``fused`` backends in the port's registry.
+operand preparation for the kernels, the registration of the ``pallas``
+and ``fused`` backends in the port's registry, and the attention-scores
+family: :func:`binary_attn_scores` and its scores-only backends ``binary``
+(the hand-written kernel ``binary_attn``) and ``float`` (unpacked float32
+planes and a grouped einsum, the reference's differential oracle core).
 
 The CUDA kernels mask their ragged edges, so nothing here pads to a block
 multiple (the reference pads for its TPU blocks; the results are equal).
@@ -14,13 +17,22 @@ import torch
 
 from repro_torch.core import backend_registry, flow_abstraction, packing
 from repro_torch.core.constants import as_scalar
+from repro_torch.core.qmm import unpacked_scores
 from repro_torch.core.quantization import QuantTensor
+from repro_torch.kernels import binary_attn as _ba
 from repro_torch.kernels import binary_qmm as _bq
 from repro_torch.kernels import bitserial_qmm as _bs
 from repro_torch.kernels import fused_qmm as _fq
 from repro_torch.kernels import popcount_qmm as _pq
 
-__all__ = ["binary_qmm_int", "popcount_qmm_int", "bitserial_qmm_int", "qmm_pallas", "qmm_fused"]
+__all__ = [
+    "binary_qmm_int",
+    "popcount_qmm_int",
+    "bitserial_qmm_int",
+    "qmm_pallas",
+    "qmm_fused",
+    "binary_attn_scores",
+]
 
 
 def binary_qmm_int(
@@ -147,6 +159,8 @@ backend_registry.register(
         run=qmm_pallas,
         description="staged hand-written CUDA kernels popcount_qmm (K3), binary_qmm (K1), "
         "bitserial_qmm (K4) + PyTorch flow epilogue",
+        rank2_only=True,
+        cuda_kernel=True,
     )
 )
 
@@ -155,5 +169,81 @@ backend_registry.register(
         name="fused",
         run=qmm_fused,
         description="hand-written CUDA kernel fused_qmm (K2): AND-popcount core + epilogue",
+        rank2_only=True,
+        cuda_kernel=True,
+    )
+)
+
+
+# ---------------------------------------------------------------------------
+# the scores family: rank-4 attention-scores cores over packed W1A1 planes.
+# ``mxu`` serves it too (core/qmm.py); these two are scores-only, so ``qmm``
+# rejects them by family.
+# ---------------------------------------------------------------------------
+
+
+def binary_attn_scores(
+    q_planes: torch.Tensor,
+    k_planes: torch.Tensor,
+    *,
+    dh: int,
+    backend: str = "auto",
+    tag: Optional[str] = None,
+) -> torch.Tensor:
+    """Attention-scores integer core, backend-dispatched (scores family):
+    ``q_planes`` int32 ``(B, H, S, dw)`` x ``k_planes`` ``(B, G, T, dw)`` ->
+    int32 AND-popcount counts ``(B, H, S, T)``.
+
+    ``backend="auto"`` consults the autotune cache under the ``"scores"``
+    family key (m = B*H*S, k = dh, n = T), timing on the operands' device;
+    an explicit name resolves through the demotion table, as ``qmm`` does.
+    Every scores core equals ``ref.binary_attn_scores_ref`` bit for bit, so
+    neither choice changes a number.
+    """
+    from repro_torch.core import dispatch
+
+    b, h, s, _ = q_planes.shape
+    t = k_planes.shape[2]
+    if backend == "auto":
+        backend = dispatch.choose_scores_backend(b, h, s, t, dh, tag=tag, device=q_planes.device)
+    else:
+        backend = dispatch.resolve_backend(backend)
+    spec = backend_registry.get_backend(backend)
+    if "scores" not in spec.families or spec.run_scores is None:
+        raise ValueError(
+            f"backend {backend!r} does not serve the scores family; scores backends: "
+            f"{', '.join(backend_registry.backend_names(family='scores'))}"
+        )
+    return spec.run_scores(q_planes, k_planes, dh=dh)
+
+
+def _float_scores(q_planes: torch.Tensor, k_planes: torch.Tensor, *, dh: int) -> torch.Tensor:
+    """Float-dot scores core: the {0, 1} planes unpacked to float32 and a
+    grouped einsum; exact, since a count never passes dh << 2**24."""
+    return unpacked_scores(q_planes, k_planes, dh, torch.float32).to(torch.int32)
+
+
+backend_registry.register(
+    backend_registry.QMMBackend(
+        name="binary",
+        run=_ba.binary_attn_scores_planes,  # scores-only: qmm rejects by family
+        run_scores=_ba.binary_attn_scores_planes,
+        description="hand-written CUDA kernel binary_attn: rank-4 AND-popcount attention "
+        "scores over packed Q / K planes (Bitformer path)",
+        precisions=frozenset({(1, 1)}),
+        families=frozenset({"scores"}),
+        cuda_kernel=True,
+    )
+)
+
+backend_registry.register(
+    backend_registry.QMMBackend(
+        name="float",
+        run=_float_scores,  # scores-only: qmm rejects by family
+        run_scores=_float_scores,
+        description="float-dot attention scores over unpacked {0,1} planes "
+        "(the differential oracle's core)",
+        precisions=frozenset({(1, 1)}),
+        families=frozenset({"scores"}),
     )
 )

@@ -24,7 +24,13 @@ __all__ = [
     "bitserial_bound",
     "fused_qmm_ref",
     "fused_qmm_epilogue",
+    "binary_attn_scores_ref",
 ]
+
+# Key positions per popcount sweep of the scores version: bounds the
+# broadcast intermediate to ``G * M * 256 * dw`` words a batch row, as in
+# the reference's ``binary_attn_scores_planes``.
+_T_CHUNK = 256
 
 # The bit-serial kernels accumulate ``sum_ij 2**(i+j) popcount-MM`` in int32.
 _INT32_LIMIT = 2**31
@@ -163,3 +169,37 @@ def fused_qmm_ref(
     row = x.sum(dim=-1, keepdim=True).to(torch.int32)
     col = w.sum(dim=0, keepdim=True).to(torch.int32)
     return fused_qmm_epilogue(xy, row, col, a_scale, a_offset, w_scale, w_offset, k)
+
+
+def binary_attn_scores_ref(q_planes: torch.Tensor, k_planes: torch.Tensor, dh: int) -> torch.Tensor:
+    """Attention-scores family: ``out[b, h, s, t] = sum_w popcount(q[b, h, s,
+    w] & k[b, h // (H/G), t, w])`` -> int32 ``(B, H, S, T)``, the
+    bit-exactness contract every scores core meets.
+
+    ``q_planes`` ``(B, H, S, dw)`` and ``k_planes`` ``(B, G, T, dw)`` are int32
+    words carrying the {0, 1} bits of ``dh`` values packed little-endian
+    along the last axis (``dw = ceil(dh/32)``, zero tail); H is a multiple of
+    G (GQA: head ``h`` reads kv head ``h // (H/G)``).  Computed as the
+    reference's ``binary_attn_scores_planes``: each kv head's query group
+    folded onto the rows, then a SWAR popcount of ``q & k`` over chunks of
+    ``_T_CHUNK`` keys.
+    """
+    for name, x in (("q_planes", q_planes), ("k_planes", k_planes)):
+        if x.ndim != 4:
+            raise ValueError(f"binary_attn_scores_ref: {name} must be rank 4, got {x.ndim}")
+        _check_packed("binary_attn_scores_ref", x, dh, 3)
+    b, h, s, dw = q_planes.shape
+    g, t = k_planes.shape[1], k_planes.shape[2]
+    if k_planes.shape[0] != b or h % g:
+        raise ValueError(
+            f"binary_attn_scores_ref: q {tuple(q_planes.shape)} and k {tuple(k_planes.shape)} "
+            "need the same batch and H a multiple of G"
+        )
+    qg = q_planes.reshape(b, g, (h // g) * s, dw)
+    chunks = [
+        packing.popcount32(qg[:, :, :, None, :] & k_planes[:, :, None, t0:t0 + _T_CHUNK, :])
+        .sum(dim=-1, dtype=torch.int32)
+        for t0 in range(0, t, _T_CHUNK)
+    ]
+    out = torch.cat(chunks, dim=-1) if chunks else qg.new_zeros((b, g, qg.shape[2], 0))
+    return out.reshape(b, h, s, t)

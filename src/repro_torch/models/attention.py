@@ -34,9 +34,18 @@ written (an encoder's self-attention).  Cross-attention passes the
 encoder's keys and values as ``kv_override``: no rope and no cache, float32
 scores and a float P.V in the activation dtype, as the reference computes
 it.  Sinusoidal positions are added at an encoder's input, so attention
-applies rope only for ``"rope"``.  Not ported yet: bitwise (binary) scores
-(a scores-only backend name is not in the port's registry) and float
-caches (GQA and latent).
+applies rope only for ``"rope"``.
+
+Bitwise attention: a scores-only backend (``"binary"``, ``"float"``) named
+for the site ``"attn.qk"`` binarizes Q per call and K at the prompt
+(BiT's elastic 1-bit grid, per row) and stores K as PACKED 1-bit rows,
+int32 words ``(B, L, kvH, ceil(dh/32))``; the scores are AND-popcount
+counts from the scores family (``kernels.ops.binary_attn_scores``; under
+``"binary"`` its core is ``"auto"``, under ``"float"`` the float core) and
+an affine epilogue; V stays int8.  MLA's absorbed decode scores take the
+same path where ``"attn.qk_latent"`` names one, its int8 latent cache
+re-binarized at its grid midpoint.  Not ported yet: float caches (GQA and
+latent).
 """
 
 from __future__ import annotations
@@ -46,9 +55,11 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig, QuantConfig
+from repro_torch.core import backend_registry, packing
 from repro_torch.core import flow_abstraction as FA
 from repro_torch.core import quantization as Q
 from repro_torch.core.constants import scalar
+from repro_torch.kernels import ops as K_ops
 from repro_torch.models import layers as L
 
 __all__ = [
@@ -107,15 +118,21 @@ def init_kv_cache(
 ) -> dict:
     """int8 KV cache with per-row ``pos`` cursors and calibration affines;
     ``cache_rows(max_len, cfg, kind)`` rows (an MLA kind gets its latent
-    cache, ``init_mla_cache``)."""
+    cache, ``init_mla_cache``).  Where ``"attn.qk"`` engages bitwise
+    attention, K holds packed 1-bit rows, int32 ``(batch, rows, kvH,
+    ceil(dh/32))``."""
     _check_supported(cfg, kind)
     if kind in MLA_KINDS:
         return init_mla_cache(batch, max_len, cfg, device=device)
     kvh, dh = cfg.n_kv_heads, cfg.d_head
     rows = cache_rows(max_len, cfg, kind)
     f32 = dict(dtype=torch.float32, device=device)
+    if _binary_scores_site(cfg.quant, "attn.qk") is not None:
+        k = torch.zeros((batch, rows, kvh, packing.packed_len(dh, 1)), dtype=torch.int32, device=device)
+    else:
+        k = torch.zeros((batch, rows, kvh, dh), dtype=torch.int8, device=device)
     return {
-        "k": torch.zeros((batch, rows, kvh, dh), dtype=torch.int8, device=device),
+        "k": k,
         "v": torch.zeros((batch, rows, kvh, dh), dtype=torch.int8, device=device),
         "k_scale": torch.ones((batch,), **f32),
         "k_offset": torch.zeros((batch,), **f32),
@@ -208,6 +225,114 @@ def _pv_int(p_probs, v_mantissa, v_scale, v_offset):
     col = col[:, :, None, None, :]
     out = xy * (a1 * a2) + (a1 * g2) * row + (g1 * a2) * col + g1 * g2 * t
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh)
+
+
+# ---------------------------------------------------------------------------
+# bitwise attention (Bitformer scores through the scores backend family)
+# ---------------------------------------------------------------------------
+
+
+def _binary_scores_site(quant: QuantConfig, site: str) -> Optional[str]:
+    """The scores-only backend configured for ``site``, or None: only such
+    a name engages bitwise attention there (binarizing K is a precision
+    choice, so ``"auto"`` and qmm-family names leave the int8 path)."""
+    if not (quant.enabled and quant.quantize_attention):
+        return None
+    name = quant.backend_for(site)
+    if name == "auto":
+        return None
+    spec = backend_registry.get_backend(name)
+    return name if "scores" in spec.families and "qmm" not in spec.families else None
+
+
+def _scores_core(site_backend: str) -> str:
+    """``"binary"`` engages the family and leaves its core to measured
+    dispatch (every scores core is exact); any other scores-only name pins
+    its own core."""
+    return "auto" if site_backend == "binary" else site_backend
+
+
+def _cache_binary(cache: Optional[dict], dh: int) -> bool:
+    """Does this cache hold packed 1-bit K rows (int32, ceil(dh/32) words)?"""
+    return (cache is not None and cache["k"].dtype == torch.int32
+            and cache["k"].shape[-1] == packing.packed_len(dh, 1))
+
+
+def _binarize_rows(x: torch.Tensor) -> Q.QuantTensor:
+    """Per-row elastic 1-bit grid (BiT), min / max over every axis but the
+    batch row: co-batched requests never share a grid."""
+    return Q.quantize_activation(x.to(torch.float32), 1, per_channel_axis=0)
+
+
+def _binarize_to_cache(k: torch.Tensor, scale, offset) -> torch.Tensor:
+    """Binarize with a fixed (prefill-calibrated) affine and pack: a decode
+    step's packed K row."""
+    scale = _per_row(scale, k.ndim)
+    offset = _per_row(offset, k.ndim)
+    bit = torch.clamp(torch.round((k.to(torch.float32) - offset) / scale), 0.0, 1.0)
+    return packing.pack_bits(bit, 1, axis=-1)
+
+
+def _pack_q_heads(bits: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, dh) {0, 1} mantissas -> (B, H, S, dw) packed words (a view)."""
+    return packing.pack_bits(bits, 1, axis=-1).transpose(1, 2)
+
+
+def _plane_popcounts(planes: torch.Tensor) -> torch.Tensor:
+    """Set bits of each packed row, float32 (exact: packing zeroes the tail)."""
+    return packing.popcount32(planes).sum(dim=-1, dtype=torch.int32).to(torch.float32)
+
+
+def _scores_binary(q, k_planes_t, k_scale, k_offset, dh: int, backend: str):
+    """Bitwise QK^T: 1-bit Q (binarized here, per row) against packed K.
+
+    AND-popcount counts from the scores family, then the affine epilogue in
+    the reference's order:
+    ``counts*(a1*a2) + (a1*g2)*row + (g1*a2)*col + g1*g2*dh``.
+    q: (B,S,H,dh) float.  k_planes_t: (B,kvH,T,dw) packed key rows (a
+    strided view of the cache).  k_scale / k_offset: (B,) the keys' 1-bit
+    grid (no re-centering shift, unlike the int8 cache).  Returns float32
+    (B,H,S,T).
+    """
+    b, s, h, _ = q.shape
+    g = h // k_planes_t.shape[1]
+    qq = _binarize_rows(q)
+    q_planes = _pack_q_heads(qq.mantissa)  # (B,H,S,dw)
+    counts = K_ops.binary_attn_scores(
+        q_planes, k_planes_t, dh=dh, backend=_scores_core(backend)
+    ).to(torch.float32)
+    row = _plane_popcounts(q_planes)[..., None]  # (B,H,S,1)
+    kvh, t = k_planes_t.shape[1], k_planes_t.shape[2]
+    col = _plane_popcounts(k_planes_t)[:, :, None, :].expand(b, kvh, g, t).reshape(b, h, 1, t)
+    a1 = qq.scale.reshape(b, 1, 1, 1)
+    g1 = qq.offset.reshape(b, 1, 1, 1)
+    a2 = _per_row(k_scale, 4)
+    g2 = _per_row(k_offset, 4)
+    return counts * (a1 * a2) + (a1 * g2) * row + (g1 * a2) * col + g1 * g2 * dh
+
+
+def _scores_binary_latent(q_abs, ckv_m, ckv_scale, ckv_offset, backend: str):
+    """Bitwise absorbed-MLA scores against the int8 latent cache, which
+    keeps its layout (it feeds the P.V product too): each mantissa is
+    re-binarized at its grid midpoint, ``bit = (m >= 0)``, with the induced
+    affine ``ak = 128*sc``, ``gk = off + 64*sc``.  q_abs (B,S,H,R) float;
+    returns float32 (B,H,S,T)."""
+    b, s, h, r = q_abs.shape
+    qq = _binarize_rows(q_abs)
+    q_planes = _pack_q_heads(qq.mantissa)  # (B,H,S,rw)
+    k_planes = packing.pack_bits(ckv_m >= 0, 1, axis=-1)[:, None]  # (B,1,T,rw)
+    counts = K_ops.binary_attn_scores(
+        q_planes, k_planes, dh=r, backend=_scores_core(backend)
+    ).to(torch.float32)
+    row = _plane_popcounts(q_planes)[..., None]  # (B,H,S,1)
+    col = _plane_popcounts(k_planes)[:, :, None, :]  # (B,1,1,T)
+    sc = ckv_scale.to(torch.float32)
+    off = ckv_offset.to(torch.float32)
+    a1 = qq.scale.reshape(b, 1, 1, 1)
+    g1 = qq.offset.reshape(b, 1, 1, 1)
+    a2 = _per_row(128.0 * sc, 4)
+    g2 = _per_row(off + 64.0 * sc, 4)
+    return counts * (a1 * a2) + (a1 * g2) * row + (g1 * a2) * col + g1 * g2 * r
 
 
 def _scores_float(q, k):
@@ -330,16 +455,26 @@ def attention(
         q = L.rope(q, positions, theta)
         k = L.rope(k, positions, theta)
     sqrt_dh = torch.sqrt(scalar(float(dh), torch.float32, x.device))
+    # bitwise scores where "attn.qk" names a scores-only backend (and the
+    # cache, if any, holds packed K rows)
+    qk_backend = _binary_scores_site(quant, "attn.qk")
+    use_binary = qk_backend is not None and (cache is None or _cache_binary(cache, dh))
 
     if kv_override is not None:
         scores = _scores_float(q, k) / sqrt_dh + _mask(s, k.shape[1], causal, window, x.device)
         ctx = _pv_float(L.softmax(scores), v, x.dtype)
     elif s > 1 or cache is None:
-        k_sc, k_off = _calibrate_rows(k)
         v_sc, v_off = _calibrate_rows(v)
-        k_m = _quantize_to_cache(k, k_sc, k_off)
         v_m = _quantize_to_cache(v, v_sc, v_off)
-        scores = _scores_int(q, k_m, k_sc, k_off, bits)
+        if use_binary:
+            kq = _binarize_rows(k)
+            k_sc, k_off = kq.scale.reshape(b), kq.offset.reshape(b)
+            k_m = packing.pack_bits(kq.mantissa, 1, axis=-1)
+            scores = _scores_binary(q, k_m.permute(0, 2, 1, 3), k_sc, k_off, dh, qk_backend)
+        else:
+            k_sc, k_off = _calibrate_rows(k)
+            k_m = _quantize_to_cache(k, k_sc, k_off)
+            scores = _scores_int(q, k_m, k_sc, k_off, bits)
         mask = _mask(s, s, causal, window, x.device)
         probs = L.softmax(scores / sqrt_dh + mask[None, None])
         ctx = _pv_int(probs, v_m, v_sc, v_off)
@@ -356,11 +491,16 @@ def attention(
         k_sc, k_off = cache["k_scale"], cache["k_offset"]
         v_sc, v_off = cache["v_scale"], cache["v_offset"]
         rows = torch.arange(b, device=x.device)
-        cache["k"].index_put_((rows, slot), _quantize_to_cache(k, k_sc, k_off)[:, 0])
+        write_k = _binarize_to_cache if use_binary else _quantize_to_cache
+        cache["k"].index_put_((rows, slot), write_k(k, k_sc, k_off)[:, 0])
         cache["v"].index_put_((rows, slot), _quantize_to_cache(v, v_sc, v_off)[:, 0])
         cache["pos"] += 1
         valid = _decode_valid(pos, cache_len, window, windowed)
-        scores = _scores_int(q, cache["k"], k_sc, k_off, bits) / sqrt_dh
+        if use_binary:
+            k_t = cache["k"].permute(0, 2, 1, 3)  # (B,kvH,T,dw), read in place
+            scores = _scores_binary(q, k_t, k_sc, k_off, dh, qk_backend) / sqrt_dh
+        else:
+            scores = _scores_int(q, cache["k"], k_sc, k_off, bits) / sqrt_dh
         scores = torch.where(
             valid[:, None, None, :], scores, torch.full_like(scores, _NEG_INF)
         )
@@ -543,7 +683,11 @@ def mla_attention(
         w_uk = _serving_dense(p["k_up"], m.kv_lora_rank, quant).reshape(m.kv_lora_rank, h, m.qk_nope_dim)
         w_uv = _serving_dense(p["v_up"], m.kv_lora_rank, quant).reshape(m.kv_lora_rank, h, m.v_head_dim)
         q_abs = torch.einsum("bshd,rhd->bshr", q_nope.to(torch.float32), w_uk)
-        scores_lat = _scores_int_latent(q_abs, cache["ckv"], sc, off, quant.attn_act_bits)
+        lat_backend = _binary_scores_site(quant, "attn.qk_latent")
+        if lat_backend is not None:
+            scores_lat = _scores_binary_latent(q_abs, cache["ckv"], sc, off, lat_backend)
+        else:
+            scores_lat = _scores_int_latent(q_abs, cache["ckv"], sc, off, quant.attn_act_bits)
         scores_rope = torch.einsum(
             "bshd,btd->bhst", q_rope.to(torch.float32), cache["k_rope"].to(torch.float32)
         )

@@ -33,7 +33,9 @@ attention layer's ``max_len`` (``cache_rows``).  Every layer's cursor
 whatever its kind.  A model with an encoder stack adds the bf16
 ``"encoder_out"`` leaf ``(batch, n_positions, d_model)``: a prefill with a
 frontend stores the encoder's output there, and every decode step projects
-its cross-attention keys and values from it.
+its cross-attention keys and values from it.  Where ``"attn.qk"`` engages
+bitwise attention, a GQA layer's ``k`` holds packed 1-bit rows (int32,
+``ceil(d_head/32)`` words).
 
 Entry points:
 
@@ -48,7 +50,8 @@ Entry points:
 * ``cache_copy`` / ``caches_equal`` -- a snapshot of a cache, and bitwise
   equality of two
 * ``prefill`` (exact length, with an optional ``frontend``) /
-  ``decode_step``
+  ``decode_step``, under the autotune phases ``"prefill"`` / ``"decode"``
+  (``core/dispatch.py``)
 
 Caches are updated IN PLACE: ``prefill``, ``decode_step``, ``cache_insert``
 and ``cache_reset`` return the dict they were given, mutated.  Entry points
@@ -64,6 +67,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import dispatch
 from repro_torch.core.constants import scalar
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -392,29 +396,31 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict,
     the encoder's output in the frontend's own dtype, as the reference
     does.  Returns (last-position logits (B, V) float32, cache).
     """
-    b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device).broadcast_to(b, s)
-    encoder_out = None
-    if frontend is not None:
-        _check_frontend(cfg, tokens, frontend)
-        if _has_encoder_stack(cfg):
-            encoder_out = _run_encoder(params, frontend, cfg)
-            cache["encoder_out"].copy_(encoder_out)
-    x = _embed_inputs(params, tokens, cfg, positions, frontend)
-    x, _ = T.stack_apply(params["layers"], x, cfg, positions, cache["layers"], encoder_out)
-    x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    return L.unembed(params, x, cfg.tie_embeddings)[:, 0], cache
+    with dispatch.tuning_phase("prefill"):
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device).broadcast_to(b, s)
+        encoder_out = None
+        if frontend is not None:
+            _check_frontend(cfg, tokens, frontend)
+            if _has_encoder_stack(cfg):
+                encoder_out = _run_encoder(params, frontend, cfg)
+                cache["encoder_out"].copy_(encoder_out)
+        x = _embed_inputs(params, tokens, cfg, positions, frontend)
+        x, _ = T.stack_apply(params["layers"], x, cfg, positions, cache["layers"], encoder_out)
+        x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+        return L.unembed(params, x, cfg.tie_embeddings)[:, 0], cache
 
 
 def decode_step(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict) -> Tuple[torch.Tensor, dict]:
     """One decode step.  tokens (B,) -> logits (B, V) float32 + cache.
     Cross-attention, where the model has it, reads the cache's
     ``encoder_out``: zeros until a prefill with a frontend fills it."""
-    b = tokens.shape[0]
-    # a copy: the first layer advances its cursor in place
-    positions = cache["layers"][0]["pos"].to(torch.int64, copy=True).reshape(b, 1)
-    x = _embed_inputs(params, tokens[:, None], cfg, positions)
-    x, _ = T.stack_apply(params["layers"], x, cfg, positions, cache["layers"],
-                         cache.get("encoder_out"))
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params, x, cfg.tie_embeddings)[:, 0], cache
+    with dispatch.tuning_phase("decode"):
+        b = tokens.shape[0]
+        # a copy: the first layer advances its cursor in place
+        positions = cache["layers"][0]["pos"].to(torch.int64, copy=True).reshape(b, 1)
+        x = _embed_inputs(params, tokens[:, None], cfg, positions)
+        x, _ = T.stack_apply(params["layers"], x, cfg, positions, cache["layers"],
+                             cache.get("encoder_out"))
+        x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return L.unembed(params, x, cfg.tie_embeddings)[:, 0], cache

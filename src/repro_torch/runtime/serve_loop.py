@@ -23,16 +23,25 @@ A model with an encoder stack (whisper) serves through ``make_prefill``
 it, as the reference's does.  A patch-stub model (internvl2) goes through
 the engine text only.
 
+Measured dispatch (``backend="auto"``, ``core/dispatch.py``): a compiled
+step resolves every autotune key in the eager warm-up run that precedes its
+capture, so the captured graph holds the chosen kernels and a capture never
+times (a key that misses while capturing raises).  ``ServeEngine(
+autotune_cache_path=)`` loads the process-wide autotune cache at start and
+saves it after each ``run``.
+
 Not ported yet: fault injection, deadlines and retries, snapshots and
-``resume``, backend demotion and autotuned dispatch.  (A demotion changes
-the kernels a step launches, so it will have to capture the step anew, as
-the reference rebuilds its jit wrapper.)
+``resume``, and the engine's degradation policy (``dispatch.pin_demotion``
+is ported; a demotion changes the kernels a step launches, so the policy
+will have to capture the step anew, as the reference rebuilds its jit
+wrapper).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import operator
+import os
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -40,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import dispatch
 from repro_torch.models import model_zoo as Z
 
 __all__ = [
@@ -95,7 +105,9 @@ class CompiledStep:
     first capture, and on the CPU).  ``captures`` / ``replays`` count the
     calls of each kind.  A capturing call goes through the kernel wrappers
     twice (the warm-up run, then the capture, which records each launch
-    once); a replay does not call them.
+    once); a replay does not call them.  The warm-up run is also where
+    every ``"auto"`` dispatch of the step is resolved (timed on a miss), so
+    the capture only reads the autotune cache.
     """
 
     def __init__(self, step: Callable, cfg: ArchConfig, tokens_shape: Tuple[int, ...],
@@ -279,6 +291,13 @@ class ServeEngine:
     eager one on the CPU) also carry ``ms``, the host time of that step,
     synchronised with the device; a tick's ``ms`` ends before its logits
     are copied to the host.
+
+    ``autotune_cache_path``: a JSON file of the autotune cache
+    (``core/dispatch.py``), loaded into the process-wide cache when the
+    engine starts (a warm process then times nothing) and written back at
+    the end of each ``run``; meaningful where the config uses ``"auto"`` or
+    engages bitwise attention with ``"binary"``.  It defaults to
+    ``$REPRO_QMM_AUTOTUNE_CACHE`` where that is set.
     """
 
     def __init__(
@@ -290,6 +309,7 @@ class ServeEngine:
         max_len: int = 256,
         seed: int = 0,
         device="cuda",
+        autotune_cache_path: Optional[str] = None,
     ):
         self.cfg = cfg
         self.params = params
@@ -308,6 +328,11 @@ class ServeEngine:
             raise ValueError(f"params live on {got}, engine device is {self.device}")
         self._next_rid = 0
         self.last_events: List[Dict] = []
+        if autotune_cache_path is None:
+            autotune_cache_path = os.environ.get(dispatch.CACHE_ENV) or None
+        self.autotune_cache_path = autotune_cache_path
+        if autotune_cache_path and os.path.exists(autotune_cache_path):
+            dispatch.get_cache().load(autotune_cache_path)
         self.decode_fn = make_decode_step(cfg, batch_slots, max_len, device=self.device)
         self._cache = Z.init_cache(batch_slots, max_len, cfg, device=self.device)
         # host mirror of each row's cursor: a free row still advances every tick
@@ -379,6 +404,8 @@ class ServeEngine:
         self.last_events = []
         self._t0 = time.perf_counter()
         self._serve(sorted(requests, key=lambda r: (r.arrival_s, r.rid)))
+        if self.autotune_cache_path:
+            dispatch.get_cache().save(self.autotune_cache_path)
         return list(requests)
 
     def _serve(self, queue: List[Request]) -> None:

@@ -514,3 +514,176 @@ def test_engine_on_card_equals_serve_sequential(dev, name="granite-pallas"):
 def test_recurrent_engine_on_card_equals_serve_sequential(dev, name):
     """As for granite: a row's recurrent state does not depend on its batch."""
     test_engine_on_card_equals_serve_sequential(dev, name)
+
+
+# ---- bitwise attention: the scores kernel and the binary-attention path
+
+# ((B, H, S), (B, G, T), dh): bit-bert-base's prefill and 4-slot decode, a
+# GQA decode, MLA's latent decode, ragged dh / T / S, and the row-block
+# classes (1, 4, 16, 64 folded rows; more rows than one block holds)
+BINARY_ATTN_SHAPES = [
+    ((1, 12, 128), (1, 12, 128), 64), ((4, 12, 1), (4, 12, 512), 64),
+    ((4, 32, 1), (4, 8, 512), 128), ((4, 16, 1), (4, 1, 2048), 512),
+    ((2, 6, 5), (2, 3, 333), 100), ((3, 4, 3), (3, 1, 129), 33),
+    ((1, 2, 70), (1, 1, 1), 2048), ((2, 1, 1), (2, 1, 127), 32),
+]
+
+
+@pytest.mark.parametrize("q_shape,k_shape,dh", BINARY_ATTN_SHAPES)
+def test_binary_attn_equals_plain(dev, q_shape, k_shape, dh):
+    """The kernel on the model's layouts -- Q a transposed view, K the
+    packed cache ``(B, T, G, dw)`` permuted, neither contiguous -- equals
+    its plain version bit for bit."""
+    from repro_torch.kernels import binary_attn as K5
+
+    g = torch.Generator(device=dev).manual_seed(sum(q_shape) + dh)
+    (b, h, s), (_, kvh, t) = q_shape, k_shape
+    q = packing.pack_bits(torch.randint(0, 2, (b, s, h, dh), generator=g, device=dev), 1).transpose(1, 2)
+    k = packing.pack_bits(torch.randint(0, 2, (b, t, kvh, dh), generator=g, device=dev), 1).permute(0, 2, 1, 3)
+    before = K5.binary_attn_scores_planes.launches
+    got = K5.binary_attn_scores_planes(q, k, dh=dh)
+    assert K5.binary_attn_scores_planes.launches == before + 1
+    assert torch.equal(got, ref.binary_attn_scores_ref(q, k, dh))
+    assert torch.equal(got.cpu(), ref.binary_attn_scores_ref(q.cpu(), k.cpu(), dh))
+
+
+def _binary_attn_cfg(name, site="attn.qk", backend="pallas"):
+    cfg = smoke_variant(get_config(name))
+    if name.startswith("bit-bert"):
+        cfg = dataclasses.replace(cfg, n_layers=2)
+    return dataclasses.replace(cfg, quant=dataclasses.replace(
+        cfg.quant, backend=backend, backend_overrides=((site, "binary"),)))
+
+
+@pytest.mark.parametrize("name,site", [("bit-bert-base", "attn.qk"), ("granite-8b", "attn.qk"),
+                                       ("deepseek-v2-lite-16b", "attn.qk_latent")])
+def test_binary_attention_model_card_matches_cpu(dev, name, site, monkeypatch):
+    """The smoke models with bitwise scores (autotuning off: the core is
+    the kernel) on the card: the scores kernel runs once a layer a forward
+    (MLA: each decode step's absorbed scores), the logits are bitwise equal
+    with it swapped for its plain version on the same tokens, and the
+    greedy tokens are the CPU's.  The GQA models' logits are also held to
+    the CPU's within CROSS_DEVICE_TOL.  MLA's are not: its absorbed query
+    is a float32 einsum summed in another order on each device, and at one
+    bit a last-bit change at the grid's midpoint flips a query bit, which
+    moves a score by a whole count step (0.05 in the logits, measured)."""
+    from repro_torch.core import backend_registry
+    from repro_torch.kernels import binary_attn as K5
+
+    monkeypatch.setenv("REPRO_QMM_AUTOTUNE", "0")
+    cfg = _binary_attn_cfg(name, site)
+    params = Z.init_serving_params(3, cfg, device="cpu")
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(0, 256, size=(1, 12)))
+
+    def run(device, p, tokens=None):
+        before = K5.binary_attn_scores_planes.launches
+        cache = Z.init_cache(1, 48, cfg, device=device)
+        logits, cache = Z.prefill(p, prompt.to(device), cfg, cache)
+        out, toks = [logits.cpu()], []
+        for i in range(6):
+            toks.append(int(out[-1].argmax()) if tokens is None else tokens[i])
+            logits, cache = Z.decode_step(p, torch.tensor([toks[-1]], device=device), cfg, cache)
+            out.append(logits.cpu())
+        return out, toks, K5.binary_attn_scores_planes.launches - before
+
+    want, want_toks, _ = run("cpu", params)
+    card_params = _to(params, dev)
+    got, got_toks, launched = run(dev, card_params)
+    assert launched == cfg.n_layers * (6 if site == "attn.qk_latent" else 7)
+    spec = backend_registry.get_backend("binary")
+    plain = dataclasses.replace(spec, run_scores=lambda q, k, *, dh: ref.binary_attn_scores_ref(q, k, dh))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(backend_registry._REGISTRY, "binary", plain)
+        swapped, _, none = run(dev, card_params, got_toks)
+    assert none == 0 and all(torch.equal(a, b) for a, b in zip(got, swapped))
+    assert got_toks == want_toks
+    if site == "attn.qk":
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) <= CROSS_DEVICE_TOL
+
+
+def test_binary_attention_replayed_tick_with_autotuning(dev, tmp_path, monkeypatch):
+    """``backend="auto"`` everywhere and ``attn.qk -> binary``, autotuning
+    on: the capturing call resolves every key in its warm-up run (a
+    capture never times), the replayed ticks equal the eager step bit for
+    bit, and a second compiled step on a loaded cache times nothing."""
+    from repro_torch.core import dispatch
+    from repro_torch.runtime.serve_loop import make_decode_step
+
+    monkeypatch.setenv("REPRO_QMM_AUTOTUNE", "1")
+    cfg = _binary_attn_cfg("bit-bert-base", backend="auto")
+    params = Z.init_serving_params(5, cfg, device=dev)
+    cache = dispatch.reset_cache()
+    try:
+        eager, toks = _filled_cache(cfg, params, dev)
+        graphed = Z.cache_copy(eager)
+        step = make_decode_step(cfg, 2, STEP_MAX_LEN, device=dev)
+        for tick in range(4):
+            want, _ = Z.decode_step(params, toks.to(dev), cfg, eager)
+            got, _ = step(params, toks, graphed)
+            assert torch.equal(got, want) and Z.caches_equal(graphed, eager), f"tick {tick}"
+            toks = want.argmax(-1).cpu()
+        assert (step.captures, step.replays) == (1, 3)
+        assert {k.family for k in cache.entries} == {"qmm", "scores"} and cache.timing_runs > 0
+        path = str(tmp_path / "autotune.json")
+        cache.save(path)
+        loaded = dispatch.reset_cache()
+        loaded.load(path)
+        again = make_decode_step(cfg, 2, STEP_MAX_LEN, device=dev)
+        got, _ = again(params, toks, Z.cache_copy(eager))
+        assert loaded.timing_runs == 0 and again.captures == 1
+    finally:
+        dispatch.reset_cache()
+
+
+def test_autotune_on_card_takes_kernels_only_and_raises_when_one_fails(dev, monkeypatch):
+    """On a card ``"auto"`` chooses among the hand-written kernels only, and
+    a kernel that fails to build or launch raises: with ``fused_qmm`` broken
+    the timing of a qmm key raises, and with ``binary_attn`` broken the
+    ``"binary"`` site's ``"auto"`` core raises in a model's prefill; no
+    plain PyTorch core stands in."""
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import binary_attn as K5
+    from repro_torch.kernels import ops
+
+    def broken(*a, **kw):
+        raise RuntimeError("kernel broken on purpose")
+
+    monkeypatch.setenv("REPRO_QMM_AUTOTUNE", "1")
+    assert dispatch.candidate_backends(16, 768, 768, 1, 1, device=dev) == ("pallas", "fused")
+    assert dispatch.candidate_backends(48, 64, 512, 1, 1, family="scores", device=dev) == ("binary",)
+    with monkeypatch.context() as mp:
+        mp.setattr(K2, "fused_qmm", broken)
+        cache = dispatch.AutotuneCache()
+        with pytest.raises(RuntimeError, match="'fused' failed on cuda"):
+            cache.choose(16, 768, 768, 1, 1, tag="decode", device=dev)
+        assert len(cache) == 0
+    cfg = _binary_attn_cfg("bit-bert-base", backend="pallas")
+    params = Z.init_serving_params(5, cfg, device=dev)
+    q = packing.pack_bits(torch.randint(0, 2, (1, 12, 4, 64), device=dev), 1)
+    dispatch.reset_cache()
+    try:
+        with monkeypatch.context() as mp:
+            mp.setattr(K5, "_lib", broken)
+            with pytest.raises(RuntimeError, match="broken on purpose"):
+                ops.binary_attn_scores(q, q, dh=64)
+            with pytest.raises(RuntimeError, match="broken on purpose"):
+                Z.prefill(params, torch.tensor([[1, 2, 3]], device=dev), cfg, Z.init_cache(1, 16, cfg, device=dev))
+    finally:
+        dispatch.reset_cache()
+
+
+def test_autotune_miss_during_capture_raises(dev):
+    """A key that misses while a CUDA graph is captured raises, naming the
+    key; nothing is timed."""
+    from repro_torch.core import dispatch
+
+    cache = dispatch.AutotuneCache()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="autotune miss during a CUDA graph capture"):
+        with torch.cuda.graph(graph, stream=side):
+            cache.choose(16, 768, 768, 1, 1, tag="decode", device=dev)
+    torch.cuda.synchronize(dev)
+    assert cache.timing_runs == 0 and len(cache) == 0

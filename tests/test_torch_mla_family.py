@@ -251,14 +251,18 @@ def test_greedy_decode_and_logits_vs_compiled_reference(model):
 
 
 def test_mla_cache_refuses_unported_cases(model):
-    """The float latent cache and non-rotary positions are refused, and the
-    binary-scores latent site cannot be configured: its scores-only backend
-    names are not in the port's registry."""
+    """The float latent cache and non-rotary positions are refused; the
+    binary-scores latent site is configurable (its scores-only backends are
+    in the port's registry) and leaves the latent cache's layout as it is,
+    while an unknown backend name is still refused."""
     from repro_torch.models import attention as TA
 
     tcfg = model["tcfg"]
     with pytest.raises(ValueError, match="unknown backend"):
-        dataclasses.replace(tcfg.quant, backend_overrides=(("attn.qk_latent", "binary"),))
+        dataclasses.replace(tcfg.quant, backend_overrides=(("attn.qk_latent", "no-such-core"),))
+    bcfg = dataclasses.replace(tcfg, quant=dataclasses.replace(
+        tcfg.quant, backend_overrides=(("attn.qk_latent", "binary"),)))
+    assert TA.init_kv_cache(1, 8, bcfg, "Md", device="cpu")["ckv"].dtype == torch.int8
     with pytest.raises(NotImplementedError):
         TA.init_kv_cache(1, 8, dataclasses.replace(
             tcfg, quant=dataclasses.replace(tcfg.quant, kv_cache_bits=16)), "Md", device="cpu")
