@@ -174,6 +174,29 @@ Phases (each prints its own lines):
    candidates, times and winner logged, and every key timed again in a
    fresh cache, with how many winners agree; a second engine loading the
    file makes 0 timing runs and serves the same tokens.
+13. fault-tolerant serving: granite-8b at full width and depth, W1A8 on
+   ``pallas``, 4 slots, max_len 512, phase 3's 8 requests.  [13a] under
+   ``ROBUST_PLAN`` (two transient tick faults, a NaN row, a failed prefill,
+   a failed snapshot write) with a snapshot every 4 ticks: every request
+   ``ok`` with the unfailed run's tokens (T=0.8 included), each event
+   counted as the plan implies, one snapshot's ms and bytes.  [13b] the
+   ``fused`` engine with ``demote_to="pallas"`` and two injected ``fused``
+   faults: one demotion, a second capture, K1 6 x 252 and K2 4 x 252
+   wrapper launches, a profiled replay after it with K1 252 times and K2
+   none, both graph pools.  [13c] two requests with ``deadline_s=0.5``
+   behind a 1 s stall end ``deadline`` in their slots, the other six ``ok``.
+   [13d] (a)'s run cut at tick 13, resumed by a new engine from its last
+   snapshot, twice: the outputs of an uninterrupted run, one capture, the
+   restore's ms and bytes.  [13e] ``python -m repro_torch.launch.serve``
+   SIGKILLed once its second snapshot is committed and resumed here, equal
+   to an uninterrupted run.  [13f] the W1A8 model freed, granite-8b with
+   ``FLOAT_QUANT`` (bf16 weights, ~16 GB): the engine's greedy tokens equal
+   ``serve_sequential``'s, the bf16 cache's bytes beside the int8 one's,
+   the replayed tick bitwise to the eager one, timed and profiled, and a
+   right-padded batch of 4 through ``prefill(length=)``: logits, the real
+   cache rows and a decode step bitwise the same whatever the pads hold,
+   and the same argmax as each exact-length prefill (the gap logged: the
+   float reductions run over the bucket's rows, ROADMAP section 3).
 11. (printed last) one JSON line of per-kernel numbers, the ``nvidia-smi``
    line, and last ``{"ok": true, "device": {...}}``.  Each kernel's
    ``launches`` is its wrapper's count over its main path's run alone
@@ -186,19 +209,25 @@ Phases (each prints its own lines):
    ``prefill_replay_launches``, of the 128-token prefill graph; each path
    adds ``replay_busy_ms``, that replay's device busy time; K1 adds
    ``gemma3``, ``deepseek``, ``recurrentgemma``, ``mamba2``, ``internvl2``
-   and ``whisper``, the same numbers for phases 7 to 10, ``deepseek`` with
+   and ``whisper``, the same numbers for phases 7 to 10, and ``robust``,
+   phase [13a]'s faulted run with its snapshot and restore numbers; K2
+   adds ``demotion``, [13b]'s run; ``deepseek`` with
    its ``expert_loop`` rows, ``internvl2`` and ``whisper`` with their
    prefill graph's launches; ``whisper``'s ``launches`` are its
-   transcription's).  The whole run took 542.5-546.7 s on an H100 80GB HBM3 at
-   700 W (phase 12 about 90 s of it).
+   transcription's).  The whole run took 634.1 s on an H100 80GB HBM3 at
+   700 W (phase 12 about 90 s of it, phase 13 81 s).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
+from collections import Counter
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -2078,6 +2107,311 @@ def serve_binary_attention(Z, bert_cfg, device, Request, ServeEngine, serve_sequ
     return path
 
 
+# ---------------------------------------------------------------------------
+# phase 13: fault-tolerant serving on granite-8b, snapshots, resume after a
+# SIGKILL, and float serving
+# ---------------------------------------------------------------------------
+
+ROBUST_PLAN = {"decode_fail_ticks": [2, 5], "nan_ticks": {"3": 1}, "prefill_fail_rids": {"5": 1},
+               "snapshot_fail_at": [0]}
+# what ROBUST_PLAN implies: two transient tick faults, each retried once;
+# one NaN row and one failed prefill, each re-admitted once; one failed
+# snapshot write
+ROBUST_EVENTS = {"step_fault": 2, "retry_tick": 2, "nan_logits": 1, "requeue": 2, "prefill_fault": 1,
+                 "snapshot_failed": 1, "request_failed": 0, "demote": 0}
+CRASH_AFTER_TICKS = 13  # (d): the run cut at this tick, resumed from its last snapshot
+KILL_ARGS = ["--requests", "8", "--max-new", "24", "--snapshot-every", "4",
+             "--fault-plan", '{"every_tick_delay_s": 0.2}']
+KILL_TIMEOUT_S = 240
+PAD_TO = 128  # (f): the bucket a right-padded prefill batch is padded to
+
+
+class _Crash(Exception):
+    """Raised from a streaming callback to cut a run mid-batch."""
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def _kinds(events) -> Counter:
+    return Counter(e["kind"] for e in events)
+
+
+def _committed(snap: Path) -> list:
+    return sorted(p.name for p in snap.glob("step_*") if (p / "_COMMITTED").exists())
+
+
+def serve_robust(Z, model_cfg, device, Request, ServeEngine, serve_sequential, make_decode_step, kernels,
+                 smi, workdir: Path, child_args=("--arch", "granite-8b")):
+    """Phase 13 (a)-(e) on ``model_cfg`` at W1A8 (K1, ``pallas``), 4 slots,
+    max_len 512, phase 3's 8 requests.  Returns the main-path numbers of K1
+    (the faulted run) and K2 (the demotion run)."""
+    from repro_torch.core import dispatch
+    from repro_torch.launch import serve as cli
+    from repro_torch.runtime.faults import parse_fault_plan
+
+    cfg = with_backend(model_cfg, "pallas")
+    per_forward = SITES_PER_LAYER * cfg.n_layers
+    k1, k2 = kernels[0], kernels[1]
+    t_phase = time.perf_counter()
+    params = Z.init_serving_params(0, cfg, device=device)
+
+    def requests(**kw):
+        return make_requests(Request, vocab=cfg.vocab_size, **kw)
+
+    def engine(c=cfg, **kw):
+        return ServeEngine(c, params, batch_slots=4, max_len=512, seed=0, device=device, **kw)
+
+    base = [r.output for r in engine().run(requests())]
+
+    # (a) transient faults on pallas, snapshots every 4 ticks
+    snap_a = workdir / "a"
+    eng = engine(fault_plan=ROBUST_PLAN, snapshot_every=4, snapshot_dir=str(snap_a))
+    _zero(kernels)
+    done = eng.run(requests())
+    launched = _counts(kernels)
+    kinds = _kinds(eng.last_events)
+    got_kinds = {k: kinds.get(k, 0) for k in ROBUST_EVENTS}
+    if got_kinds != ROBUST_EVENTS:
+        raise AssertionError(f"[13a] events {got_kinds}, the plan implies {ROBUST_EVENTS}")
+    if [r.state for r in done] != ["ok"] * len(done) or [r.output for r in done] != base:
+        raise AssertionError(f"[13a] states {[r.state for r in done]}; outputs equal to the unfailed "
+                             f"run's: {[r.output == b for r, b in zip(done, base)]}")
+    if launched[0] == 0 or any(launched[1:]):
+        raise AssertionError(f"[13a] wrapper launches {launched}: K1 only expected")
+    snaps = [e["ms"] for e in eng.last_events if e["kind"] == "snapshot"]
+    step_dir = snap_a / _committed(snap_a)[-1]
+    log(f"[13a] {cfg.name} W1A8 pallas under {json.dumps(ROBUST_PLAN)}: {len(done)} requests ok, all "
+        f"8 outputs (2 at T=0.8) equal to the unfailed run's token for token; events {got_kinds}; "
+        f"retries {[r.retries for r in done]}; binary_qmm launches {launched[0]}, "
+        f"{eng.decode_fn.captures} capture, {eng.decode_fn.replays} replays | {smi}")
+    log(f"[13a] {len(snaps)} snapshots (every 4 ticks, one write failed on purpose): {_dir_bytes(step_dir) / 1e6:.1f} "
+        f"MB each (the 4-slot int8 cache and the scheduler's state), ms median {np.median(snaps):.1f} "
+        f"min {np.min(snaps):.1f} max {np.max(snaps):.1f}")
+    robust = dict(launches=launched[0], replays=eng.decode_fn.replays, snapshot_ms=float(np.median(snaps)),
+                  snapshot_bytes=_dir_bytes(step_dir))
+    del eng
+
+    # (b) demotion: fused fails twice, the engine pins fused -> pallas and
+    # captures its decode step anew
+    fcfg = with_backend(cfg, "fused")
+    eng = engine(fcfg, demote_to="pallas", demote_after=2)
+    eng.run(requests(n=2, seed=1))  # captures the fused step
+    fused_pool = pool_bytes(eng.decode_fn.graph)
+    eng.fault_plan = parse_fault_plan({"backend_fail": {"fused": 2}})
+    _zero(kernels)
+    done = eng.run(requests())
+    launched = _counts(kernels)
+    kinds = _kinds(eng.last_events)
+    if kinds.get("demote") != 1 or kinds.get("backend_fault") != 2 or kinds.get("compile") != 1:
+        raise AssertionError(f"[13b] events {kinds}: one demote after two backend faults, one capture")
+    if dispatch.demotions() != {"fused": "pallas"} or eng.decode_fn.captures != 1:
+        raise AssertionError(f"[13b] demotions {dispatch.demotions()}, {eng.decode_fn.captures} captures")
+    if not all(r.state == "ok" and len(r.output) == r.max_new_tokens for r in done):
+        raise AssertionError(f"[13b] requests {[(r.state, len(r.output)) for r in done]}")
+    # the first 4 admissions prefill on fused; the demotion's capture and
+    # every later prefill run on pallas
+    want = [(4 + 2) * per_forward, 4 * per_forward, 0, 0]
+    if launched != want:
+        raise AssertionError(f"[13b] wrapper launches {launched}, expected {want}")
+    prof = profile_forward(lambda: eng.decode_fn.graph.replay())
+    on_device = ours(prof[4])
+    if (on_device["binary_qmm"], on_device["fused_qmm"]) != (per_forward, 0):
+        raise AssertionError(f"[13b] the profiled replay after the demotion ran {on_device}")
+    pallas_pool = pool_bytes(eng.decode_fn.graph)
+
+    def gb(pool):
+        return "not measured" if pool is None else f"{pool[0] / 1e9:.3f} GB reserved, {pool[1] / 1e9:.3f} in use"
+
+    log(f"[13b] fused -> pallas after 2 backend faults: 1 demote, a second capture ({eng.decode_fn.captures} "
+        f"on the new step); wrapper launches K1 {launched[0]} = 6 x {per_forward}, K2 {launched[1]} = 4 x "
+        f"{per_forward} (4 fused prefills before the demotion); the profiled replay after it: binary_qmm "
+        f"{on_device['binary_qmm']}, fused_qmm {on_device['fused_qmm']}, busy {prof[1]:.2f} ms; "
+        f"graph pools: fused {gb(fused_pool)}, pallas {gb(pallas_pool)}; all 8 requests ok | {smi}")
+    demotion = dict(launches=launched[1], replay_launches=on_device["fused_qmm"])
+    dispatch.clear_demotions()
+    del eng
+    torch.cuda.empty_cache()
+
+    # (c) deadlines: two requests of 0.5 s behind a 1 s stall at tick 3
+    reqs = requests()
+    for r in reqs[:2]:
+        r.deadline_s = 0.5
+    eng = engine(fault_plan={"delay_ticks": {"3": 1.0}})
+    done = eng.run(reqs)
+    misses = [e for e in eng.last_events if e["kind"] == "deadline_miss"]
+    if [r.state for r in done] != ["deadline"] * 2 + ["ok"] * 6 or [r.output for r in done[2:]] != base[2:]:
+        raise AssertionError(f"[13c] states {[r.state for r in done]}")
+    if sorted(e["rid"] for e in misses) != [done[0].rid, done[1].rid] or any(e["slot"] is None for e in misses):
+        raise AssertionError(f"[13c] deadline misses {misses}")
+    log(f"[13c] deadline_s=0.5 on 2 requests, a 1.0 s stall before tick 3: both end 'deadline' in their "
+        f"slots (at {[round(e['t'], 3) for e in misses]} s, after {[len(r.output) for r in done[:2]]} "
+        f"tokens), their slots reset and refilled; the other 6 end ok with the unfailed run's tokens")
+    del eng
+
+    # (d) resume in process: (a)'s run cut at tick CRASH_AFTER_TICKS, its
+    # last snapshot resumed by a new engine, twice
+    snap_d = workdir / "d"
+    eng = engine(fault_plan=ROBUST_PLAN, snapshot_every=4, snapshot_dir=str(snap_d))
+    reqs = requests()
+
+    def cut(_tok):
+        if sum(e["kind"] in ("decode_tick", "compile") for e in eng.last_events) >= CRASH_AFTER_TICKS:
+            raise _Crash()
+
+    reqs[0].on_token = cut
+    try:
+        eng.run(reqs)
+        raise AssertionError("[13d] the run was not cut")
+    except _Crash:
+        pass
+    del eng
+    fresh = engine(snapshot_dir=str(snap_d))
+    runs = []
+    for _ in range(2):
+        res = fresh.resume()
+        first = fresh.last_events[0]
+        runs.append((first["tick"], first["ms"], [r.output for r in res], _kinds(fresh.last_events)))
+    if any(out != base for _, _, out, _ in runs) or fresh.decode_fn.captures != 1 or runs[1][3].get("compile"):
+        raise AssertionError(f"[13d] resumed outputs equal: {[out == base for _, _, out, _ in runs]}; "
+                             f"captures {fresh.decode_fn.captures}")
+    restore_bytes = _dir_bytes(snap_d / _committed(snap_d)[-1])
+    log(f"[13d] a new engine resumed the run cut at tick {CRASH_AFTER_TICKS} from its snapshot at tick "
+        f"{runs[0][0]}: restore {runs[0][1]:.1f} ms then {runs[1][1]:.1f} ms for {restore_bytes / 1e6:.1f} MB; "
+        f"all 8 outputs equal to the uninterrupted run's, both times; 1 capture (the first resume's first "
+        f"tick), the second resume replays the same graph ({fresh.decode_fn.replays} replays in all) | {smi}")
+    robust.update(restore_ms=runs[1][1], restore_bytes=restore_bytes)
+    del fresh
+
+    # (e) SIGKILL: a serving process killed once its second snapshot is
+    # committed, resumed here
+    snap_e = workdir / "e"
+    argv = [*child_args, *KILL_ARGS, "--snapshot-dir", str(snap_e)]
+    out_path = workdir / "child.log"
+    t = time.perf_counter()
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.serve", *argv], cwd=ROOT,
+                                env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), stdout=out,
+                                stderr=subprocess.STDOUT)
+        try:
+            seen = set()
+            while time.perf_counter() - t < KILL_TIMEOUT_S and proc.poll() is None and len(seen) < 2:
+                seen.update(_committed(snap_e))
+                time.sleep(0.02)
+            alive = proc.poll() is None
+            proc.send_signal(signal.SIGKILL)
+            proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    kill_s = time.perf_counter() - t
+    if len(seen) < 2 or not alive or proc.returncode != -signal.SIGKILL:
+        raise AssertionError(f"[13e] child: snapshots seen {sorted(seen)}, alive at the kill {alive}, "
+                             f"rc {proc.returncode}; its output:\n{out_path.read_text()[-3000:]}")
+    # the child's config and geometry; its weights are this phase's (seed 0)
+    args = cli.parser().parse_args(argv)
+    kcfg = cli.serving_config(args.arch, args.smoke, args.device)
+
+    def kill_engine(**kw):
+        return ServeEngine(kcfg, params, batch_slots=args.slots, max_len=args.max_len, seed=args.seed,
+                           device=device, **kw)
+
+    want = [r.output for r in kill_engine().run(cli.fixed_queue(args, kcfg.vocab_size))]
+    res = kill_engine(snapshot_dir=str(snap_e)).resume()
+    if [r.output for r in res] != want or any(r.state != "ok" for r in res):
+        raise AssertionError(f"[13e] resumed outputs equal: {[r.output == w for r, w in zip(res, want)]}")
+    child = [ln for ln in out_path.read_text().splitlines() if ln.startswith("[serve]")]
+    log(f"[13e] `python -m repro_torch.launch.serve {' '.join(argv)}` SIGKILLed {kill_s:.1f} s after its "
+        f"start, snapshots {sorted(seen)} committed; resumed here from {_committed(snap_e)[-1]}: all "
+        f"{len(res)} outputs equal to an uninterrupted run's; the child said {child}")
+    del params
+    torch.cuda.empty_cache()
+    log(f"[13] (a)-(e) took {time.perf_counter() - t_phase:.1f} s")
+    return robust, demotion
+
+
+def serve_float(Z, model_cfg, device, Request, ServeEngine, serve_sequential, make_decode_step, kernels,
+                smi, int8_cache_bytes: int):
+    """Phase 13 (f): ``model_cfg`` with ``FLOAT_QUANT`` (bf16 weights and
+    caches): the engine against ``serve_sequential``, the bf16 cache's
+    bytes, the replayed tick timed and profiled, and a right-padded batch
+    through ``prefill(length=)`` against exact-length prefills."""
+    from repro_torch.configs.base import FLOAT_QUANT
+
+    cfg = dataclasses.replace(model_cfg, quant=FLOAT_QUANT)
+    t = time.perf_counter()
+    params = Z.init_serving_params(0, cfg, device=device)
+    torch.cuda.synchronize()
+    log(f"[13f] {cfg.name} FLOAT_QUANT: bf16 params built on the card in {time.perf_counter() - t:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    engine = ServeEngine(cfg, params, batch_slots=4, max_len=512, seed=0, device=device)
+    t = time.perf_counter()
+    done = engine.run(make_requests(Request, vocab=cfg.vocab_size))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    seq = serve_sequential(cfg, params, make_requests(Request, vocab=cfg.vocab_size), max_len=512, seed=0,
+                           device=device)
+    if not all(r.state == "ok" for r in done) or any(
+            g.output != w.output for g, w in zip(done, seq) if g.temperature == 0):
+        raise AssertionError("[13f] float engine greedy tokens differ from serve_sequential's")
+    ticks = [e["ms"] for e in engine.last_events if e["kind"] == "decode_tick"]
+    cache_bytes = sum(t.numel() * t.element_size() for layer in engine._cache["layers"] for t in layer.values())
+    log(f"[13f] float engine: 8 requests ok in {wall:.2f} s, greedy tokens equal serve_sequential for "
+        f"all 6 greedy requests (sampled equal: {sum(g.output == w.output for g, w in zip(done, seq) if g.temperature > 0)}/2); "
+        f"replayed tick ms median {np.median(ticks):.2f}; the 4-slot x 512 bf16 cache {cache_bytes / 1e6:.1f} MB "
+        f"beside phase 3's int8 cache {int8_cache_bytes / 1e6:.1f} MB | {smi}")
+    del engine
+    cache = fill_cache(Z, cfg, params, [r.prompt for r in done[:4]], device)
+    step = torch.tensor([r.output[0] for r in done[:4]], device=device)
+    tick = graph_vs_eager(Z, make_decode_step, cfg, params, cache, 512, step, kernels[0], 0, phase=13,
+                          tag="float decode tick (4 slots)")
+    del cache
+
+    # bucketed prefill: 4 prompts of 32-128 tokens right-padded to PAD_TO,
+    # the pads zeros and then garbage
+    prompts = [np.asarray(r.prompt) for r in done[:4]]
+    lengths = torch.tensor([len(p) for p in prompts], device=device)
+
+    def padded_prefill(fill: int):
+        toks = np.full((4, PAD_TO), fill, np.int64)
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = p
+        logits, cache = Z.prefill(params, torch.as_tensor(toks, device=device), cfg,
+                                  Z.init_cache(4, 512, cfg, device=device), length=lengths)
+        return logits, cache
+
+    pad_logits, pad_cache = padded_prefill(0)
+    other_logits, other_cache = padded_prefill(cfg.vocab_size - 1)
+    rows_equal = all(torch.equal(a[key][i, :n], b[key][i, :n]) for a, b in zip(pad_cache["layers"], other_cache["layers"])
+                     for key in ("k", "v") for i, n in enumerate(lengths.tolist()))
+    nxt = pad_logits.argmax(-1)
+    d_pad, _ = Z.decode_step(params, nxt, cfg, pad_cache)
+    d_other, _ = Z.decode_step(params, nxt, cfg, other_cache)
+    if not (torch.equal(pad_logits, other_logits) and rows_equal and torch.equal(d_pad, d_other)):
+        raise AssertionError("[13f] the pads' contents reached the logits or the real rows of the cache")
+    del other_cache
+    worst = [0.0, 0.0]
+    for i, p in enumerate(prompts):
+        logits, cache = Z.prefill(params, torch.as_tensor(p[None], device=device), cfg,
+                                  Z.init_cache(1, 512, cfg, device=device))
+        d_exact, _ = Z.decode_step(params, nxt[i:i + 1], cfg, cache)
+        for j, (a, b) in enumerate(((pad_logits[i], logits[0]), (d_pad[i], d_exact[0]))):
+            if int(a.argmax()) != int(b.argmax()):
+                raise AssertionError(f"[13f] padded row {i} ({len(p)} tokens): {'prefill' if j == 0 else 'decode'} "
+                                     f"argmax {int(a.argmax())} != exact-length {int(b.argmax())}")
+            worst[j] = max(worst[j], float((a - b).abs().max()))
+    log(f"[13f] 4 prompts of {[len(p) for p in prompts]} tokens right-padded to {PAD_TO} through "
+        f"prefill(length=): logits, the real cache rows and one decode step bitwise equal with the pads "
+        f"zeros or garbage; against each exact-length prefill the same argmax, prefill and one decode step, "
+        f"max |logit gap| {worst[0]:.4g} / {worst[1]:.4g} (max |logit| {float(pad_logits.abs().max()):.4g}; "
+        f"float softmax and P.V sum over {PAD_TO} rows, not the prompt's, and cuBLAS's GEMM depends on M)")
+    del params, pad_cache
+    torch.cuda.empty_cache()
+    return dict(tick, cache_bytes=cache_bytes)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2256,6 +2590,19 @@ def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg, rec
     k5 = serve_binary_attention(Z, bert_cfg, device, Request, ServeEngine, serve_sequential,
                                 make_decode_step, make_prefill, ops, ref,
                                 all_kernels + (K5.binary_attn_scores_planes,))
+
+    # ---- phase 13: fault-tolerant serving, snapshots, resume, float serving
+    int8_cache = Z.init_cache(4, 512, with_backend(model_cfg, "pallas"), device=device)
+    int8_bytes = sum(t.numel() * t.element_size() for layer in int8_cache["layers"] for t in layer.values())
+    del int8_cache
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_13_") as workdir:
+        k1["robust"], k2["demotion"] = serve_robust(
+            Z, model_cfg, device, Request, ServeEngine, serve_sequential, make_decode_step, all_kernels, smi,
+            Path(workdir))
+    serve_float(Z, model_cfg, device, Request, ServeEngine, serve_sequential, make_decode_step, all_kernels,
+                smi, int8_bytes)
+    log(f"[13] phase 13 took {time.perf_counter() - t:.1f} s")
 
     main_path = {"binary_qmm": k1, "fused_qmm": k2, "popcount_qmm": k3, "bitserial_qmm": k4,
                  "binary_attn_scores_planes": k5}

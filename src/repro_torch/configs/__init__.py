@@ -21,6 +21,8 @@ from repro_torch.configs.base import (
     QuantConfig,
     SSMConfig,
     get_config,
+    list_configs,
 )
 
-__all__ = ["ArchConfig", "EncoderConfig", "MLAConfig", "MoEConfig", "QuantConfig", "SSMConfig", "get_config"]
+__all__ = ["ArchConfig", "EncoderConfig", "MLAConfig", "MoEConfig", "QuantConfig", "SSMConfig", "get_config",
+           "list_configs"]

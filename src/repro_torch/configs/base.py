@@ -25,6 +25,7 @@ from typing import Dict, Optional, Tuple
 
 __all__ = [
     "QuantConfig",
+    "FLOAT_QUANT",
     "MoEConfig",
     "MLAConfig",
     "SSMConfig",
@@ -32,6 +33,7 @@ __all__ = [
     "ArchConfig",
     "register",
     "get_config",
+    "list_configs",
 ]
 
 
@@ -97,6 +99,10 @@ class QuantConfig:
                 if fnmatch.fnmatchcase(layer_name, pattern):
                     return b
         return self.backend
+
+
+#: Full-precision serving: bf16 weights, float products, bf16 KV caches.
+FLOAT_QUANT = QuantConfig(enabled=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,3 +235,9 @@ def get_config(name: str) -> ArchConfig:
         return _REGISTRY[name]
     except KeyError:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}") from None
+
+
+def list_configs() -> Tuple[str, ...]:
+    from repro_torch import configs as _pkg  # noqa: F401  (registers every config)
+
+    return tuple(sorted(_REGISTRY))

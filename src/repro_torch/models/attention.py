@@ -1,11 +1,20 @@
-"""GQA attention with the int8 KV cache, serve mode (port of the
-int8-cache path of ``repro.models.attention`` for ``kind`` ``"g"`` and
-``"l"``).
+"""GQA and MLA attention, serve mode (port of ``repro.models.attention``
+for ``kind`` ``"g"``, ``"l"``, ``"Md"`` and ``"Mm"``).
 
-QK^T and PV run as activation x activation integer products through the
-flow abstraction, grouped over kv heads; softmax stays float32.  The cache
-holds re-centered int8 mantissas with per-row (per-slot) affines and
-cursors, so co-batched requests never share a quantization grid.
+With quantized attention QK^T and PV run as activation x activation
+integer products through the flow abstraction, grouped over kv heads;
+softmax stays float32.  The int8 cache holds re-centered mantissas with
+per-row (per-slot) affines and cursors, so co-batched requests never share
+a quantization grid.
+
+Float caches: where the config's quantization is off (``FLOAT_QUANT``) or
+``kv_cache_bits`` is 16, the GQA cache holds bf16 ``k`` / ``v`` rows and
+MLA's latent ``ckv`` is bf16, with only the cursor beside them.  Scores and
+context are then float, as the reference computes them: float32 scores,
+float32 softmax, P.V in the activation dtype; MLA's absorbed decode runs
+its two products in float32.  ``quantize_attention=False`` under quantized
+linears keeps the int8 cache but takes the float path over it,
+dequantized.
 
 Unlike the reference, the cache is updated IN PLACE (``index_copy_`` /
 ``index_put_``): prefill and decode return the same dict they were given.
@@ -44,8 +53,7 @@ counts from the scores family (``kernels.ops.binary_attn_scores``; under
 ``"binary"`` its core is ``"auto"``, under ``"float"`` the float core) and
 an affine epilogue; V stays int8.  MLA's absorbed decode scores take the
 same path where ``"attn.qk_latent"`` names one, its int8 latent cache
-re-binarized at its grid midpoint.  Not ported yet: float caches (GQA and
-latent).
+re-binarized at its grid midpoint.
 """
 
 from __future__ import annotations
@@ -92,12 +100,9 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig) -> dict:
 
 
 def _check_supported(cfg: ArchConfig, kind: str) -> None:
-    q = cfg.quant
     if kind not in ("g", "l") + MLA_KINDS:
         raise NotImplementedError(
             f"attention kind {kind!r} is not ported yet (only 'g', 'l', 'Md', 'Mm')")
-    if not (q.enabled and q.quantize_attention and q.kv_cache_bits in (4, 8)):
-        raise NotImplementedError("only the quantized int8 KV-cache (and latent-cache) path is ported")
     if kind in MLA_KINDS and (cfg.mla is None or cfg.pos_embedding != "rope"):
         raise NotImplementedError(f"{kind!r} layers need cfg.mla and rotary positions")
     if cfg.pos_embedding not in ("rope", "learned", "sinusoidal"):
@@ -113,19 +118,30 @@ def cache_rows(max_len: int, cfg: ArchConfig, kind: str) -> int:
     return max_len
 
 
+def _quantized_cache(quant: QuantConfig) -> bool:
+    return quant.enabled and quant.kv_cache_bits in (4, 8)
+
+
 def init_kv_cache(
     batch: int, max_len: int, cfg: ArchConfig, kind: str = "g", device="cuda"
 ) -> dict:
-    """int8 KV cache with per-row ``pos`` cursors and calibration affines;
-    ``cache_rows(max_len, cfg, kind)`` rows (an MLA kind gets its latent
-    cache, ``init_mla_cache``).  Where ``"attn.qk"`` engages bitwise
-    attention, K holds packed 1-bit rows, int32 ``(batch, rows, kvH,
-    ceil(dh/32))``."""
+    """KV cache with per-row ``pos`` cursors, ``cache_rows(max_len, cfg,
+    kind)`` rows (an MLA kind gets its latent cache, ``init_mla_cache``):
+    int8 with per-row calibration affines where the config quantizes its
+    cache, else bf16.  Where ``"attn.qk"`` engages bitwise attention, K
+    holds packed 1-bit rows, int32 ``(batch, rows, kvH, ceil(dh/32))``."""
     _check_supported(cfg, kind)
     if kind in MLA_KINDS:
         return init_mla_cache(batch, max_len, cfg, device=device)
     kvh, dh = cfg.n_kv_heads, cfg.d_head
     rows = cache_rows(max_len, cfg, kind)
+    if not _quantized_cache(cfg.quant):
+        bf16 = dict(dtype=torch.bfloat16, device=device)
+        return {
+            "k": torch.zeros((batch, rows, kvh, dh), **bf16),
+            "v": torch.zeros((batch, rows, kvh, dh), **bf16),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+        }
     f32 = dict(dtype=torch.float32, device=device)
     if _binary_scores_site(cfg.quant, "attn.qk") is not None:
         k = torch.zeros((batch, rows, kvh, packing.packed_len(dh, 1)), dtype=torch.int32, device=device)
@@ -161,6 +177,13 @@ def _quantize_to_cache(x: torch.Tensor, scale, offset) -> torch.Tensor:
     offset = _per_row(offset, x.ndim)
     q = torch.clamp(torch.round((x.to(torch.float32) - offset) / scale), 0.0, 255.0)
     return (q - 128.0).to(torch.int8)
+
+
+def _dequantize_from_cache(m: torch.Tensor, scale, offset, dtype) -> torch.Tensor:
+    """Re-centered int8 mantissas back to values, in ``dtype``."""
+    scale = _per_row(scale, m.ndim)
+    offset = _per_row(offset, m.ndim)
+    return ((m.to(torch.float32) + 128.0) * scale + offset).to(dtype)
 
 
 def _int_einsum(spec: str, a: torch.Tensor, b: torch.Tensor, k: int) -> torch.Tensor:
@@ -351,7 +374,7 @@ def _pv_float(probs, v, dtype):
     b, h, s, t = probs.shape
     kvh = v.shape[2]
     pg = probs.reshape(b, kvh, h // kvh, s, t).to(dtype)
-    ctx = torch.einsum("bkgst,btkd->bskgd", pg, v.to(dtype))
+    ctx = L.float_einsum("bkgst,btkd->bskgd", pg, v.to(dtype))
     return ctx.reshape(b, s, h, v.shape[3])
 
 
@@ -386,8 +409,9 @@ def _write_prefill_cache(cache, k_m, v_m, s, windowed, k_sc, k_off, v_sc, v_off)
     cache["k"].index_copy_(1, idx, k_m)
     cache["v"].index_copy_(1, idx, v_m)
     cache["pos"] += s
-    for key, val in (("k_scale", k_sc), ("k_offset", k_off), ("v_scale", v_sc), ("v_offset", v_off)):
-        cache[key].copy_(val)
+    if k_sc is not None:
+        for key, val in (("k_scale", k_sc), ("k_offset", k_off), ("v_scale", v_sc), ("v_offset", v_off)):
+            cache[key].copy_(val)
 
 
 def _decode_valid(pos: torch.Tensor, t: int, window: int, windowed: bool) -> torch.Tensor:
@@ -428,7 +452,9 @@ def attention(
     limits attention to the last ``cfg.window_size`` positions.
 
     ``kv_override=(k, v)``, each (B, T, kvH, dh), is cross-attention onto
-    an encoder's T rows: float scores and context, no rope, no cache.
+    an encoder's T rows: float scores and context, no rope, no cache.  A
+    bf16 cache, or quantized linears with ``quantize_attention=False``, take
+    the same float scores and context (over the int8 cache dequantized).
     Returns (out (B, S, D), cache), the cache updated in place.
     """
     _check_supported(cfg, kind)
@@ -455,14 +481,31 @@ def attention(
         q = L.rope(q, positions, theta)
         k = L.rope(k, positions, theta)
     sqrt_dh = torch.sqrt(scalar(float(dh), torch.float32, x.device))
+    quantized = cache is not None and "k_scale" in cache
+    # integer scores and P.V: quantized attention over the in-flight k / v
+    # or an int8 cache; else float, over a bf16 or dequantized int8 cache
+    use_int = (quant.enabled and quant.quantize_attention and kv_override is None
+               and (cache is None or quantized))
     # bitwise scores where "attn.qk" names a scores-only backend (and the
     # cache, if any, holds packed K rows)
     qk_backend = _binary_scores_site(quant, "attn.qk")
-    use_binary = qk_backend is not None and (cache is None or _cache_binary(cache, dh))
+    use_binary = use_int and qk_backend is not None and (cache is None or _cache_binary(cache, dh))
+    # a local layer's cache is a ring when it holds exactly the window
+    windowed = cache is not None and kind == "l" and 0 < cfg.window_size == cache["k"].shape[1]
 
-    if kv_override is not None:
+    if kv_override is not None or (not use_int and (s > 1 or cache is None)):
+        # cross-attention, or a float prefill / stateless pass
         scores = _scores_float(q, k) / sqrt_dh + _mask(s, k.shape[1], causal, window, x.device)
         ctx = _pv_float(L.softmax(scores), v, x.dtype)
+        if cache is not None and kv_override is None:
+            if quantized:
+                k_sc, k_off = _calibrate_rows(k)
+                v_sc, v_off = _calibrate_rows(v)
+                k_m, v_m = _quantize_to_cache(k, k_sc, k_off), _quantize_to_cache(v, v_sc, v_off)
+            else:
+                k_m, v_m = k.to(cache["k"].dtype), v.to(cache["v"].dtype)
+                k_sc = k_off = v_sc = v_off = None
+            _write_prefill_cache(cache, k_m, v_m, s, windowed, k_sc, k_off, v_sc, v_off)
     elif s > 1 or cache is None:
         v_sc, v_off = _calibrate_rows(v)
         v_m = _quantize_to_cache(v, v_sc, v_off)
@@ -479,33 +522,40 @@ def attention(
         probs = L.softmax(scores / sqrt_dh + mask[None, None])
         ctx = _pv_int(probs, v_m, v_sc, v_off)
         if cache is not None:
-            # a local layer's cache is a ring when it holds exactly the window
-            windowed = kind == "l" and 0 < cfg.window_size == cache["k"].shape[1]
             _write_prefill_cache(cache, k_m, v_m, s, windowed, k_sc, k_off, v_sc, v_off)
     else:
         # each row writes at, and attends up to, its own cursor
         cache_len = cache["k"].shape[1]
-        windowed = kind == "l" and 0 < cfg.window_size == cache_len
         pos = cache["pos"].to(torch.int64)  # a copy: the cursor advances below
         slot = pos % cache_len if windowed else pos
-        k_sc, k_off = cache["k_scale"], cache["k_offset"]
-        v_sc, v_off = cache["v_scale"], cache["v_offset"]
         rows = torch.arange(b, device=x.device)
-        write_k = _binarize_to_cache if use_binary else _quantize_to_cache
-        cache["k"].index_put_((rows, slot), write_k(k, k_sc, k_off)[:, 0])
-        cache["v"].index_put_((rows, slot), _quantize_to_cache(v, v_sc, v_off)[:, 0])
+        if quantized:
+            k_sc, k_off = cache["k_scale"], cache["k_offset"]
+            v_sc, v_off = cache["v_scale"], cache["v_offset"]
+            write_k = _binarize_to_cache if use_binary else _quantize_to_cache
+            k_row, v_row = write_k(k, k_sc, k_off), _quantize_to_cache(v, v_sc, v_off)
+        else:
+            k_row, v_row = k.to(cache["k"].dtype), v.to(cache["v"].dtype)
+        cache["k"].index_put_((rows, slot), k_row[:, 0])
+        cache["v"].index_put_((rows, slot), v_row[:, 0])
         cache["pos"] += 1
         valid = _decode_valid(pos, cache_len, window, windowed)
         if use_binary:
             k_t = cache["k"].permute(0, 2, 1, 3)  # (B,kvH,T,dw), read in place
             scores = _scores_binary(q, k_t, k_sc, k_off, dh, qk_backend) / sqrt_dh
-        else:
+        elif use_int:
             scores = _scores_int(q, cache["k"], k_sc, k_off, bits) / sqrt_dh
+        else:
+            src_k, src_v = cache["k"], cache["v"]
+            if quantized:
+                src_k = _dequantize_from_cache(src_k, k_sc, k_off, x.dtype)
+                src_v = _dequantize_from_cache(src_v, v_sc, v_off, x.dtype)
+            scores = _scores_float(q, src_k) / sqrt_dh
         scores = torch.where(
             valid[:, None, None, :], scores, torch.full_like(scores, _NEG_INF)
         )
         probs = L.softmax(scores)
-        ctx = _pv_int(probs, cache["v"], v_sc, v_off)
+        ctx = _pv_int(probs, cache["v"], v_sc, v_off) if use_int else _pv_float(probs, src_v, x.dtype)
 
     ctx = ctx.reshape(b, s, h * dh).to(x.dtype)
     return L.qlinear(p["o"], ctx, quant, name="attn.o"), cache
@@ -544,15 +594,22 @@ def init_mla(gen: torch.Generator, cfg: ArchConfig) -> dict:
 
 
 def init_mla_cache(batch: int, max_len: int, cfg: ArchConfig, device="cuda") -> dict:
-    """The quantized latent cache: int8 ``ckv`` (re-centered mantissas)
-    with per-row ``ckv_scale`` / ``ckv_offset``, bf16 ``k_rope`` and the
-    per-row cursor ``pos``."""
+    """The latent cache: ``ckv`` int8 (re-centered mantissas) with per-row
+    ``ckv_scale`` / ``ckv_offset`` where the config quantizes its cache,
+    else bf16; a bf16 ``k_rope`` and the per-row cursor ``pos``."""
     m = cfg.mla
-    f32 = dict(dtype=torch.float32, device=device)
+    shape = (batch, max_len, m.kv_lora_rank)
+    if not _quantized_cache(cfg.quant):
+        ckv = {"ckv": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+    else:
+        f32 = dict(dtype=torch.float32, device=device)
+        ckv = {
+            "ckv": torch.zeros(shape, dtype=torch.int8, device=device),
+            "ckv_scale": torch.ones((batch,), **f32),
+            "ckv_offset": torch.zeros((batch,), **f32),
+        }
     return {
-        "ckv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=torch.int8, device=device),
-        "ckv_scale": torch.ones((batch,), **f32),
-        "ckv_offset": torch.zeros((batch,), **f32),
+        **ckv,
         "k_rope": torch.zeros((batch, max_len, m.qk_rope_dim), dtype=torch.bfloat16, device=device),
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
@@ -626,7 +683,7 @@ def _pv_int_latent(p_probs, ckv_m, ckv_scale, ckv_offset):
 
 
 def _write_latent(cache: dict, c_m, r_u, s: int) -> None:
-    """Write the quantized latent and rope key in place: a prefill (``s >
+    """Write the latent (in the cache's form) and rope key in place: a prefill (``s >
     1``) at row 0's cursor (it runs on a freshly reset cache), a decode
     step each row at its own cursor; then advance the cursors."""
     if s > 1:
@@ -644,15 +701,16 @@ def _write_latent(cache: dict, c_m, r_u, s: int) -> None:
 def mla_attention(
     p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, cache: dict
 ) -> Tuple[torch.Tensor, dict]:
-    """One MLA mixer application over the quantized latent cache.
+    """One MLA mixer application over the latent cache (int8 or bf16).
 
     ``S > 1`` is a prefill from an empty cache in the decompressed form:
     keys and values up-projected from the float latent through ``qlinear``,
     float32 scores, the causal mask; the prompt's
     latent calibrates the row's cache affine.  ``S == 1`` is a decode step
-    in the absorbed form: q_nope folded through the dequantized ``k_up``,
-    the integer score and context products against the cache
-    (``_scores_int_latent`` / ``_pv_int_latent``), and the context
+    in the absorbed form: q_nope folded through ``k_up`` (dequantized when
+    packed), the integer score and context products against an int8 cache
+    under quantized attention (``_scores_int_latent`` / ``_pv_int_latent``)
+    or float32 ones against the cache's values otherwise, and the context
     unfolded through ``v_up``.  Returns (out (B, S, D), cache), the cache
     updated in place.
     """
@@ -669,32 +727,52 @@ def mla_attention(
     k_rope = L.qlinear(p["k_rope"], x, quant, name="attn.k_rope")  # (B, S, dr)
     k_rope = L.rope(k_rope, positions, cfg.rope_theta)
 
-    if s > 1:
-        sc, off = _calibrate_rows(ckv)
-        cache["ckv_scale"].copy_(sc)
-        cache["ckv_offset"].copy_(off)
+    quantized = "ckv_scale" in cache
+    if not quantized:
+        c_m = ckv.to(cache["ckv"].dtype)
     else:
-        sc, off = cache["ckv_scale"], cache["ckv_offset"]
-    _write_latent(cache, _quantize_to_cache(ckv, sc, off), k_rope.to(cache["k_rope"].dtype), s)
+        if s > 1:
+            sc, off = _calibrate_rows(ckv)
+            cache["ckv_scale"].copy_(sc)
+            cache["ckv_offset"].copy_(off)
+        else:
+            sc, off = cache["ckv_scale"], cache["ckv_offset"]
+        c_m = _quantize_to_cache(ckv, sc, off)
+    _write_latent(cache, c_m, k_rope.to(cache["k_rope"].dtype), s)
 
     if s == 1:
         # ---- absorbed decode over the latent cache
         t = cache["ckv"].shape[1]
-        w_uk = _serving_dense(p["k_up"], m.kv_lora_rank, quant).reshape(m.kv_lora_rank, h, m.qk_nope_dim)
-        w_uv = _serving_dense(p["v_up"], m.kv_lora_rank, quant).reshape(m.kv_lora_rank, h, m.v_head_dim)
+        w_uk, w_uv = (
+            (p[n]["w"] if "w" in p[n] else _serving_dense(p[n], m.kv_lora_rank, quant)).to(torch.float32)
+            for n in ("k_up", "v_up")
+        )
+        w_uk = w_uk.reshape(m.kv_lora_rank, h, m.qk_nope_dim)
+        w_uv = w_uv.reshape(m.kv_lora_rank, h, m.v_head_dim)
         q_abs = torch.einsum("bshd,rhd->bshr", q_nope.to(torch.float32), w_uk)
+        use_int = quantized and quant.quantize_attention
         lat_backend = _binary_scores_site(quant, "attn.qk_latent")
-        if lat_backend is not None:
+        if use_int and lat_backend is not None:
             scores_lat = _scores_binary_latent(q_abs, cache["ckv"], sc, off, lat_backend)
-        else:
+        elif use_int:
             scores_lat = _scores_int_latent(q_abs, cache["ckv"], sc, off, quant.attn_act_bits)
+        else:
+            ckv_all = cache["ckv"]
+            if quantized:
+                ckv_all = _dequantize_from_cache(ckv_all, sc, off, torch.float32)
+            ckv_all = ckv_all.to(torch.float32)
+            scores_lat = torch.einsum("bshr,btr->bhst", q_abs, ckv_all)
         scores_rope = torch.einsum(
             "bshd,btd->bhst", q_rope.to(torch.float32), cache["k_rope"].to(torch.float32)
         )
         scores = (scores_lat + scores_rope) * scale
         valid = torch.arange(t, device=dev)[None, :] < cache["pos"].reshape(-1, 1)
         scores = torch.where(valid[:, None, None, :], scores, torch.full_like(scores, _NEG_INF))
-        ctx_lat = _pv_int_latent(L.softmax(scores), cache["ckv"], sc, off)
+        probs = L.softmax(scores)
+        if use_int:
+            ctx_lat = _pv_int_latent(probs, cache["ckv"], sc, off)
+        else:
+            ctx_lat = torch.einsum("bhst,btr->bshr", probs, ckv_all)
         ctx = torch.einsum("bshr,rhd->bshd", ctx_lat, w_uv)
     else:
         # ---- decompressed prefill
@@ -706,6 +784,6 @@ def mla_attention(
             + torch.einsum("bshd,btd->bhst", q_rope.to(f32), k_rope.to(f32))
         ) * scale
         scores = scores + _mask(s, s, cfg.causal, 0, dev)[None, None]
-        ctx = torch.einsum("bhst,bthd->bshd", L.softmax(scores).to(x.dtype), v)
+        ctx = L.float_einsum("bhst,bthd->bshd", L.softmax(scores).to(x.dtype), v)
     ctx = ctx.reshape(b, s, h * m.v_head_dim).to(x.dtype)
     return L.qlinear(p["o"], ctx, quant, name="attn.o"), cache

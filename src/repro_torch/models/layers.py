@@ -1,9 +1,10 @@
 """Quantization-aware building blocks, serve mode (port of ``repro.models.layers``).
 
 Serving params are plain dicts of tensors: a packed linear is
-``{"w_packed", "w_scale", "w_offset", "w_colsum"}`` and a latent one
-``{"w"}`` (the float linears the reference keeps full precision, such as
-a frontend's stub projection, run through ``float_linear``).  Every cast of the reference is mirrored (float32 before
+``{"w_packed", "w_scale", "w_offset", "w_colsum"}`` and a float one
+``{"w"}``: the linears the reference keeps full precision (a frontend's
+stub projection, through ``float_linear``), and under a config whose
+quantization is off (``FLOAT_QUANT``) every linear, its weight in bf16.  Every cast of the reference is mirrored (float32 before
 quantizing, back to the activation dtype after each product).
 """
 
@@ -25,6 +26,7 @@ __all__ = [
     "pack_linear_for_serving",
     "qlinear",
     "float_linear",
+    "float_einsum",
     "softmax",
     "rmsnorm",
     "rope",
@@ -47,9 +49,10 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, scale: float = 1.0)
 
 
 def pack_linear_for_serving(p: dict, quant: QuantConfig) -> dict:
-    """Offline weight pipeline: binarize, bit-pack along K, precompute colsum."""
+    """Offline weight pipeline: binarize, bit-pack along K, precompute
+    colsum; with quantization off, the weight in bf16."""
     if not quant.enabled:
-        raise NotImplementedError("float (unquantized) serving is not ported yet")
+        return {"w": p["w"].to(torch.bfloat16)}
     wq = Q.quantize_weight(p["w"], quant.weight_bits)
     colsum = FA.weight_corrections(wq)
     packed = wq.pack(axis=0)
@@ -73,8 +76,11 @@ def qlinear(
 
     Per-token calibration on the flattened ``(M, K)`` view keeps co-batched
     slots numerically independent; ``name`` selects per-site backend
-    overrides.
+    overrides.  With quantization off it is the reference's float einsum
+    (``float_linear``).
     """
+    if not quant.enabled:
+        return float_linear(p, x)
     bits = act_bits or quant.act_bits
     k = x.shape[-1]
     wq = Q.QuantTensor(
@@ -92,11 +98,23 @@ def qlinear(
     return out.reshape(*lead, -1).to(x.dtype)
 
 
+def float_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum`` of two operands of one dtype, accumulated in float32 and
+    rounded once to that dtype, as XLA computes a bf16 dot.  A CUDA bf16
+    GEMM accumulates in float32 itself (the package turns off its
+    reduced-precision split-K reductions); the CPU's bf16 product rounds
+    otherwise (one ulp off in some elements), so there both operands go to
+    float32 first."""
+    if a.dtype == torch.float32 or a.device.type == "cuda":
+        return torch.einsum(spec, a, b)
+    return torch.einsum(spec, a.to(torch.float32), b.to(torch.float32)).to(a.dtype)
+
+
 def float_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     """``x (..., K) @ W (K, N)`` in full precision, as the reference's
     ``qlinear(..., mode="float")``: the weight cast to ``x.dtype`` and the
-    product taken in that dtype."""
-    return torch.einsum("...k,kn->...n", x, p["w"].to(x.dtype))
+    product taken in that dtype (``float_einsum``)."""
+    return float_einsum("...k,kn->...n", x, p["w"].to(x.dtype))
 
 
 def softmax(x: torch.Tensor) -> torch.Tensor:

@@ -24,7 +24,8 @@ training loss, so serving params carry none.  A model with a frontend has
 ``"encoder": {"stub_proj": {"w"}, ...}``, the stub projection kept float32,
 plus ``"layers"`` (the encoder's blocks) and ``"final_norm"`` when it has
 an encoder stack; then every decoder block carries ``ln_cross`` and
-``cross_attn``.  Caches are ``{"layers": [cache, ...]}``, one per layer: an int8 KV cache, an MLA layer's latent
+``cross_attn``.  With quantization off (``FLOAT_QUANT``) every linear is
+``{"w"}`` in bf16.  Caches are ``{"layers": [cache, ...]}``, one per layer: an int8 (or bf16) KV cache, an MLA layer's latent
 cache (``ckv``, ``k_rope``), or a recurrent layer's state (``models/ssm.py``:
 ``h`` / ``ssm`` and ``conv``, no rows axis); a ``"l"`` layer's cache holds
 ``min(max_len, window_size)`` rows (its ring buffer), every other
@@ -49,8 +50,8 @@ Entry points:
   rows)`` a cache holds
 * ``cache_copy`` / ``caches_equal`` -- a snapshot of a cache, and bitwise
   equality of two
-* ``prefill`` (exact length, with an optional ``frontend``) /
-  ``decode_step``, under the autotune phases ``"prefill"`` / ``"decode"``
+* ``prefill`` (exact length, with an optional ``frontend``; or
+  right-padded with ``length=``) / ``decode_step``, under the autotune phases ``"prefill"`` / ``"decode"``
   (``core/dispatch.py``)
 
 Caches are updated IN PLACE: ``prefill``, ``decode_step``, ``cache_insert``
@@ -385,8 +386,9 @@ def _check_frontend(cfg: ArchConfig, tokens: torch.Tensor, frontend: torch.Tenso
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict,
-            frontend: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
-    """Process whole prompts (exact length, no padding) from an empty cache.
+            frontend: Optional[torch.Tensor] = None,
+            length: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, dict]:
+    """Process whole prompts from an empty cache.
 
     tokens: (B, S) int.  ``frontend``: stub embeddings of a model with an
     encoder config -- patches (B, P <= S, d_input) spliced over the first P
@@ -395,6 +397,15 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict,
     (as bf16) for the decode steps.  The prefill's cross-attention reads
     the encoder's output in the frontend's own dtype, as the reference
     does.  Returns (last-position logits (B, V) float32, cache).
+
+    ``length``: optional (B,) prompt lengths of a RIGHT-padded batch (a
+    bucketed prefill): logits are taken at ``length - 1`` in each row, and
+    every layer's cursor is rewound to ``length``, so decode overwrites the
+    pad rows.  Pads sit at causally later positions, but this is exact only
+    for float full-attention caches: an int8 cache's calibration sees the
+    pads, a ring evicts real tokens once the padded length reaches its
+    window, and a recurrent state integrates the pads.  Exact length
+    (``length=None``) is the default and what the engine admits with.
     """
     with dispatch.tuning_phase("prefill"):
         b, s = tokens.shape
@@ -407,8 +418,21 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict,
                 cache["encoder_out"].copy_(encoder_out)
         x = _embed_inputs(params, tokens, cfg, positions, frontend)
         x, _ = T.stack_apply(params["layers"], x, cfg, positions, cache["layers"], encoder_out)
-        x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+        if length is None:
+            x_last = x[:, -1:]
+        else:
+            rows = torch.as_tensor(length, device=x.device).reshape(-1).to(torch.int64)
+            x_last = x[torch.arange(b, device=x.device), rows - 1][:, None]
+            _set_stack_pos(cache, rows)
+        x = L.rmsnorm(params["final_norm"], x_last, cfg.norm_eps)
         return L.unembed(params, x, cfg.tie_embeddings)[:, 0], cache
+
+
+def _set_stack_pos(cache: dict, rows: torch.Tensor) -> None:
+    """Overwrite every layer's ``pos`` cursor with per-row values (B,), in
+    place."""
+    for layer in cache["layers"]:
+        layer["pos"].copy_(rows.to(layer["pos"].dtype).broadcast_to(layer["pos"].shape))
 
 
 def decode_step(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict) -> Tuple[torch.Tensor, dict]:

@@ -41,9 +41,10 @@ def init_experts(gen: torch.Generator, n_experts: int, d_in: int, d_out: int, sc
 
 def pack_experts_for_serving(p: dict, quant: QuantConfig) -> dict:
     """Binarize each expert (scales per expert and output column, reduced
-    over K), bit-pack along K (axis 1) and precompute the colsums."""
+    over K), bit-pack along K (axis 1) and precompute the colsums; with
+    quantization off, the stacked weights in bf16."""
     if not quant.enabled:
-        raise NotImplementedError("float (unquantized) serving is not ported yet")
+        return {"w": p["w"].to(torch.bfloat16)}
     wq = Q.binarize_weight(p["w"])  # scale (E, 1, N)
     colsum = FA.weight_corrections(wq)  # (E, N)
     packed = wq.pack(axis=1)
@@ -74,7 +75,10 @@ def expert_qlinear(p: dict, x: torch.Tensor, quant: QuantConfig, k: int) -> torc
     ``quant.backend == "pallas"`` the integer product runs on K1, one
     launch per expert; otherwise it is the plain integer product, the
     reference's own path (which has no kernel here).  The flow-abstraction
-    epilogue then runs once, batched over the experts."""
+    epilogue then runs once, batched over the experts.  With quantization
+    off it is the reference's float einsum in ``x.dtype``."""
+    if not quant.enabled:
+        return L.float_einsum("eck,ekn->ecn", x, p["w"].to(x.dtype))
     wq = Q.QuantTensor(
         mantissa=p["w_packed"],
         scale=p["w_scale"],

@@ -30,11 +30,14 @@ times (a key that misses while capturing raises).  ``ServeEngine(
 autotune_cache_path=)`` loads the process-wide autotune cache at start and
 saves it after each ``run``.
 
-Not ported yet: fault injection, deadlines and retries, snapshots and
-``resume``, and the engine's degradation policy (``dispatch.pin_demotion``
-is ported; a demotion changes the kernels a step launches, so the policy
-will have to capture the step anew, as the reference rebuilds its jit
-wrapper).
+Fault tolerance (the reference's policy, ``runtime/faults.py`` injecting
+failures deterministically): deadlines, in-place tick retries with
+backoff, NaN containment to one request, backend demotion with a new
+capture of the decode step, and snapshots through
+``checkpoint/manager.py`` from which :meth:`ServeEngine.resume` finishes a
+run in a new process.  Unlike the reference's, the port's decode step
+writes the engine's cache in place; ``ServeEngine``'s docstring says what
+that changes.
 """
 
 from __future__ import annotations
@@ -48,9 +51,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import manager as CM
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import dispatch
+from repro_torch.core import backend_registry, dispatch
 from repro_torch.models import model_zoo as Z
+from repro_torch.runtime.faults import BackendFault, FaultInjector, InjectedFault, parse_fault_plan
 
 __all__ = [
     "make_prefill",
@@ -61,6 +67,9 @@ __all__ = [
     "serve_sequential",
     "STATE_PENDING",
     "STATE_OK",
+    "STATE_FAILED",
+    "STATE_DEADLINE",
+    "TERMINAL_STATES",
 ]
 
 
@@ -223,8 +232,12 @@ def make_decode_step(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -
     return CompiledStep(Z.decode_step, cfg, (batch,), (batch, max_len), device)
 
 
+#: Request states (``Request.state``); the last three are terminal.
 STATE_PENDING = "pending"
 STATE_OK = "ok"
+STATE_FAILED = "failed"
+STATE_DEADLINE = "deadline"
+TERMINAL_STATES = (STATE_OK, STATE_FAILED, STATE_DEADLINE)
 
 
 @dataclasses.dataclass
@@ -234,11 +247,17 @@ class Request:
     temperature: float = 0.0
     # open-loop traffic: seconds from run start before the request exists
     arrival_s: float = 0.0
+    # optional deadline, seconds from arrival: past it the request ends
+    # "deadline", whether queued or generating, and frees its slot
+    deadline_s: Optional[float] = None
+    # streaming callback; a re-admitted request streams its replayed tokens
+    # again (consumers that must not deliver twice key on ``retries``)
     on_token: Optional[Callable[[int], None]] = None
     # filled by the engine:
     output: Optional[List[int]] = None
     rid: Optional[int] = None
     state: str = STATE_PENDING
+    retries: int = 0  # re-admissions after failures
     t_admitted: Optional[float] = None
     t_first_token: Optional[float] = None
     t_finished: Optional[float] = None
@@ -271,33 +290,120 @@ class _Slot:
     rng: np.random.Generator
 
 
+@dataclasses.dataclass
+class _EngineState:
+    """What ``_serve`` advances besides the engine's own cache, and with it
+    what a snapshot holds.  ``requests`` is every request in rid order;
+    ``queue`` and ``slots`` refer into it.  ``cur`` is each row's next input
+    token; ``tick`` counts successful decode ticks (a retried tick does not
+    advance it), ``snaps`` snapshot attempts."""
+
+    requests: List[Request]
+    queue: List[Request]
+    slots: List[Optional[_Slot]]
+    cur: np.ndarray
+    tick: int = 0
+    snaps: int = 0
+
+
+def _pack_rng_state(rng: np.random.Generator) -> Dict:
+    """PCG64 state as JSON-able strings (the 128-bit ints overflow)."""
+    st = rng.bit_generator.state
+    return {
+        "bit_generator": st["bit_generator"],
+        "state": str(st["state"]["state"]),
+        "inc": str(st["state"]["inc"]),
+        "has_uint32": int(st["has_uint32"]),
+        "uinteger": int(st["uinteger"]),
+    }
+
+
+def _unpack_rng_state(d: Dict) -> np.random.Generator:
+    rng = np.random.default_rng(0)
+    rng.bit_generator.state = {
+        "bit_generator": d["bit_generator"],
+        "state": {"state": int(d["state"]), "inc": int(d["inc"])},
+        "has_uint32": int(d["has_uint32"]),
+        "uinteger": int(d["uinteger"]),
+    }
+    return rng
+
+
+def _device_error(e: BaseException) -> bool:
+    """An error of the device (a kernel's launch, or an asynchronous fault
+    surfacing at a sync).  It may leave the CUDA context unusable, so no
+    retry in this process can succeed: the engine re-raises it, and
+    recovery is :meth:`ServeEngine.resume` in a new process."""
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(e, accel):
+        return True
+    return isinstance(e, RuntimeError) and not isinstance(e, InjectedFault) and "CUDA" in str(e)
+
+
 class ServeEngine:
-    """Slot-managed continuous batching over the port's serving datapath.
+    """Slot-managed continuous batching with a fault-tolerant control loop.
 
-    Each tick: (1) admit -- while a slot is free and the head of the
+    Each tick: (1) expire -- queued requests past their ``deadline_s`` end
+    "deadline"; (2) admit -- while a slot is free and the head of the
     arrival-ordered queue has arrived, prefill it eagerly at its exact
-    length and insert it into the free slot; (2) decode -- one packed
+    length and insert it into the free slot; (3) decode -- one packed
     decode step over all slots, through ``decode_fn``
-    (:func:`make_decode_step`, built once per engine: the first tick
-    captures it, later ticks replay it); active slots sample and stream
-    their token, and a slot whose budget is spent is reset and freed.  The
-    packed cache lives as long as the engine, so ``run`` after ``run``
-    replays the same graph.
+    (:func:`make_decode_step`: the first tick captures it, later ticks
+    replay it); active slots sample and stream their token, and a slot
+    whose budget is spent is reset and freed; running requests past their
+    deadline end "deadline" and free their slots; (4) snapshot -- every
+    ``snapshot_every`` ticks the engine's state goes through
+    ``CheckpointManager``, so :meth:`resume` can finish the run after a
+    crash.  The packed cache lives as long as the engine and is written in
+    place, so ``run`` after ``run`` replays the same graph.
 
-    ``last_events`` keeps the event trace of the last ``run`` (kinds
-    admit/prefill/insert/compile/decode_tick/finish/reset, each stamped
-    ``t`` in seconds from the start of the run).  prefill, compile (a tick
-    that captured the decode step) and decode_tick (a replayed tick, or an
-    eager one on the CPU) also carry ``ms``, the host time of that step,
-    synchronised with the device; a tick's ``ms`` ends before its logits
-    are copied to the host.
+    Failure policy (the reference's):
+
+    * A failed decode tick is retried in place with exponential backoff, up
+      to ``max_retries`` times.  The step writes the cache in place, so a
+      retry is exact only while the failed attempt left the cache as it
+      was: an injected fault fires before the replay and NaN corruption
+      acts on the host copy of the logits.  A failure that moved the
+      cache's cursors (one raised inside the step) loses the tick: every
+      request of the batch is re-admitted, and every row reset.
+    * A device error (``torch.AcceleratorError``, or a ``RuntimeError``
+      naming CUDA) is re-raised at once, from decode, prefill or snapshot
+      alike: the context it poisons cannot retry it.
+    * A :class:`~repro_torch.runtime.faults.BackendFault` counts against
+      the named backend; ``demote_after`` of them pin a process-wide
+      demotion (``dispatch.pin_demotion``) to ``demote_to``, and the decode
+      step is built anew (the captured graph holds the old backend's
+      kernels; the old step and its graph pool are dropped before the new
+      capture).  On the card ``demote_to`` must be a hand-written kernel
+      (``pallas`` or ``fused``, default ``pallas``); on the CPU it
+      defaults to the reference's ``mxu``.
+    * Non-finite logits fail the one request in that row: it is re-admitted
+      from its prompt under the same ``(seed, rid)`` stream, so its replay
+      is token for token an unfailed run; past ``max_retries``
+      re-admissions it ends "failed".
+    * A failed snapshot write is an event: serving goes on.
+
+    A free row's cursor still advances every tick; before it passes
+    ``max_len`` the row is reset (a global layer has ``max_len`` rows).
+
+    ``last_events`` keeps the event trace of the last ``run`` / ``resume``
+    (kinds admit/prefill/insert/decode_tick/finish/reset, step_fault/
+    retry_tick/backend_fault/demote/nan_logits/requeue/request_failed/
+    prefill_fault/deadline_miss/snapshot/snapshot_failed/resume, and the
+    port's own compile: a tick that captured the decode step), each
+    stamped ``t`` in seconds from the start of the run.  prefill, compile
+    and decode_tick also carry ``ms``, the host time of that step,
+    synchronised with the device (a tick's ends before its logits are
+    copied to the host); snapshot and resume carry the ``ms`` of the write
+    and of the restore.
 
     ``autotune_cache_path``: a JSON file of the autotune cache
     (``core/dispatch.py``), loaded into the process-wide cache when the
-    engine starts (a warm process then times nothing) and written back at
-    the end of each ``run``; meaningful where the config uses ``"auto"`` or
-    engages bitwise attention with ``"binary"``.  It defaults to
-    ``$REPRO_QMM_AUTOTUNE_CACHE`` where that is set.
+    engine starts and written back at the end of each ``run`` /
+    ``resume``; it defaults to ``$REPRO_QMM_AUTOTUNE_CACHE`` where that is
+    set.  ``fault_plan``: a :class:`~repro_torch.runtime.faults.FaultPlan`
+    (or its JSON string or dict), None for none.  ``snapshot_every`` > 0
+    snapshots into ``snapshot_dir`` at that tick cadence.
     """
 
     def __init__(
@@ -310,6 +416,13 @@ class ServeEngine:
         seed: int = 0,
         device="cuda",
         autotune_cache_path: Optional[str] = None,
+        fault_plan=None,
+        max_retries: int = 2,
+        retry_backoff_s: float = 0.005,
+        demote_after: int = 2,
+        demote_to: Optional[str] = None,
+        snapshot_every: int = 0,
+        snapshot_dir: Optional[str] = None,
     ):
         self.cfg = cfg
         self.params = params
@@ -333,10 +446,36 @@ class ServeEngine:
         self.autotune_cache_path = autotune_cache_path
         if autotune_cache_path and os.path.exists(autotune_cache_path):
             dispatch.get_cache().load(autotune_cache_path)
+        self.fault_plan = parse_fault_plan(fault_plan)
+        self.max_retries = max_retries
+        self.retry_backoff_s = retry_backoff_s
+        self.demote_after = demote_after
+        self.demote_to = self._check_demote_to(demote_to)
+        self.snapshot_every = snapshot_every
+        self.snapshot_dir = snapshot_dir
+        self._backend_failures: Dict[str, int] = {}
+        self._demoted: Dict[str, str] = {}
         self.decode_fn = make_decode_step(cfg, batch_slots, max_len, device=self.device)
         self._cache = Z.init_cache(batch_slots, max_len, cfg, device=self.device)
         # host mirror of each row's cursor: a free row still advances every tick
         self._pos = [0] * batch_slots
+
+    def _check_demote_to(self, name: Optional[str]) -> str:
+        """The demotion target: a qmm backend, on the card a hand-written one."""
+        on_card = self.device.type == "cuda"
+        if name is None:
+            name = "pallas" if on_card else dispatch.DEFAULT_BACKEND
+        spec = backend_registry.get_backend(name)
+        if "qmm" not in spec.families:
+            raise ValueError(f"demote_to={name!r} serves no qmm family")
+        if on_card and not spec.cuda_kernel:
+            kernels = [n for n in backend_registry.backend_names("qmm")
+                       if backend_registry.get_backend(n).cuda_kernel]
+            raise ValueError(f"demote_to={name!r} is a plain PyTorch core; on the card an engine "
+                             f"demotes only to a hand-written kernel: {kernels}")
+        return name
+
+    # -- internals ----------------------------------------------------------
 
     def _event(self, kind: str, **kw) -> None:
         self.last_events.append(dict(kind=kind, t=self._clock(), **kw))
@@ -348,7 +487,7 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _admit(self, req: Request, slot: int, cache: dict) -> np.ndarray:
+    def _admit(self, req: Request, slot: int) -> np.ndarray:
         """Exact-length batch-1 prefill, then copy into ``slot``."""
         req.t_admitted = self._clock()
         self._event("admit", rid=req.rid, slot=slot, prompt_len=len(req.prompt))
@@ -358,10 +497,34 @@ class ServeEngine:
         logits, slot_cache = Z.prefill(self.params, tokens, self.cfg, slot_cache)
         self._sync()
         self._event("prefill", rid=req.rid, slot=slot, ms=(time.perf_counter() - t) * 1e3)
-        Z.cache_insert(cache, slot_cache, slot)
+        Z.cache_insert(self._cache, slot_cache, slot)
         self._pos[slot] = len(req.prompt)
         self._event("insert", rid=req.rid, slot=slot)
         return _host(logits)[0]
+
+    def _reset_row(self, i: int, rid: Optional[int]) -> None:
+        Z.cache_reset(self._cache, i, self.cfg, self.max_len)
+        self._pos[i] = 0
+        self._event("reset", rid=rid, slot=i)
+
+    def _decode(self, st: _EngineState) -> np.ndarray:
+        """One packed decode step over every row; the host copy of its logits."""
+        captures = self.decode_fn.captures
+        t = time.perf_counter()
+        out, _ = self.decode_fn(self.params, torch.from_numpy(st.cur), self._cache)
+        self._sync()
+        ms = (time.perf_counter() - t) * 1e3
+        self._pos = [p + 1 for p in self._pos]
+        kind = "compile" if self.decode_fn.captures != captures else "decode_tick"
+        self._event(kind, rids=[s.req.rid if s else None for s in st.slots], ms=ms)
+        return _host(out)
+
+    def _cursors_moved(self) -> bool:
+        """Whether any layer's cursors differ from the host's: a failed
+        step got far enough to write the cache."""
+        want = torch.tensor(self._pos, dtype=torch.int32)
+        return any(not torch.equal(layer["pos"].to("cpu", torch.int32), want)
+                   for layer in self._cache["layers"])
 
     def _emit(self, req: Request, token: int) -> None:
         now = self._clock()
@@ -372,18 +535,76 @@ class ServeEngine:
         if req.on_token is not None:
             req.on_token(token)
 
-    def _finish(self, slots: List[Optional[_Slot]], cache: dict, i: int) -> None:
-        req = slots[i].req
-        req.state = STATE_OK
+    @staticmethod
+    def _expired(req: Request, now: float) -> bool:
+        return req.deadline_s is not None and now - req.arrival_s > req.deadline_s
+
+    @staticmethod
+    def _reset_progress(req: Request) -> None:
+        """Rewind a request to its prompt (re-admission replays from here)."""
+        req.output = []
+        req.token_times = []
+        req.t_admitted = req.t_first_token = req.t_finished = None
+
+    def _requeue(self, st: _EngineState, req: Request, slot: Optional[int]) -> None:
+        """Re-admit ``req`` after a failure, or fail it for good.  The slot
+        it held (if any) is reset; the replay is token for token an
+        unfailed run (progress rewinds to the prompt, and the next
+        admission re-derives the ``(seed, rid)`` stream)."""
+        now = self._clock()
+        if slot is not None and st.slots[slot] is not None:
+            self._reset_row(slot, req.rid)
+            st.slots[slot] = None
+        req.retries += 1
+        if req.retries > self.max_retries:
+            req.state = STATE_FAILED
+            req.t_finished = now
+            self._event("request_failed", rid=req.rid, retries=req.retries)
+            return
+        self._reset_progress(req)
+        st.queue.insert(0, req)
+        self._event("requeue", rid=req.rid, retries=req.retries)
+
+    def _finish(self, st: _EngineState, i: int, state: str = STATE_OK) -> None:
+        req = st.slots[i].req
+        req.state = state
         req.t_finished = self._clock()
-        self._event("finish", rid=req.rid, slot=i)
-        Z.cache_reset(cache, i, self.cfg, self.max_len)
-        self._pos[i] = 0
-        self._event("reset", rid=req.rid, slot=i)
-        slots[i] = None
+        self._event("finish" if state == STATE_OK else "deadline_miss", rid=req.rid, slot=i)
+        self._reset_row(i, req.rid)
+        st.slots[i] = None
+
+    def _demotion_target(self, backend: str) -> Optional[str]:
+        """Where a failing ``backend`` goes: ``demote_to``; where that is the
+        failing one, the default core on the CPU and nowhere on the card
+        (its default is plain PyTorch)."""
+        if self.demote_to != backend:
+            return self.demote_to
+        return None if self.device.type == "cuda" else dispatch.DEFAULT_BACKEND
+
+    def _note_backend_failure(self, backend: str) -> None:
+        """Count a backend-attributed failure; demote the repeat offender."""
+        n = self._backend_failures.get(backend, 0) + 1
+        self._backend_failures[backend] = n
+        self._event("backend_fault", backend=backend, count=n)
+        if n < self.demote_after or backend in self._demoted:
+            return
+        target = self._demotion_target(backend)
+        if target is None:
+            return
+        dispatch.pin_demotion(backend, target)
+        self._demoted[backend] = target
+        # the captured graph launches the demoted backend's kernels: drop it
+        # and its memory pool, and capture anew at the next tick
+        self.decode_fn = None
+        self.decode_fn = make_decode_step(self.cfg, self.slots, self.max_len, device=self.device)
+        self._event("demote", **{"from": backend, "to": target})
+
+    # -- public API ---------------------------------------------------------
 
     def run(self, requests: List[Request]) -> List[Request]:
-        """Serve a queue of requests; returns them in submission order."""
+        """Serve a queue of requests; returns them in submission order, each
+        in a terminal state: "ok" (full output), "deadline" (expired before
+        completing) or "failed" (past its retry budget)."""
         for r in requests:
             prompt = np.asarray(r.prompt)
             if prompt.ndim != 1:
@@ -395,66 +616,279 @@ class ServeEngine:
                     f"prompt_len({len(prompt)}) + max_new_tokens({r.max_new_tokens}) "
                     f"exceeds engine max_len({self.max_len})"
                 )
+            if r.deadline_s is not None and r.deadline_s <= 0:
+                raise ValueError(f"deadline_s must be positive, got {r.deadline_s}")
         for r in requests:
             r.rid = self._next_rid
             self._next_rid += 1
             r.state = STATE_PENDING
-            r.output, r.token_times = [], []
-            r.t_admitted = r.t_first_token = r.t_finished = None
+            r.retries = 0
+            self._reset_progress(r)
         self.last_events = []
         self._t0 = time.perf_counter()
-        self._serve(sorted(requests, key=lambda r: (r.arrival_s, r.rid)))
-        if self.autotune_cache_path:
-            dispatch.get_cache().save(self.autotune_cache_path)
+        self._serve(_EngineState(
+            requests=list(requests),
+            queue=sorted(requests, key=lambda r: (r.arrival_s, r.rid)),
+            slots=[None] * self.slots,
+            cur=np.zeros((self.slots,), np.int64),
+        ))
         return list(requests)
 
-    def _serve(self, queue: List[Request]) -> None:
-        slots: List[Optional[_Slot]] = [None] * self.slots
-        cache = self._cache
-        cur = np.zeros((self.slots,), np.int64)
-        while queue or any(s is not None for s in slots):
-            while queue and queue[0].arrival_s <= self._clock() and None in slots:
-                req = queue.pop(0)
-                i = slots.index(None)
-                logits = self._admit(req, i, cache)
+    def _serve(self, st: _EngineState) -> None:
+        """Drive ``st`` to completion (``run`` and ``resume``); every
+        decision of the failure policy is taken here."""
+        inj = FaultInjector(self.fault_plan)
+        while st.queue or any(s is not None for s in st.slots):
+            # ---- deadline sweep over the waiting queue
+            now = self._clock()
+            for req in [r for r in st.queue if self._expired(r, now)]:
+                st.queue.remove(req)
+                req.state = STATE_DEADLINE
+                req.t_finished = now
+                self._event("deadline_miss", rid=req.rid, slot=None)
+
+            # ---- admission: fill free slots from arrived requests
+            while st.queue and st.queue[0].arrival_s <= self._clock() and None in st.slots:
+                req = st.queue.pop(0)
+                i = st.slots.index(None)
+                try:
+                    inj.before_prefill(req.rid)
+                    logits = self._admit(req, i)
+                except Exception as e:  # noqa: BLE001 -- contained to the request
+                    if _device_error(e):
+                        raise
+                    if not isinstance(e, InjectedFault):
+                        Z.cache_reset(self._cache, i, self.cfg, self.max_len)  # a partial insert
+                        self._pos[i] = 0
+                    self._event("prefill_fault", rid=req.rid, error=repr(e))
+                    self._requeue(st, req, slot=None)
+                    continue
+                if not np.all(np.isfinite(logits)):
+                    self._event("nan_logits", rid=req.rid, slot=i)
+                    self._requeue(st, req, slot=None)
+                    continue
                 slot = _Slot(req, req.max_new_tokens, _request_rng(self.seed, req.rid))
                 tok = _sample(logits, req.temperature, slot.rng)
                 self._emit(req, tok)
                 slot.remaining -= 1
-                slots[i] = slot
-                cur[i] = tok
+                st.slots[i] = slot
+                st.cur[i] = tok
                 if slot.remaining == 0:
-                    self._finish(slots, cache, i)
-            if all(s is None for s in slots):
-                if queue:  # open-loop gap: idle until the next arrival
-                    time.sleep(max(0.0, queue[0].arrival_s - self._clock()))
+                    self._finish(st, i)
+            if all(s is None for s in st.slots):
+                if st.queue:  # open-loop gap: idle until the next arrival
+                    time.sleep(max(0.0, st.queue[0].arrival_s - self._clock()))
                 continue
 
-            for i, slot in enumerate(slots):
+            for i, slot in enumerate(st.slots):
                 # a free row's cursor must not run past a global layer's
                 # max_len rows (a ring layer's write wraps)
                 if slot is None and self._pos[i] >= self.max_len:
-                    Z.cache_reset(cache, i, self.cfg, self.max_len)
-                    self._pos[i] = 0
-                    self._event("reset", rid=None, slot=i)
-            captures = self.decode_fn.captures
-            t = time.perf_counter()
-            out, _ = self.decode_fn(self.params, torch.from_numpy(cur), cache)
-            self._sync()
-            ms = (time.perf_counter() - t) * 1e3
-            self._pos = [p + 1 for p in self._pos]
-            logits = _host(out)
-            kind = "compile" if self.decode_fn.captures != captures else "decode_tick"
-            self._event(kind, rids=[s.req.rid if s else None for s in slots], ms=ms)
-            for i, slot in enumerate(slots):
+                    self._reset_row(i, None)
+
+            # ---- one packed decode tick over every slot, retried in place
+            # on failure; a demotion resets the attempt budget (the next
+            # attempt is a different step)
+            logits = None
+            lost = False
+            attempt = 0
+            while True:
+                try:
+                    inj.before_decode(st.tick, demoted=self._demoted)
+                    logits = inj.corrupt_logits(st.tick, self._decode(st))
+                    break
+                except BackendFault as e:
+                    demoted_before = dict(self._demoted)
+                    self._note_backend_failure(e.backend)
+                    if self._demoted != demoted_before:
+                        attempt = 0
+                        continue
+                    attempt += 1
+                except Exception as e:  # noqa: BLE001 -- step faults are retried
+                    if _device_error(e):
+                        raise
+                    self._event("step_fault", tick=st.tick, error=repr(e))
+                    attempt += 1
+                    lost = not isinstance(e, InjectedFault) and self._cursors_moved()
+                if lost or attempt > self.max_retries:
+                    break
+                backoff = self.retry_backoff_s * (2 ** (attempt - 1))
+                self._event("retry_tick", tick=st.tick, attempt=attempt, backoff_s=backoff)
+                if backoff > 0:
+                    time.sleep(backoff)
+            if logits is None:
+                # the batch is lost, its requests are not: each replays from
+                # its prompt (or fails for good once its budget is spent)
+                for i in range(self.slots):
+                    if st.slots[i] is not None:
+                        self._requeue(st, st.slots[i].req, slot=i)
+                    elif lost:
+                        self._reset_row(i, None)
+                continue
+            st.tick += 1
+            for i, slot in enumerate(st.slots):
                 if slot is None:
                     continue
-                tok = _sample(logits[i], slot.req.temperature, slot.rng)
+                row = logits[i]
+                if not np.all(np.isfinite(row)):
+                    # contain the numerics escape to this one request
+                    self._event("nan_logits", rid=slot.req.rid, slot=i)
+                    self._requeue(st, slot.req, slot=i)
+                    continue
+                tok = _sample(row, slot.req.temperature, slot.rng)
                 self._emit(slot.req, tok)
                 slot.remaining -= 1
-                cur[i] = tok
+                st.cur[i] = tok
                 if slot.remaining == 0:
-                    self._finish(slots, cache, i)
+                    self._finish(st, i)
+
+            # ---- deadline sweep over running slots
+            now = self._clock()
+            for i in range(self.slots):
+                if st.slots[i] is not None and self._expired(st.slots[i].req, now):
+                    self._finish(st, i, state=STATE_DEADLINE)
+
+            # ---- periodic crash-recovery snapshot
+            if self.snapshot_every and st.tick % self.snapshot_every == 0:
+                try:
+                    inj.on_snapshot(st.snaps)
+                    t = time.perf_counter()
+                    self._snapshot(st)
+                    self._event("snapshot", tick=st.tick, ordinal=st.snaps,
+                                ms=(time.perf_counter() - t) * 1e3)
+                except Exception as e:  # noqa: BLE001 -- snapshots are best-effort
+                    if _device_error(e):
+                        raise
+                    self._event("snapshot_failed", tick=st.tick, ordinal=st.snaps, error=repr(e))
+                st.snaps += 1
+
+        if self.autotune_cache_path:
+            dispatch.get_cache().save(self.autotune_cache_path)
+
+    # -- crash-recoverable engine state -------------------------------------
+
+    def _snapshot_manager(self) -> CheckpointManager:
+        if not self.snapshot_dir:
+            raise ValueError("snapshot_dir is not configured on this engine")
+        return CheckpointManager(self.snapshot_dir, keep=2)
+
+    def _snapshot(self, st: _EngineState) -> None:
+        """Persist the engine's state through ``CheckpointManager``: the
+        packed cache and each row's next input token as tensors, the
+        scheduler's state (queue order, slot budgets, each request's
+        progress and PCG64 sampler state) in the manifest's extras.
+        Committed atomically: a crash mid-write leaves the previous
+        snapshot restorable."""
+        tree = {"cache": self._cache, "cur": torch.from_numpy(st.cur)}
+        extras = {
+            "serve": {
+                "arch": self.cfg.name,
+                "seed": int(self.seed),
+                "batch_slots": int(self.slots),
+                "max_len": int(self.max_len),
+                "tick": int(st.tick),
+                "snaps": int(st.snaps),
+                "next_rid": int(self._next_rid),
+                "elapsed_s": float(self._clock()),
+                "queue_rids": [int(r.rid) for r in st.queue],
+                "slots": [
+                    None if s is None else {
+                        "rid": int(s.req.rid),
+                        "remaining": int(s.remaining),
+                        "rng": _pack_rng_state(s.rng),
+                    }
+                    for s in st.slots
+                ],
+                "requests": [
+                    {
+                        "rid": int(r.rid),
+                        "prompt": [int(t) for t in np.asarray(r.prompt)],
+                        "max_new_tokens": int(r.max_new_tokens),
+                        "temperature": float(r.temperature),
+                        "arrival_s": float(r.arrival_s),
+                        "deadline_s": None if r.deadline_s is None else float(r.deadline_s),
+                        "state": r.state,
+                        "retries": int(r.retries),
+                        "output": [int(t) for t in (r.output or [])],
+                        "token_times": [float(t) for t in (r.token_times or [])],
+                    }
+                    for r in st.requests
+                ],
+            }
+        }
+        self._snapshot_manager().save(st.tick, tree, extras)
+
+    def resume(self) -> List[Request]:
+        """Finish the run recorded in ``snapshot_dir``'s latest snapshot.
+
+        Checks the snapshot's geometry from its manifest before loading any
+        array, copies the cache into the engine's own tensors (so a captured
+        decode step replays with no new capture), rebuilds the host cursors
+        from the cache's ``pos`` leaves, the queue, each slot's budget and
+        sampler state, and drives the serve loop to completion: the
+        surviving requests' outputs equal an uninterrupted run's token for
+        token.  Returns every request of the original run in rid order,
+        those finished before the snapshot included."""
+        mgr = self._snapshot_manager()
+        step = mgr.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no committed snapshot in {self.snapshot_dir}")
+        manifest = CM._read_manifest(os.path.join(self.snapshot_dir, f"step_{step:09d}"))
+        s = manifest["extras"]["serve"]
+        if (s["arch"], s["batch_slots"], s["max_len"]) != (self.cfg.name, self.slots, self.max_len):
+            raise ValueError(
+                f"snapshot geometry mismatch: snapshot is {s['arch']} "
+                f"slots={s['batch_slots']} max_len={s['max_len']}, engine is "
+                f"{self.cfg.name} slots={self.slots} max_len={self.max_len}"
+            )
+        t = time.perf_counter()
+        like = {"cache": self._cache, "cur": torch.zeros((self.slots,), dtype=torch.int64)}
+        step, tree, extras = mgr.restore(step, like=like)
+        for dst, src in zip(_leaves(self._cache, []), _leaves(tree["cache"], [])):
+            dst.copy_(src)
+        self._pos = [int(p) for p in self._cache["layers"][0]["pos"].tolist()]
+        self._sync()
+        restore_ms = (time.perf_counter() - t) * 1e3
+        s = extras["serve"]
+
+        by_rid: Dict[int, Request] = {}
+        for rec in s["requests"]:
+            req = Request(
+                prompt=np.asarray(rec["prompt"], np.int32),
+                max_new_tokens=rec["max_new_tokens"],
+                temperature=rec["temperature"],
+                arrival_s=rec["arrival_s"],
+                deadline_s=rec["deadline_s"],
+            )
+            req.rid = rec["rid"]
+            req.state = rec["state"]
+            req.retries = rec["retries"]
+            req.output = list(rec["output"])
+            req.token_times = list(rec["token_times"])
+            if req.token_times:
+                req.t_first_token = req.token_times[0]
+            by_rid[req.rid] = req
+        slots = [
+            None if rec is None else _Slot(by_rid[rec["rid"]], rec["remaining"],
+                                           _unpack_rng_state(rec["rng"]))
+            for rec in s["slots"]
+        ]
+        state = _EngineState(
+            requests=[by_rid[r] for r in sorted(by_rid)],
+            queue=[by_rid[r] for r in s["queue_rids"]],
+            slots=slots,
+            cur=tree["cur"].numpy().astype(np.int64),
+            tick=s["tick"],
+            snaps=s["snaps"],
+        )
+        self._next_rid = max(self._next_rid, s["next_rid"])
+        self.last_events = []
+        # the run's clock goes on where it stopped, so arrivals and deadlines
+        # keep their meaning across the restart
+        self._t0 = time.perf_counter() - s["elapsed_s"]
+        self._event("resume", tick=state.tick, step=step, ms=restore_ms)
+        self._serve(state)
+        return state.requests
 
 
 def serve_sequential(
@@ -466,8 +900,9 @@ def serve_sequential(
     seed: int = 0,
     device="cuda",
 ) -> List[Request]:
-    """One request at a time, batch 1, no slots: the oracle the engine is
-    held to.  Shares ``_sample`` and the per-request RNG keying."""
+    """One request at a time, batch 1, no slots, no faults, no deadlines:
+    the oracle the engine is held to.  Shares ``_sample`` and the
+    per-request RNG keying."""
     Z.check_max_len(cfg, max_len)
     for rid, r in enumerate(requests):
         if len(r.prompt) + r.max_new_tokens > max_len:

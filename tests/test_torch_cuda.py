@@ -687,3 +687,126 @@ def test_autotune_miss_during_capture_raises(dev):
             cache.choose(16, 768, 768, 1, 1, tag="decode", device=dev)
     torch.cuda.synchronize(dev)
     assert cache.timing_runs == 0 and len(cache) == 0
+
+
+# ---- fault-tolerant serving, snapshots and float serving on the card
+
+
+def _robust_requests(n=4, temperature=0.8):
+    from repro_torch.runtime.serve_loop import Request
+
+    rng = np.random.default_rng(1234)
+    return [Request(prompt=rng.integers(0, 256, size=(3 + 2 * i,)).astype(np.int32), max_new_tokens=6,
+                    temperature=temperature) for i in range(n)]
+
+
+def test_robust_engine_under_faults_equals_its_unfailed_run(dev, tmp_path):
+    """Transient tick faults, a NaN row, a prefill fault and a failed
+    snapshot write on the card: every request ends ok with the unfailed
+    run's tokens (T = 0.8 included), one capture, and the last snapshot
+    resumes in a fresh engine to the same outputs."""
+    from repro_torch.runtime.faults import FaultPlan
+    from repro_torch.runtime.serve_loop import ServeEngine
+
+    cfg, params, _ = _step_model("granite-pallas", dev)
+    want = ServeEngine(cfg, params, batch_slots=2, max_len=STEP_MAX_LEN, seed=0, device=dev).run(
+        _robust_requests())
+    plan = FaultPlan(decode_fail_ticks=(1, 4), nan_ticks={2: 1}, prefill_fail_rids={3: 1},
+                     snapshot_fail_at=(0,))
+    snap = str(tmp_path / "snap")
+    eng = ServeEngine(cfg, params, batch_slots=2, max_len=STEP_MAX_LEN, seed=0, device=dev,
+                      fault_plan=plan, snapshot_every=2, snapshot_dir=snap)
+    got = eng.run(_robust_requests())
+    assert [r.state for r in got] == ["ok"] * 4
+    assert [r.output for r in got] == [r.output for r in want]
+    kinds = [e["kind"] for e in eng.last_events]
+    assert (kinds.count("step_fault"), kinds.count("nan_logits"), kinds.count("prefill_fault"),
+            kinds.count("snapshot_failed")) == (2, 1, 1, 1)
+    assert eng.decode_fn.captures == 1
+    fresh = ServeEngine(cfg, params, batch_slots=2, max_len=STEP_MAX_LEN, seed=0, device=dev,
+                        snapshot_dir=snap)
+    assert [r.output for r in fresh.resume()] == [r.output for r in want]
+
+
+@pytest.mark.parametrize("plain", ["mxu", "popcount"])
+def test_plain_demote_to_raises_on_card(dev, plain):
+    from repro_torch.runtime.serve_loop import ServeEngine
+
+    cfg, params, _ = _step_model("granite-pallas", dev)
+    with pytest.raises(ValueError, match="plain PyTorch core"):
+        ServeEngine(cfg, params, batch_slots=2, max_len=STEP_MAX_LEN, device=dev, demote_to=plain)
+    assert ServeEngine(cfg, params, batch_slots=2, max_len=STEP_MAX_LEN, device=dev).demote_to == "pallas"
+
+
+def test_cuda_cache_snapshot_round_trips_bit_for_bit(dev, tmp_path):
+    """Every leaf of a filled card cache (int8 rows, float32 affines, int32
+    cursors; bf16 rows of a float cache) through the checkpoint manager and
+    back onto the card, bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import FLOAT_QUANT
+
+    for cfg_q in (None, FLOAT_QUANT):
+        cfg, params, _ = _step_model("granite-pallas", dev)
+        if cfg_q is not None:
+            cfg = dataclasses.replace(cfg, quant=cfg_q)
+            params = Z.init_serving_params(5, cfg, device=dev)
+        cache, _ = _filled_cache(cfg, params, dev)
+        mgr = CheckpointManager(str(tmp_path / str(cfg_q is None)), keep=1)
+        mgr.save(1, {"cache": cache})
+        like = {"cache": Z.init_cache(2, STEP_MAX_LEN, cfg, device=dev)}
+        _, out, _ = mgr.restore(like=like)
+        assert all(t.device.type == dev.type for layer in out["cache"]["layers"] for t in layer.values())
+        assert Z.caches_equal(out["cache"], cache)
+
+
+def test_float_engine_greedy_tokens_equal_cpu(dev):
+    """FLOAT_QUANT granite smoke (bf16 weights and caches): the engine on
+    the card gives the CPU engine's greedy tokens, and serve_sequential's."""
+    from repro_torch.configs.base import FLOAT_QUANT
+    from repro_torch.runtime.serve_loop import ServeEngine, serve_sequential
+
+    cfg = dataclasses.replace(smoke_variant(get_config("granite-8b")), quant=FLOAT_QUANT)
+    params = Z.init_serving_params(5, cfg, device="cpu")
+    runs = []
+    for device, p in (("cpu", params), (dev, _to(params, dev))):
+        eng = ServeEngine(cfg, p, batch_slots=2, max_len=STEP_MAX_LEN, seed=0, device=device)
+        runs.append([r.output for r in eng.run(_robust_requests(n=5, temperature=0.0))])
+    seq = serve_sequential(cfg, _to(params, dev), _robust_requests(n=5, temperature=0.0),
+                           max_len=STEP_MAX_LEN, seed=0, device=dev)
+    assert runs[1] == runs[0] == [r.output for r in seq]
+
+
+def test_float_padded_prefill_on_card(dev):
+    """prefill(length=) on the card, FLOAT_QUANT granite smoke (one layer,
+    the setting of the reference's pad-isolation test): the pads' contents
+    never reach the logits or the real cache rows (bitwise), and the logits
+    and one decode step stay within the reference's 1e-4 of exact-length
+    prefills.  At full depth the gap grows (chip_smoke.py [13f], ROADMAP
+    section 3): the float reductions run over the bucket's rows."""
+    from repro_torch.configs.base import FLOAT_QUANT
+
+    cfg = dataclasses.replace(smoke_variant(get_config("granite-8b")), quant=FLOAT_QUANT)
+    params = Z.init_serving_params(5, cfg, device=dev)
+    rng = np.random.default_rng(11)
+    lens = [3, 10, 7]
+    prompts = [rng.integers(0, 256, size=(n,)) for n in lens]
+    lengths = torch.tensor(lens, device=dev)
+    runs = []
+    for fill in (0, 255):
+        toks = np.full((3, 12), fill, np.int64)
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = p
+        runs.append(Z.prefill(params, torch.as_tensor(toks, device=dev), cfg,
+                              Z.init_cache(3, STEP_MAX_LEN, cfg, device=dev), length=lengths))
+    (logits, cache), (other, other_cache) = runs
+    assert torch.equal(logits, other)
+    for a, b in zip(cache["layers"], other_cache["layers"]):
+        assert all(torch.equal(a[k][i, :n], b[k][i, :n]) for k in ("k", "v") for i, n in enumerate(lens))
+    nxt = logits.argmax(-1)
+    step, _ = Z.decode_step(params, nxt, cfg, cache)
+    for i, p in enumerate(prompts):
+        exact, c = Z.prefill(params, torch.as_tensor(p[None], device=dev), cfg,
+                             Z.init_cache(1, STEP_MAX_LEN, cfg, device=dev))
+        d, _ = Z.decode_step(params, nxt[i:i + 1], cfg, c)
+        torch.testing.assert_close(logits[i], exact[0], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(step[i], d[0], rtol=1e-4, atol=1e-4)

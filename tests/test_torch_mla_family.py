@@ -251,7 +251,8 @@ def test_greedy_decode_and_logits_vs_compiled_reference(model):
 
 
 def test_mla_cache_refuses_unported_cases(model):
-    """The float latent cache and non-rotary positions are refused; the
+    """Non-rotary positions are refused; ``kv_cache_bits=16`` gives the bf16
+    latent cache (``ckv`` bf16, no affines; once refused); the
     binary-scores latent site is configurable (its scores-only backends are
     in the port's registry) and leaves the latent cache's layout as it is,
     while an unknown backend name is still refused."""
@@ -263,9 +264,9 @@ def test_mla_cache_refuses_unported_cases(model):
     bcfg = dataclasses.replace(tcfg, quant=dataclasses.replace(
         tcfg.quant, backend_overrides=(("attn.qk_latent", "binary"),)))
     assert TA.init_kv_cache(1, 8, bcfg, "Md", device="cpu")["ckv"].dtype == torch.int8
-    with pytest.raises(NotImplementedError):
-        TA.init_kv_cache(1, 8, dataclasses.replace(
-            tcfg, quant=dataclasses.replace(tcfg.quant, kv_cache_bits=16)), "Md", device="cpu")
+    bf16 = TA.init_kv_cache(1, 8, dataclasses.replace(
+        tcfg, quant=dataclasses.replace(tcfg.quant, kv_cache_bits=16)), "Md", device="cpu")
+    assert bf16["ckv"].dtype == torch.bfloat16 and "ckv_scale" not in bf16
     with pytest.raises(NotImplementedError):
         TA.init_kv_cache(1, 8, dataclasses.replace(tcfg, pos_embedding="learned"), "Mm", device="cpu")
     assert TZ.cache_rows(24, tcfg) == [24, 24]
