@@ -197,6 +197,29 @@ Phases (each prints its own lines):
    cache rows and a decode step bitwise the same whatever the pads hold,
    and the same argmax as each exact-length prefill (the gap logged: the
    float reductions run over the bucket's rows, ROADMAP section 3).
+14. QAT training.  [14a] bit-bert-base W1A1 at full width and depth
+   (12 layers, 132 M float32 latents) from ``init_params(seed 0)``: 30
+   steps of 32 x 128 tokens from ``TokenPipeline(seed 0)``, AdamW (lr 1e-3,
+   warm-up 5, cosine to 30), remat on.  Checks: every loss finite, the last
+   below the first, no serving kernel launched.  Logged: step p50 / p99,
+   peak allocated memory, trained tokens/s, one profiled step's busy time,
+   idle share and top kernels.  [14b] a smoke step on the card against the
+   same step on the CPU, TF32 and reduced-precision reductions off: for
+   bit-bert-base and granite-8b the loss and every gradient leaf held to
+   ``TRAIN_LOSS_RTOL`` / ``TRAIN_GRAD_TOL`` (cuBLAS sums in its own
+   order), for gemma3-27b's 8 smoke layers the gaps logged as a reading.  [14c] 6 straight steps equal 3 + checkpoint
+   + restore + 3, params and AdamW state bit for bit.  [14d]
+   ``python -m repro_torch.launch.train`` at full width SIGTERMed once its
+   first checkpoint commits; relaunched, it ends at an uninterrupted run's
+   params and state, bit for bit.  [14e] the trained latents packed and
+   one 128-token ``Z.prefill`` served at W1A1 through K3 (72 launches),
+   logits and cache bitwise equal with K3 swapped for its plain version;
+   the share of positions whose argmax is the input token under the QAT
+   and the all-positions serving forward (a reading; that forward's last
+   row held to ``Z.prefill``'s logits).  [14f] granite-8b at full width on 4 of its 36
+   layers (all 36 would need ~131 GB with Adam): 5 steps of 4 x 512, every
+   loss finite, step time and peak memory logged.  The training numbers
+   go on one ``[14] training numbers`` line.
 11. (printed last) one JSON line of per-kernel numbers, the ``nvidia-smi``
    line, and last ``{"ok": true, "device": {...}}``.  Each kernel's
    ``launches`` is its wrapper's count over its main path's run alone
@@ -211,11 +234,14 @@ Phases (each prints its own lines):
    ``gemma3``, ``deepseek``, ``recurrentgemma``, ``mamba2``, ``internvl2``
    and ``whisper``, the same numbers for phases 7 to 10, and ``robust``,
    phase [13a]'s faulted run with its snapshot and restore numbers; K2
-   adds ``demotion``, [13b]'s run; ``deepseek`` with
+   adds ``demotion``, [13b]'s run; K3 adds ``trained``, [14e]'s
+   launches; ``deepseek`` with
    its ``expert_loop`` rows, ``internvl2`` and ``whisper`` with their
    prefill graph's launches; ``whisper``'s ``launches`` are its
    transcription's).  The whole run took 634.1 s on an H100 80GB HBM3 at
-   700 W (phase 12 about 90 s of it, phase 13 81 s).
+   700 W before phase 14 (phase 12 about 90 s of it, phase 13 81 s), and
+   709.5 s with it (phase 7 124.1 s, phase 14 about 100 s); ``run`` logs
+   each phase's time.
 """
 
 from __future__ import annotations
@@ -2412,6 +2438,310 @@ def serve_float(Z, model_cfg, device, Request, ServeEngine, serve_sequential, ma
     return dict(tick, cache_bytes=cache_bytes)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: QAT training -- bit-bert-base W1A1 at full width and depth, then
+# served through K3; granite-8b at full width on 4 of its 36 layers
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 32, 128, 30  # 128 tokens: the paper's MNLI-m length
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+TRAIN_SMOKE_BATCH = (4, 64)  # [14b]
+RESUME_BATCH, RESUME_CUT, RESUME_STEPS = 8, 3, 6  # [14c]
+CLI_STEPS, CLI_EVERY = 8, 4  # [14d]: the child's run and checkpoint interval
+CLI_TRAIN_ARGS = ["--steps", str(CLI_STEPS), "--batch", "8", "--seq", str(TRAIN_SEQ), "--lr", "1e-3",
+                  "--ckpt-every", str(CLI_EVERY)]
+CLI_TIMEOUT_S = 300
+# [14f]: 8 B latents need ~131 GB with Adam, so 4 of granite-8b's 36 layers
+GRANITE_TRAIN_LAYERS, GRANITE_TRAIN_BATCH, GRANITE_TRAIN_SEQ, GRANITE_TRAIN_STEPS = 4, 4, 512, 5
+# [14b]: a train step on the card against the CPU's (tests/test_torch_cuda.py
+# holds the same): cuBLAS sums its float32 products in its own order, and at
+# W1A1 an ulp can cross a quantizer's bucket edge.  TF32 would show as far
+# larger gaps; the package turns it off and [14b] checks that it is off.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-2
+# [14e]: the all-positions serving forward's last row against Z.prefill's
+# logits, of their largest magnitude (float32 products over 768, summed in
+# another order)
+SERVED_LAST_ROW_TOL = 1e-5
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _trees_equal(a, b) -> bool:
+    from repro_torch.core.tree import leaves
+
+    la, lb = leaves(a), leaves(b)
+    return len(la) == len(lb) and all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def serving_logits(Z, params, tokens, cfg, device):
+    """``Z.prefill``'s forward (an int8 cache, the packed linears through
+    the config's backend) with the logits of every position, (B, S, V)
+    float32, and its cache: bit-bert is an encoder, so each position's
+    argmax is read from one pass.  [14e] holds the cache bitwise to
+    ``Z.prefill``'s and the last row to its logits (the unembed's product
+    over S rows, not one, sums in another order)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    b, s = tokens.shape
+    cache = Z.init_cache(b, s, cfg, device=device)
+    positions = torch.arange(s, device=device).broadcast_to(b, s)
+    x = Z._embed_inputs(params, tokens, cfg, positions)
+    x, _ = T.stack_apply(params["layers"], x, cfg, positions, cache["layers"])
+    return L.unembed(params, L.rmsnorm(params["final_norm"], x, cfg.norm_eps), cfg.tie_embeddings), cache
+
+
+def _timed_steps(step, params, opt, pipe, n: int):
+    losses, times = [], []
+    for _ in range(n):
+        batch = pipe.next()
+        t = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(metrics["loss"]))
+    return params, opt, losses, times
+
+
+def train_models(Z, bert_cfg, granite_cfg, device, ops, ref, kernels, smi, workdir: Path,
+                 child_args=("--arch", "bit-bert-base")) -> dict:
+    """Phase 14.  Returns K3's ``trained`` entry: its launches in [14e]'s
+    ``Z.prefill`` of the trained model.  The training numbers go on a line
+    of their own (``[14] training numbers``)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.smoke import smoke_variant
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import fault_tolerance as FT
+    from repro_torch.runtime import train_loop as TL
+
+    def stream(batch, seq, seed=0, vocab=bert_cfg.vocab_size):
+        return TokenPipeline(DataConfig(vocab_size=vocab, seq_len=seq, global_batch=batch, seed=seed))
+
+    t_phase = time.perf_counter()
+    cfg = bert_cfg
+    tcfg = TL.TrainConfig(optimizer=adamw.AdamWConfig(**TRAIN_OPT), remat=True)
+
+    # (a) bit-bert-base W1A1 trained at full width and depth
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = TL.init_train_state(0, cfg, device=device)
+    n_latent = sum(x.numel() for x in leaves(params))
+    step = TL.make_train_step(cfg, tcfg, device=device)
+    pipe = stream(TRAIN_BATCH, TRAIN_SEQ)
+    _zero(kernels)
+    params, opt, losses, times = _timed_steps(step, params, opt, pipe, TRAIN_STEPS)
+    launched = _counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[14a] losses not finite or not falling: {losses}")
+    if any(launched):
+        raise AssertionError(f"[14a] the training step launched serving kernels {launched}")
+    steady = times[1:]
+    p50, p99 = float(np.median(steady)), float(np.percentile(steady, 99))
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / (p50 / 1e3)
+    log(f"[14a] {cfg.name} W1A{cfg.quant.act_bits} QAT: {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {n_latent / 1e6:.1f} M latents; {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens, AdamW {TRAIN_OPT}, remat on; loss {losses[0]:.4f} -> {losses[-1]:.4f} (min "
+        f"{min(losses):.4f}); every loss finite, the last below the first | {smi}")
+    log(f"[14a] step ms: first {times[0]:.1f}, then p50 {p50:.2f}, p99 {p99:.2f} (min {min(steady):.2f}); "
+        f"{tokens_s:.0f} trained tokens/s at p50; peak allocated {peak / 1e9:.3f} GB; losses "
+        + " ".join(f"{x:.3f}" for x in losses))
+    nxt = pipe._batch_at(pipe.cursor)
+    prof = profile_forward(lambda: step(params, opt, nxt))
+    report_profile(f"bit-bert-base train step ({TRAIN_BATCH} x {TRAIN_SEQ})", *prof, phase=14, wall_ms=p50)
+    trained = dict(train_steps=TRAIN_STEPS, train_tokens_per_step=TRAIN_BATCH * TRAIN_SEQ,
+                   train_first_loss=losses[0], train_last_loss=losses[-1], train_step_p50_ms=p50,
+                   train_step_p99_ms=p99, train_tokens_per_s=tokens_s, train_peak_bytes=peak,
+                   train_busy_ms=prof[1], train_idle_share=1 - prof[1] / p50, train_device_ops=prof[2])
+
+    # (b) a smoke step on the card against the CPU's
+    if torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest" \
+            or torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction:
+        raise AssertionError("[14b] TF32 or reduced-precision reductions are on for the train step")
+    from repro_torch.configs import get_config
+
+    # bit-bert and granite held; gemma3's 8 smoke layers of bf16 activations
+    # carry cuBLAS's other rounding through its qk-norms, so its gaps are a
+    # reading (PERF.md section 7)
+    for scfg, held in ((smoke_variant(cfg), True), (smoke_variant(granite_cfg), True),
+                       (smoke_variant(get_config("gemma3-27b")), False)):
+        sparams = Z.init_params(0, scfg, device="cpu")
+        stoks = torch.from_numpy(stream(*TRAIN_SMOKE_BATCH, seed=1, vocab=scfg.vocab_size).next()["tokens"])
+        runs = [TL.value_and_grad(_to_device(sparams, d), {"tokens": stoks.to(d)}, scfg, tcfg)
+                for d in ("cpu", device)]
+        (m_cpu, g_cpu), (m_dev, g_dev) = runs
+        loss_gap = abs(float(m_dev["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+        gaps = [float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(leaves(g_dev), leaves(g_cpu))]
+        equal = sum(torch.equal(a.cpu(), b) for a, b in zip(leaves(g_dev), leaves(g_cpu)))
+        if held and (loss_gap > TRAIN_LOSS_RTOL or max(gaps) > TRAIN_GRAD_TOL):
+            raise AssertionError(f"[14b] {scfg.name} card vs CPU: loss gap {loss_gap:.3g}, gradient gaps {gaps}")
+        bounds = (f"held to {TRAIN_LOSS_RTOL} / {TRAIN_GRAD_TOL}" if held
+                  else "a reading, not held: PERF.md section 7")
+        log(f"[14b] {scfg.name} ({scfg.n_layers} layers) step ({TRAIN_SMOKE_BATCH[0]} x {TRAIN_SMOKE_BATCH[1]}) "
+            f"on the card against the CPU: loss {float(m_dev['loss']):.7f} vs {float(m_cpu['loss']):.7f} "
+            f"(relative gap {loss_gap:.3g}); gradient leaves: {equal}/{len(gaps)} bit for bit, largest gap "
+            f"{max(gaps):.3g} of a leaf's largest magnitude ({bounds})")
+        key = scfg.name.split("-")[0]
+        trained.update({f"card_vs_cpu_loss_gap_{key}": loss_gap, f"card_vs_cpu_grad_gap_{key}": max(gaps)})
+
+    # (c) 6 straight steps against 3 + checkpoint + restore + 3, on the card
+    def runner(name, total, every):
+        return FT.TrainingRunner(
+            TL.make_train_step(cfg, tcfg, device=device), stream(RESUME_BATCH, TRAIN_SEQ, seed=2),
+            CheckpointManager(str(workdir / name), keep=1),
+            FT.RunnerConfig(total_steps=total, checkpoint_every=every, log_every=10**6), log_fn=lambda *_: None)
+
+    p0, o0 = TL.init_train_state(1, cfg, device=device)
+    pa, oa, _ = runner("c_straight", RESUME_STEPS, 10**6).run(p0, o0)
+    t = time.perf_counter()
+    runner("c_cut", RESUME_CUT, RESUME_CUT).run(p0, o0)
+    save_s = time.perf_counter() - t
+    resumed = runner("c_cut", RESUME_STEPS, 10**6)
+    t = time.perf_counter()
+    start, pr, orr = resumed.try_restore(p0, o0)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t) * 1e3
+    pb, ob, _ = resumed.run(pr, orr, start)
+    ckpt_bytes = _dir_bytes(workdir / "c_cut" / _committed(workdir / "c_cut")[-1])
+    if start != RESUME_CUT or not (_trees_equal(pa, pb) and _trees_equal(oa, ob)):
+        raise AssertionError(f"[14c] resumed at {start}: params equal {_trees_equal(pa, pb)}, "
+                             f"optimizer state equal {_trees_equal(oa, ob)}")
+    log(f"[14c] {RESUME_STEPS} straight steps ({RESUME_BATCH} x {TRAIN_SEQ}) equal {RESUME_CUT} + checkpoint + "
+        f"restore + {RESUME_STEPS - RESUME_CUT}, params and AdamW state bit for bit (no deterministic mode "
+        f"needed); the {RESUME_CUT} steps with their checkpoint {save_s:.2f} s, the checkpoint "
+        f"{ckpt_bytes / 1e9:.3f} GB, its restore {restore_ms:.0f} ms")
+    trained.update(checkpoint_bytes=ckpt_bytes, restore_ms=restore_ms)
+    del pa, oa, pb, ob, pr, orr, p0, o0
+
+    # (d) the CLI at full width, SIGTERMed after its first checkpoint
+    ckpt = workdir / "d"
+    argv = [*child_args, *CLI_TRAIN_ARGS, "--ckpt-dir", str(ckpt), "--device", device.type]
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *argv]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    first = ckpt / f"step_{CLI_EVERY:09d}" / "_COMMITTED"
+    t = time.perf_counter()
+    with open(workdir / "train_child.log", "w") as out:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            while time.perf_counter() - t < CLI_TIMEOUT_S and proc.poll() is None and not first.exists():
+                time.sleep(0.02)
+            alive = proc.poll() is None
+            proc.send_signal(signal.SIGTERM)
+            proc.wait(timeout=CLI_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    text = (workdir / "train_child.log").read_text()
+    stopped = CheckpointManager(str(ckpt)).latest_step()
+    if not alive or proc.returncode != 0 or "exiting after preemption checkpoint" not in text \
+            or stopped is None or not CLI_EVERY <= stopped < CLI_STEPS:
+        raise AssertionError(f"[14d] child: alive at the signal {alive}, rc {proc.returncode}, last "
+                             f"checkpoint {stopped}; its output:\n{text[-3000:]}")
+    cut_s = time.perf_counter() - t
+    t = time.perf_counter()
+    again = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    relaunch_s = time.perf_counter() - t
+    if again.returncode != 0 or f"resumed from step {stopped}" not in again.stdout:
+        raise AssertionError(f"[14d] relaunch rc {again.returncode}:\n{again.stdout[-3000:]}\n{again.stderr[-2000:]}")
+    ccfg = TL.TrainConfig(optimizer=adamw.AdamWConfig(lr=1e-3, warmup_steps=max(CLI_STEPS // 10, 1),
+                                                      total_steps=CLI_STEPS))
+    cp, co = TL.init_train_state(0, cfg, device=device)  # the child's model is ``cfg``, seed 0
+    cp, co, _, _ = _timed_steps(TL.make_train_step(cfg, ccfg, device=device), cp, co,
+                                stream(8, TRAIN_SEQ), CLI_STEPS)
+    _, tree, extras = CheckpointManager(str(ckpt)).restore(CLI_STEPS, like={"params": cp, "opt": co})
+    if not (_trees_equal(tree["params"], cp) and _trees_equal(tree["opt"], co)) \
+            or extras["pipeline"]["cursor"] != CLI_STEPS:
+        raise AssertionError("[14d] the resumed CLI run's params differ from an uninterrupted run's")
+    log(f"[14d] python -m repro_torch.launch.train {' '.join(argv[:2])} ({CLI_STEPS} steps of 8 x {TRAIN_SEQ}) "
+        f"SIGTERMed once step {CLI_EVERY}'s checkpoint committed ({cut_s:.1f} s to its exit): it checkpointed "
+        f"step {stopped} and exited 0; relaunched ({relaunch_s:.1f} s), it resumed from step {stopped} and its "
+        f"step-{CLI_STEPS} params and AdamW state equal an uninterrupted run's bit for bit")
+    del cp, co, tree
+
+    # (e) the trained latents packed and served through K3 (W1A1)
+    serve_cfg = with_backend(cfg, "pallas")
+    sp = Z.prepare_serving_params(params, serve_cfg)
+    prompt = torch.as_tensor(stream(1, TRAIN_SEQ, seed=5).next()["tokens"], device=device).to(torch.int64)
+    per_forward = BERT_SITES_PER_LAYER * cfg.n_layers
+
+    def serve_prefill():
+        return Z.prefill(sp, prompt, serve_cfg, Z.init_cache(1, TRAIN_SEQ, serve_cfg, device=device))
+
+    torch.cuda.synchronize()
+    _zero(kernels)
+    last, cache = serve_prefill()
+    torch.cuda.synchronize()
+    launched = _counts(kernels)
+    if launched != [0, 0, per_forward, 0]:
+        raise AssertionError(f"[14e] the trained model's prefill launched K1-K4 {launched}; expected K3 = "
+                             f"{per_forward} and no other")
+    plain = lambda a, b: ref.popcount_qmm_ref(a, b, 32 * a.shape[1])  # noqa: E731
+    with mock.patch.object(ops._pq, "popcount_qmm", plain):
+        last_plain, cache_plain = serve_prefill()
+    if not torch.equal(last, last_plain) or not Z.caches_equal(cache, cache_plain):
+        raise AssertionError("[14e] the trained model's prefill (logits, cache) differs with K3 swapped for "
+                             "its plain version")
+    if not bool(torch.isfinite(last).all()) or last.shape != (1, cfg.vocab_size):
+        raise AssertionError("[14e] served logits not finite or of the wrong shape")
+    served, served_cache = serving_logits(Z, sp, prompt, serve_cfg, device)
+    last_gap = float((served[:, -1] - last).abs().max()) / float(last.abs().max())
+    if not Z.caches_equal(served_cache, cache) or last_gap > SERVED_LAST_ROW_TOL:
+        raise AssertionError(f"[14e] the all-positions serving forward differs from Z.prefill: cache equal "
+                             f"{Z.caches_equal(served_cache, cache)}, last row {last_gap:.3g} of its scale")
+    with torch.no_grad():
+        qat, _ = Z.forward_logits(params, prompt, cfg)
+    share_qat = float((qat.argmax(-1) == prompt).float().mean())
+    share_served = float((served.argmax(-1) == prompt).float().mean())
+    agree = float((qat.argmax(-1) == served.argmax(-1)).float().mean())
+    log(f"[14e] trained latents packed (prepare_serving_params) and a {TRAIN_SEQ}-token Z.prefill served at "
+        f"W1A1: popcount_qmm launches {launched[2]} = {BERT_SITES_PER_LAYER} x {cfg.n_layers}, logits and "
+        f"cache bitwise equal with popcount_qmm swapped for popcount_qmm_ref; argmax == input token at "
+        f"{share_qat:.4f} of positions under the QAT forward, {share_served:.4f} served (the all-positions "
+        f"serving forward: its cache bitwise Z.prefill's, its last row {last_gap:.3g} of the logits' scale "
+        f"from Z.prefill's; the two argmaxes agree at {agree:.4f}; a reading: PERF.md section 7)")
+    trained.update(argmax_share_qat=share_qat, argmax_share_served=share_served, argmax_agree=agree)
+    k3_trained = dict(launches=launched[2])
+    del params, opt, sp, step, served, served_cache, last, last_plain, cache, cache_plain, qat
+    torch.cuda.empty_cache()
+
+    # (f) granite-8b at full width, 4 of its 36 layers
+    gcfg = dataclasses.replace(granite_cfg, n_layers=GRANITE_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    gp, go = TL.init_train_state(0, gcfg, device=device)
+    n_latent = sum(x.numel() for x in leaves(gp))
+    gstep = TL.make_train_step(gcfg, TL.TrainConfig(optimizer=adamw.AdamWConfig(
+        lr=1e-3, warmup_steps=1, total_steps=GRANITE_TRAIN_STEPS)), device=device)
+    gpipe = stream(GRANITE_TRAIN_BATCH, GRANITE_TRAIN_SEQ, vocab=gcfg.vocab_size)
+    gp, go, glosses, gtimes = _timed_steps(gstep, gp, go, gpipe, GRANITE_TRAIN_STEPS)
+    gpeak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(glosses)):
+        raise AssertionError(f"[14f] granite losses not finite: {glosses}")
+    g50 = float(np.median(gtimes[1:]))
+    log(f"[14f] {granite_cfg.name} at full width (d_model {gcfg.d_model}, d_ff {gcfg.d_ff}, vocab "
+        f"{gcfg.vocab_size}) with {GRANITE_TRAIN_LAYERS} of its {granite_cfg.n_layers} layers "
+        f"({n_latent / 1e9:.3f} B latents; all 36 would need ~131 GB with Adam): {GRANITE_TRAIN_STEPS} steps "
+        f"of {GRANITE_TRAIN_BATCH} x {GRANITE_TRAIN_SEQ}, losses " + " ".join(f"{x:.4f}" for x in glosses)
+        + f", all finite; step ms first {gtimes[0]:.1f}, then median {g50:.2f} ("
+        + ", ".join(f"{x:.1f}" for x in gtimes[1:]) + f"); {GRANITE_TRAIN_BATCH * GRANITE_TRAIN_SEQ / (g50 / 1e3):.0f} "
+        f"trained tokens/s; peak allocated {gpeak / 1e9:.2f} GB | {smi}")
+    trained.update(granite_layers=GRANITE_TRAIN_LAYERS, granite_step_ms=g50, granite_peak_bytes=gpeak)
+    del gp, go, gstep
+    torch.cuda.empty_cache()
+    log("[14] training numbers: " + json.dumps(trained))
+    log(f"[14] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return k3_trained
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2455,12 +2785,19 @@ def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg, rec
 
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
+    laps = [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        laps.append(time.perf_counter())
+        log(f"[{phase}] phase {phase} took {laps[-1] - laps[-2]:.1f} s")
+
     rates = mma_rates(rate_job)
     log("[2] mma.sync from registers, every SM: " + ", ".join(
         f"{name} {r / 1e12:.1f} TOP/s" for name, r in rates.items()))
     log("[2] kernels against their plain versions (M, K, N):")
     rows = check_kernels(gen)
     rows.update(check_bit_kernels(gen))
+    lap("2")
 
     # ---- phase 3: main path, full width and depth
     cfg = with_backend(model_cfg, "pallas")
@@ -2567,29 +2904,37 @@ def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg, rec
 
     del params
     torch.cuda.empty_cache()
+    lap("3-4")
 
     k3 = serve_bitbert(Z, bert_cfg, device, Request, ServeEngine, serve_sequential,
                             make_decode_step, make_prefill, ops, ref, all_kernels)
+    lap("5")
     k4 = dict(launches=act_act(device, gen, all_kernels), replays=None, replay_launches=None)
+    lap("6")
     k1["gemma3"] = serve_gemma3(Z, gemma3_cfg, device, Request, ServeEngine, serve_sequential,
                                 make_decode_step, ops, ref, all_kernels, smi)
+    lap("7")
     k1["deepseek"] = serve_deepseek(Z, deepseek_cfg, device, Request, ServeEngine, make_decode_step,
                                     ops, ref, all_kernels, smi, gen)
+    lap("8")
     for rcfg in recurrent_cfgs:
         k1[rcfg.name.split("-")[0]] = serve_recurrent(
             Z, rcfg, device, Request, ServeEngine, serve_sequential, make_decode_step, ops, ref,
             all_kernels, smi)
+    lap("9")
     internvl_cfg, whisper_cfg = encoder_cfgs
     k1["internvl2"] = serve_internvl(Z, internvl_cfg, device, Request, ServeEngine, serve_sequential,
                                      make_decode_step, make_prefill, ops, ref, all_kernels, smi)
     k1["whisper"] = serve_whisper(Z, whisper_cfg, device, ServeEngine, make_decode_step, make_prefill,
                                   ops, ref, all_kernels, smi)
+    lap("10")
 
     log("[12] the scores kernel against its plain version (B, H, S, dw) x (B, G, T, dw):")
     rows["binary_attn_scores_planes"] = check_binary_attn(gen)
     k5 = serve_binary_attention(Z, bert_cfg, device, Request, ServeEngine, serve_sequential,
                                 make_decode_step, make_prefill, ops, ref,
                                 all_kernels + (K5.binary_attn_scores_planes,))
+    lap("12")
 
     # ---- phase 13: fault-tolerant serving, snapshots, resume, float serving
     int8_cache = Z.init_cache(4, 512, with_backend(model_cfg, "pallas"), device=device)
@@ -2603,6 +2948,10 @@ def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg, rec
     serve_float(Z, model_cfg, device, Request, ServeEngine, serve_sequential, make_decode_step, all_kernels,
                 smi, int8_bytes)
     log(f"[13] phase 13 took {time.perf_counter() - t:.1f} s")
+
+    # ---- phase 14: QAT training, and the trained model served through K3
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_14_") as workdir:
+        k3["trained"] = train_models(Z, bert_cfg, model_cfg, device, ops, ref, all_kernels, smi, Path(workdir))
 
     main_path = {"binary_qmm": k1, "fused_qmm": k2, "popcount_qmm": k3, "bitserial_qmm": k4,
                  "binary_attn_scores_planes": k5}

@@ -43,6 +43,8 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.tree import leaves_with_paths, unflatten
+
 __all__ = ["CheckpointManager"]
 
 _MANIFEST = "manifest.json"
@@ -59,31 +61,6 @@ def _read_manifest(dirname: str) -> dict:
         return json.load(f)
 
 
-def _flatten_with_paths(tree, path: str = "", out: Optional[List] = None) -> List[Tuple[str, Any]]:
-    """``(path, leaf)`` of every leaf (tensor) of a tree of dicts, lists
-    and tuples, in order; a path joins the keys and indices with ``/``."""
-    out = [] if out is None else out
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            _flatten_with_paths(v, f"{path}/{k}", out)
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            _flatten_with_paths(v, f"{path}/{i}", out)
-    else:
-        out.append((path, tree))
-    return out
-
-
-def _unflatten(like, leaves, it=None):
-    """``like``'s structure with its leaves replaced, in order, by ``leaves``."""
-    it = iter(leaves) if it is None else it
-    if isinstance(like, dict):
-        return {k: _unflatten(v, leaves, it) for k, v in like.items()}
-    if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(v, leaves, it) for v in like)
-    return next(it)
-
-
 def _to_host(leaf: torch.Tensor) -> Tuple[np.ndarray, str, Optional[str]]:
     """A tensor as a numpy array, with its dtype's name and, where npz
     cannot hold the dtype, the dtype it is stored as."""
@@ -96,7 +73,7 @@ def _to_host(leaf: torch.Tensor) -> Tuple[np.ndarray, str, Optional[str]]:
 def _from_host(arr: np.ndarray, entry: dict) -> torch.Tensor:
     if entry.get("stored_as") == "uint16":
         return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(arr))
+    return torch.from_numpy(np.array(arr, order="C"))  # keeps a 0-d leaf 0-d
 
 
 class CheckpointManager:
@@ -123,7 +100,7 @@ class CheckpointManager:
         try:
             arrays = {}
             meta = []
-            for i, (p, leaf) in enumerate(_flatten_with_paths(tree)):
+            for i, (p, leaf) in enumerate(leaves_with_paths(tree)):
                 arr, dtype, stored_as = _to_host(leaf)
                 entry = {"path": p, "dtype": dtype, "shape": list(arr.shape)}
                 if stored_as is not None:
@@ -210,7 +187,7 @@ class CheckpointManager:
         data = np.load(os.path.join(d, "arrays.npz"))
         by_path = {m["path"]: (m, data[f"a{i}"]) for i, m in enumerate(manifest["leaves"])}
         out = []
-        for p, leaf in _flatten_with_paths(like):
+        for p, leaf in leaves_with_paths(like):
             if p not in by_path:
                 raise KeyError(f"checkpoint missing leaf {p}")
             entry, arr = by_path[p]
@@ -218,7 +195,7 @@ class CheckpointManager:
             if tuple(t.shape) != tuple(leaf.shape):
                 raise ValueError(f"shape mismatch at {p}: {tuple(t.shape)} vs {tuple(leaf.shape)}")
             out.append(t.to(device=leaf.device, dtype=leaf.dtype))
-        return step, _unflatten(like, out), manifest["extras"]
+        return step, unflatten(like, out), manifest["extras"]
 
     # ------------------------------------------------------------------
     def _prune(self) -> None:

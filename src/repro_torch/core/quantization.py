@@ -1,9 +1,13 @@
-"""Affine quantization, serving subset (port of ``repro.core.quantization``).
+"""Affine quantization (port of ``repro.core.quantization``).
 
 Every QMM operand is ``alpha * x + gamma`` with an unsigned n-bit mantissa
 ``x``.  Sign-binarized weights ``+-alpha`` are mantissa ``{0, 1}`` with
-``scale = 2*alpha, offset = -alpha``.  The straight-through estimators of
-the reference serve training, which this slice does not port.
+``scale = 2*alpha, offset = -alpha``.
+
+The straight-through estimators (``ste_round``, ``fake_quant``,
+``fake_binarize_weight``) are QAT's float-domain forward: quantize and
+dequantize in the input's dtype, op by op as the reference evaluates them,
+with the reference's gradients (autograd through the same expressions).
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import packing
-from repro_torch.core.constants import as_scalar
+from repro_torch.core.constants import as_scalar, scalar
 
 __all__ = [
     "QuantTensor",
@@ -22,6 +26,9 @@ __all__ = [
     "binarize_weight",
     "quantize_weight",
     "recenter",
+    "ste_round",
+    "fake_quant",
+    "fake_binarize_weight",
 ]
 
 
@@ -163,3 +170,53 @@ def quantize_weight(w: torch.Tensor, bits: int) -> QuantTensor:
     if bits == 1:
         return binarize_weight(w)
     return quantize_activation(w, bits, per_channel_axis=-1)
+
+
+# ---------------------------------------------------------------------------
+# straight-through estimators (QAT)
+# ---------------------------------------------------------------------------
+
+
+def ste_round(x: torch.Tensor) -> torch.Tensor:
+    """Round half to even with an identity gradient.  The value is
+    ``x + (round(x) - x)`` in ``x.dtype``, as the reference writes it,
+    which is not always ``round(x)`` in floating point."""
+    return x + (torch.round(x) - x).detach()
+
+
+def _ste_clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)``.  Its gradient is 1
+    inside ``[lo, hi]``, 0 outside and 0.5 at a tie with either bound
+    (``torch.clamp`` would pass 1 there)."""
+    lo_t, hi_t = scalar(lo, x.dtype, x.device), scalar(hi, x.dtype, x.device)
+    return torch.minimum(torch.maximum(x, lo_t), hi_t)
+
+
+def fake_quant(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Quantize-dequantize with straight-through gradients, calibrated per
+    tensor: ``round(clip((x - lo) / s, 0, 2**bits - 1)) * s + lo`` with
+    ``lo = min(x)``, ``s = max((max(x) - lo) / (2**bits - 1), 1e-8)``,
+    the statistics detached and every step in ``x.dtype`` (bf16
+    activations stay bf16).  The tensor's own minimum always sits on the
+    lower bound, so its gradient there is halved (``_ste_clip``)."""
+    qmax = float(2**bits - 1)
+    xd = x.detach()
+    lo, hi = xd.amin(), xd.amax()
+    scale = torch.maximum((hi - lo) / scalar(qmax, x.dtype, x.device),
+                          scalar(1e-8, x.dtype, x.device))
+    q = ste_round(_ste_clip((x - lo) / scale, 0.0, qmax))
+    return q * scale + lo
+
+
+def fake_binarize_weight(w: torch.Tensor) -> torch.Tensor:
+    """Sign binarization with a straight-through gradient: ``alpha *
+    (w + (s - w))`` with ``s = +1`` where ``w >= 0`` else ``-1`` and
+    ``alpha = mean(|w|)`` over the reduction axis (-2), detached and not
+    clamped.  The gradient is ``g * alpha``.  The mean is
+    ``_tree_sum_rows`` (the reference's reduction order) divided by K, as
+    the reference evaluates ``jnp.mean`` op by op."""
+    wd = w.detach()
+    k = scalar(float(w.shape[-2]), w.dtype, w.device)
+    alpha = _tree_sum_rows(wd.abs()) / k
+    sign = torch.where(wd >= 0, 1.0, -1.0).to(w.dtype)
+    return alpha * (w + (sign - wd))

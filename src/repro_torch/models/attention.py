@@ -1,5 +1,13 @@
-"""GQA and MLA attention, serve mode (port of ``repro.models.attention``
-for ``kind`` ``"g"``, ``"l"``, ``"Md"`` and ``"Mm"``).
+"""GQA and MLA attention (port of ``repro.models.attention`` for ``kind``
+``"g"``, ``"l"``, ``"Md"`` and ``"Mm"``), serve mode; GQA also in train
+mode.
+
+Train mode (QAT, ``mode="train"``): full-sequence attention over the
+in-flight keys and values, no cache; under quantized attention q, k and
+the probabilities are fake-quantized per tensor at ``attn_act_bits``
+around float32 scores and a float P.V, as the reference trains (its
+``attn_scores_dtype="bf16"`` variant is not ported).  MLA has no train
+mode yet (ROADMAP section 1).
 
 With quantized attention QK^T and PV run as activation x activation
 integer products through the flow abstraction, grouped over kv heads;
@@ -440,8 +448,9 @@ def attention(
     cache: Optional[dict] = None,
     kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     causal: Optional[bool] = None,
+    mode: str = "serve",
 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """One GQA mixer application.
+    """One GQA mixer application (``mode`` ``"serve"`` or ``"train"``).
 
     x: (B, S, D); positions: (B, S) absolute positions.  With a cache,
     ``S > 1`` is a prefill from an empty cache and ``S == 1`` a decode step
@@ -456,8 +465,17 @@ def attention(
     bf16 cache, or quantized linears with ``quantize_attention=False``, take
     the same float scores and context (over the int8 cache dequantized).
     Returns (out (B, S, D), cache), the cache updated in place.
+
+    ``mode="train"`` takes no cache and no ``kv_override``: the float
+    full-sequence path, with q, k and the probabilities fake-quantized
+    under quantized attention.
     """
     _check_supported(cfg, kind)
+    train = mode == "train"
+    if train and (cache is not None or kv_override is not None):
+        raise NotImplementedError(
+            "train mode is full-sequence self-attention without a cache; cross-attention "
+            "training is not ported yet (ROADMAP section 1)")
     quant = cfg.quant
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     b, s, _ = x.shape
@@ -465,10 +483,10 @@ def attention(
     causal = cfg.causal if causal is None else causal
     window = cfg.window_size if kind == "l" else 0
 
-    q = L.qlinear(p["q"], x, quant, name="attn.q").reshape(b, s, h, dh)
+    q = L.qlinear(p["q"], x, quant, mode=mode, name="attn.q").reshape(b, s, h, dh)
     if kv_override is None:
-        k = L.qlinear(p["k"], x, quant, name="attn.k").reshape(b, s, kvh, dh)
-        v = L.qlinear(p["v"], x, quant, name="attn.v").reshape(b, s, kvh, dh)
+        k = L.qlinear(p["k"], x, quant, mode=mode, name="attn.k").reshape(b, s, kvh, dh)
+        v = L.qlinear(p["v"], x, quant, mode=mode, name="attn.v").reshape(b, s, kvh, dh)
     else:
         k, v = kv_override
     if cfg.qk_norm:
@@ -484,7 +502,7 @@ def attention(
     quantized = cache is not None and "k_scale" in cache
     # integer scores and P.V: quantized attention over the in-flight k / v
     # or an int8 cache; else float, over a bf16 or dequantized int8 cache
-    use_int = (quant.enabled and quant.quantize_attention and kv_override is None
+    use_int = (not train and quant.enabled and quant.quantize_attention and kv_override is None
                and (cache is None or quantized))
     # bitwise scores where "attn.qk" names a scores-only backend (and the
     # cache, if any, holds packed K rows)
@@ -494,9 +512,14 @@ def attention(
     windowed = cache is not None and kind == "l" and 0 < cfg.window_size == cache["k"].shape[1]
 
     if kv_override is not None or (not use_int and (s > 1 or cache is None)):
-        # cross-attention, or a float prefill / stateless pass
-        scores = _scores_float(q, k) / sqrt_dh + _mask(s, k.shape[1], causal, window, x.device)
-        ctx = _pv_float(L.softmax(scores), v, x.dtype)
+        # cross-attention, a float prefill / stateless pass, or training
+        fake = train and quant.enabled and quant.quantize_attention
+        qf, kf = (Q.fake_quant(q, bits), Q.fake_quant(k, bits)) if fake else (q, k)
+        scores = _scores_float(qf, kf) / sqrt_dh + _mask(s, k.shape[1], causal, window, x.device)
+        probs = L.softmax(scores)
+        if fake:
+            probs = Q.fake_quant(probs, bits)
+        ctx = _pv_float(probs, v, x.dtype)
         if cache is not None and kv_override is None:
             if quantized:
                 k_sc, k_off = _calibrate_rows(k)
@@ -558,7 +581,7 @@ def attention(
         ctx = _pv_int(probs, cache["v"], v_sc, v_off) if use_int else _pv_float(probs, src_v, x.dtype)
 
     ctx = ctx.reshape(b, s, h * dh).to(x.dtype)
-    return L.qlinear(p["o"], ctx, quant, name="attn.o"), cache
+    return L.qlinear(p["o"], ctx, quant, mode=mode, name="attn.o"), cache
 
 
 # ---------------------------------------------------------------------------
@@ -699,7 +722,8 @@ def _write_latent(cache: dict, c_m, r_u, s: int) -> None:
 
 
 def mla_attention(
-    p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, cache: dict
+    p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, cache: dict,
+    mode: str = "serve",
 ) -> Tuple[torch.Tensor, dict]:
     """One MLA mixer application over the latent cache (int8 or bf16).
 
@@ -712,8 +736,13 @@ def mla_attention(
     under quantized attention (``_scores_int_latent`` / ``_pv_int_latent``)
     or float32 ones against the cache's values otherwise, and the context
     unfolded through ``v_up``.  Returns (out (B, S, D), cache), the cache
-    updated in place.
+    updated in place.  Serve mode only: MLA training comes with the MoE
+    slice (ROADMAP section 1).
     """
+    if mode != "serve":
+        raise NotImplementedError(
+            "mla_attention in train mode is not ported yet (ROADMAP section 1: the MoE / MLA "
+            "training path)")
     m, h = cfg.mla, cfg.n_heads
     b, s, _ = x.shape
     quant = cfg.quant

@@ -1,4 +1,9 @@
-"""Quantization-aware building blocks, serve mode (port of ``repro.models.layers``).
+"""Quantization-aware building blocks (port of ``repro.models.layers``).
+
+Two execution modes thread through the layers (``mode``): ``"serve"``
+(the default, the BETA datapath below) and ``"train"`` (QAT: the latent
+float32 weights fake-binarized and the activations fake-quantized with
+straight-through gradients, the products float so gradients flow).
 
 Serving params are plain dicts of tensors: a packed linear is
 ``{"w_packed", "w_scale", "w_offset", "w_colsum"}`` and a float one
@@ -28,6 +33,7 @@ __all__ = [
     "float_linear",
     "float_einsum",
     "softmax",
+    "log_softmax",
     "rmsnorm",
     "rope",
     "ffn",
@@ -69,19 +75,29 @@ def qlinear(
     x: torch.Tensor,
     quant: QuantConfig,
     *,
+    mode: str = "serve",
     act_bits: Optional[int] = None,
     name: str = "",
 ) -> torch.Tensor:
-    """``x (..., K) @ W (K, N)`` on the serving datapath.
+    """``x (..., K) @ W (K, N)`` in the given execution mode.
 
-    Per-token calibration on the flattened ``(M, K)`` view keeps co-batched
-    slots numerically independent; ``name`` selects per-site backend
-    overrides.  With quantization off it is the reference's float einsum
-    (``float_linear``).
+    ``"serve"``: the serving datapath on packed weights.  Per-token
+    calibration on the flattened ``(M, K)`` view keeps co-batched slots
+    numerically independent; ``name`` selects per-site backend overrides.
+    ``"train"``: the latent ``{"w"}`` fake-binarized, ``x`` fake-quantized
+    per tensor, their product a float einsum in ``x.dtype``
+    (``float_einsum``, so the backward's products also accumulate in
+    float32 and round once).  With quantization off either mode is the
+    reference's float einsum (``float_linear``).
     """
     if not quant.enabled:
         return float_linear(p, x)
     bits = act_bits or quant.act_bits
+    if mode == "train":
+        w_hat = Q.fake_binarize_weight(p["w"])
+        return float_einsum("...k,kn->...n", Q.fake_quant(x, bits), w_hat.to(x.dtype))
+    if mode != "serve":
+        raise ValueError(f"unknown mode {mode!r}")
     k = x.shape[-1]
     wq = Q.QuantTensor(
         mantissa=p["w_packed"],
@@ -117,10 +133,43 @@ def float_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     return float_einsum("...k,kn->...n", x, p["w"].to(x.dtype))
 
 
-def softmax(x: torch.Tensor) -> torch.Tensor:
-    """Softmax over the last axis as ``jax.nn.softmax`` evaluates it."""
+def _softmax_value(x: torch.Tensor) -> torch.Tensor:
     e = torch.exp(x - x.amax(dim=-1, keepdim=True))
     return e / e.sum(dim=-1, keepdim=True)
+
+
+class _Softmax(torch.autograd.Function):
+    """``jax.nn.softmax`` with its custom derivative: the forward as
+    ``_softmax_value``, the backward the transpose of its JVP
+    ``y * (t - sum(y * t))``, accumulated as JAX transposes it:
+    ``y*g + y*(-sum(y*g))``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = _softmax_value(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        yg = y * g
+        return yg + y * -yg.sum(dim=-1, keepdim=True)
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis as ``jax.nn.softmax`` evaluates it, and
+    differentiated as it is (``_Softmax``) where gradients are recorded."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Softmax.apply(x)
+    return _softmax_value(x)
+
+
+def log_softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_softmax`` over the last axis: ``s - log(sum(exp(s)))``
+    with ``s = x - max(x)``, the max detached."""
+    shifted = x - x.amax(dim=-1, keepdim=True).detach()
+    return shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
 
 
 def rmsnorm(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -158,16 +207,78 @@ def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     * ``silu*``: ``x * sigmoid(x)`` with the sigmoid expanded as
       ``1 / (1 + exp(-x))``; a bf16 silu rounded once differs from the
       reference's in about a third of the elements.
+
+    Where gradients are recorded, the backward is the transpose of JAX's
+    JVP of the same expression, op by op in ``x.dtype`` (``_Gelu``,
+    ``_Silu``); PyTorch's own autograd of these expressions rounds
+    otherwise in about half the elements.
     """
     if name.startswith("gelu"):
+        fn = _Gelu
+    elif name.startswith("silu"):
+        fn = _Silu
+    else:
+        raise NotImplementedError(f"activation of ffn_type {name!r} is not ported yet")
+    if x.requires_grad and torch.is_grad_enabled():
+        return fn.apply(x)
+    return fn.value(x)[0]
+
+
+class _Gelu(torch.autograd.Function):
+    """Tanh gelu ``x * cdf``, ``cdf = 0.5 * (1 + tanh(c * (x + 0.044715 *
+    x**3)))``; its backward transposes JAX's JVP:
+    ``g*cdf + S*t + ((0.044715*S*t) * 3x**2)`` with ``u = 0.5*(x*g) *
+    (1 - e)``, ``t = u + u*e`` and ``e`` the tanh, each step rounded."""
+
+    @staticmethod
+    def value(x):
         def c(v: float) -> torch.Tensor:
             return scalar(v, x.dtype, x.device)
 
         inner = x + c(0.044715) * (x * x * x)
-        return x * (c(0.5) * (c(1.0) + torch.tanh(c(_SQRT_2_OVER_PI) * inner)))
-    if name.startswith("silu"):
-        return x * (1.0 / (1.0 + torch.exp(-x)))
-    raise NotImplementedError(f"activation of ffn_type {name!r} is not ported yet")
+        e = torch.tanh(c(_SQRT_2_OVER_PI) * inner)
+        cdf = c(0.5) * (c(1.0) + e)
+        return x * cdf, e, cdf
+
+    @staticmethod
+    def forward(ctx, x):
+        y, e, cdf = _Gelu.value(x)
+        ctx.save_for_backward(x, e, cdf)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, e, cdf = ctx.saved_tensors
+
+        def c(v: float) -> torch.Tensor:
+            return scalar(v, x.dtype, x.device)
+
+        u = (c(0.5) * (x * g)) * (c(1.0) - e)
+        t = u + u * e
+        ct_c = c(_SQRT_2_OVER_PI) * t
+        return (g * cdf + ct_c) + (c(0.044715) * ct_c) * (c(3.0) * (x * x))
+
+
+class _Silu(torch.autograd.Function):
+    """``x * sigmoid(x)``, the sigmoid as ``1 / (1 + exp(-x))``; its
+    backward transposes JAX's JVP: ``g*sig + (x*g) * (sig * (1 - sig))``."""
+
+    @staticmethod
+    def value(x):
+        sig = 1.0 / (1.0 + torch.exp(-x))
+        return x * sig, sig
+
+    @staticmethod
+    def forward(ctx, x):
+        y, sig = _Silu.value(x)
+        ctx.save_for_backward(x, sig)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, sig = ctx.saved_tensors
+        one = scalar(1.0, x.dtype, x.device)
+        return g * sig + (x * g) * (sig * (one - sig))
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -186,14 +297,15 @@ def init_ffn(gen: torch.Generator, ffn_type: str, d_model: int, d_ff: int) -> di
     return p
 
 
-def ffn(p: dict, x: torch.Tensor, ffn_type: str, quant: QuantConfig, name: str = "ffn"):
-    up = qlinear(p["up"], x, quant, name=f"{name}.up")
+def ffn(p: dict, x: torch.Tensor, ffn_type: str, quant: QuantConfig, name: str = "ffn",
+        mode: str = "serve"):
+    up = qlinear(p["up"], x, quant, mode=mode, name=f"{name}.up")
     if ffn_type.endswith("glu"):
-        gate = qlinear(p["gate"], x, quant, name=f"{name}.gate")
+        gate = qlinear(p["gate"], x, quant, mode=mode, name=f"{name}.gate")
         h = _act(ffn_type, gate) * up
     else:
         h = _act(ffn_type, up)
-    return qlinear(p["down"], h, quant, name=f"{name}.down")
+    return qlinear(p["down"], h, quant, mode=mode, name=f"{name}.down")
 
 
 def embed(p: dict, tokens: torch.Tensor, d_model: int, dtype=torch.bfloat16) -> torch.Tensor:

@@ -53,6 +53,11 @@ Entry points:
 * ``prefill`` (exact length, with an optional ``frontend``; or
   right-padded with ``length=``) / ``decode_step``, under the autotune phases ``"prefill"`` / ``"decode"``
   (``core/dispatch.py``)
+* ``forward_logits`` / ``loss_fn`` -- the full-sequence forward on latent
+  params in train mode (QAT) and the training loss: next-token for a
+  causal model, the denoising copy (predict each input token) for an
+  encoder such as bit-bert.  Trainable so far: ``"g"`` / ``"l"`` layers
+  with a dense FFN, no frontend (ROADMAP section 1 lists the rest)
 
 Caches are updated IN PLACE: ``prefill``, ``decode_step``, ``cache_insert``
 and ``cache_reset`` return the dict they were given, mutated.  Entry points
@@ -90,6 +95,8 @@ __all__ = [
     "caches_equal",
     "prefill",
     "decode_step",
+    "forward_logits",
+    "loss_fn",
 ]
 
 
@@ -448,3 +455,60 @@ def decode_step(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict
                              cache.get("encoder_out"))
         x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return L.unembed(params, x, cfg.tie_embeddings)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# training (QAT)
+# ---------------------------------------------------------------------------
+
+
+def _forward_hidden(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+                    frontend: Optional[torch.Tensor] = None, remat: bool = False):
+    """Full-sequence train-mode forward on latent params to the final
+    (normed) hidden states, bf16 (B, S, D), and the auxiliary loss (0 for
+    the ported families)."""
+    if frontend is not None:
+        raise NotImplementedError(
+            "training with a frontend is not ported yet (ROADMAP section 1: the encoder frontends)")
+    if cfg.mtp_depth and cfg.causal:
+        raise NotImplementedError(
+            f"{cfg.name}'s multi-token-prediction head has no training loss yet (ROADMAP section 1: "
+            "the MoE / MLA training path)")
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).broadcast_to(b, s)
+    x = _embed_inputs(params, tokens, cfg, positions)
+    x, _ = T.stack_apply(params["layers"], x, cfg, positions, None, mode="train", remat=remat)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def forward_logits(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+                   frontend: Optional[torch.Tensor] = None, remat: bool = False):
+    """Full-sequence train-mode forward.  Returns (logits (B, S, V)
+    float32, aux)."""
+    x, aux = _forward_hidden(params, tokens, cfg, frontend, remat)
+    return L.unembed(params, x, cfg.tie_embeddings), aux
+
+
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig, aux_weight: float = 0.01,
+            remat: bool = False):
+    """The training loss and its metrics ``{"loss", "aux", "nll"}``.
+
+    batch: ``{"tokens": (B, S) int}``.  A causal model predicts token
+    ``t + 1`` from the positions up to ``t``; a non-causal one (BERT family)
+    the input token at every position (the reference's denoising copy).
+    The logits and the mean NLL are float32 (the reference's
+    ``logits_dtype="bf16"`` variant is not ported);
+    the total adds ``aux_weight * aux``."""
+    tokens = batch["tokens"]
+    hidden, aux = _forward_hidden(params, tokens, cfg, batch.get("frontend"), remat)
+    logits = L.unembed(params, hidden, cfg.tie_embeddings)
+    if cfg.causal:
+        pred, tgt = logits[:, :-1], tokens[:, 1:]
+    else:
+        pred, tgt = logits, tokens
+    logp = L.log_softmax(pred)
+    nll = -logp.gather(-1, tgt[..., None].to(torch.int64))[..., 0]
+    loss = nll.to(torch.float32).mean()
+    total = loss + aux_weight * aux
+    return total, {"loss": loss, "aux": aux, "nll": loss}

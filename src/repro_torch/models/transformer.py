@@ -1,4 +1,5 @@
-"""Block assembly (port of ``repro.models.transformer``), serve mode.
+"""Block assembly (port of ``repro.models.transformer``), serve mode and,
+for the attention blocks ``"g"`` / ``"l"`` with a dense FFN, train mode.
 
 The reference scans one stacked ``period`` of params with ``lax.scan``;
 here the stack is a Python loop over per-layer param dicts, in
@@ -12,6 +13,12 @@ blocks (RMSNorm).  A recurrent layer's cache is its state, with no rows
 axis (``models/ssm.py``).  A decoder block built with ``cross=True`` adds
 cross-attention (``ln_cross``, ``cross_attn``) onto an encoder's output
 between its mixer and its FFN; an encoder stack runs without caches.
+
+Train mode (QAT) runs the stack without caches; with ``remat`` each block
+is checkpointed (``torch.utils.checkpoint``, recomputed in the backward),
+as the reference checkpoints its scanned period body.  Recomputing changes
+no value.  The other block kinds and cross-attention raise in train mode
+(ROADMAP section 1).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from __future__ import annotations
 from typing import List, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
@@ -30,6 +38,7 @@ __all__ = ["init_block", "init_block_cache", "block_apply", "stack_apply"]
 
 RECURRENT_KINDS = ("r", "s")
 KINDS = ("g", "l") + A.MLA_KINDS + RECURRENT_KINDS
+TRAIN_KINDS = ("g", "l")
 
 
 def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str, site=lambda p: p,
@@ -70,12 +79,29 @@ def init_block_cache(batch: int, max_len: int, cfg: ArchConfig, kind: str, devic
     return A.init_kv_cache(batch, max_len, cfg, kind, device=device)
 
 
+def _check_trainable(p: dict, kind: str) -> None:
+    if kind not in TRAIN_KINDS:
+        raise NotImplementedError(
+            f"block kind {kind!r} has no train mode yet (only {TRAIN_KINDS}; ROADMAP section 1: "
+            "the MoE / MLA and recurrent training paths)")
+    if "cross_attn" in p:
+        raise NotImplementedError(
+            "cross-attention blocks have no train mode yet (ROADMAP section 1: the encoder frontends)")
+
+
 def block_apply(p: dict, x, cfg: ArchConfig, kind: str, positions, cache: Optional[dict],
-                encoder_out=None):
+                encoder_out=None, mode: str = "serve"):
     """Pre-norm residual block.  Returns (x, cache) (cache updated in place).
 
     A block with ``cross_attn`` attends to ``encoder_out`` (B, T, D) when it
-    is given: keys and values projected from all T rows, non-causal."""
+    is given: keys and values projected from all T rows, non-causal.
+    ``mode="train"``: an attention block with a dense FFN, no cache."""
+    if mode == "train":
+        _check_trainable(p, kind)
+        h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+        x = x + A.attention(p["attn"], h, cfg, kind, positions, None, mode=mode)[0]
+        h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+        return x + L.ffn(p["ffn"], h, cfg.ffn_type, cfg.quant, mode=mode), None
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "s":
         mix, cache = S.ssd_mixer(p["ssd"], h, cfg, cache)
@@ -102,9 +128,18 @@ def block_apply(p: dict, x, cfg: ArchConfig, kind: str, positions, cache: Option
 
 
 def stack_apply(layers: List[dict], x, cfg: ArchConfig, positions,
-                caches: Optional[List[dict]] = None, encoder_out=None):
+                caches: Optional[List[dict]] = None, encoder_out=None,
+                mode: str = "serve", remat: bool = False):
     """Apply every layer in order; returns (x, caches).  ``caches=None``
-    runs the stack stateless (an encoder)."""
+    runs the stack stateless (an encoder).  ``mode="train"`` runs without
+    caches, each block checkpointed when ``remat`` is set."""
+    if mode == "train":
+        for p, kind in zip(layers, cfg.layer_kinds):
+            def block(x, p=p, kind=kind):
+                return block_apply(p, x, cfg, kind, positions, None, mode=mode)[0]
+
+            x = torch.utils.checkpoint.checkpoint(block, x, use_reentrant=False) if remat else block(x)
+        return x, None
     for i, (p, kind) in enumerate(zip(layers, cfg.layer_kinds)):
         x, _ = block_apply(p, x, cfg, kind, positions, None if caches is None else caches[i],
                            encoder_out)

@@ -12,6 +12,7 @@ import torch
 
 import repro_torch.checkpoint.manager as CM
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core.tree import leaves_with_paths
 from torch_port_fixtures import release_jax_caches  # noqa: F401  (autouse)
 
 
@@ -32,7 +33,7 @@ def _zeros_like(tree):
 
 
 def _assert_equal(a, b):
-    la, lb = CM._flatten_with_paths(a), CM._flatten_with_paths(b)
+    la, lb = leaves_with_paths(a), leaves_with_paths(b)
     assert [p for p, _ in la] == [p for p, _ in lb]
     bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
     for (_, x), (_, y) in zip(la, lb):
@@ -190,3 +191,27 @@ def test_restore_takes_the_template_dtype(tmp_path):
     m.save(1, {"x": torch.arange(6, dtype=torch.int32)})
     _, out, _ = m.restore(like={"x": torch.zeros(6, dtype=torch.int64)})
     assert out["x"].dtype == torch.int64 and out["x"].tolist() == list(range(6))
+
+
+def test_optimizer_state_roundtrips_as_a_namedtuple(tmp_path):
+    """A training checkpoint ``{"params", "opt"}``: the AdamW state is a
+    ``NamedTuple`` (rebuilt field by field, not from one generator) whose
+    step is a 0-d int32 leaf (kept 0-d); a bf16 leaf keeps its bits."""
+    from repro_torch.optim.adamw import OptState
+
+    g = torch.Generator().manual_seed(4)
+    params = {"w": torch.randn((8, 4), generator=g), "g": torch.randn((4,), generator=g).to(torch.bfloat16)}
+    opt = OptState(mu={"w": torch.randn((8, 4), generator=g), "g": torch.randn((4,), generator=g)},
+                   nu=[torch.rand((8, 4), generator=g), torch.rand((4,), generator=g).to(torch.bfloat16)],
+                   step=torch.tensor(17, dtype=torch.int32))
+    tree = {"params": params, "opt": opt}
+    m = CheckpointManager(str(tmp_path), keep=1)
+    m.save(3, tree, extras={"step": 3})
+    like = {"params": _zeros_like(params), "opt": OptState(*_zeros_like(list(opt)))}
+    step, out, _ = m.restore(like=like)
+    assert step == 3
+    assert type(out["opt"]) is OptState
+    assert out["opt"].step.shape == () and int(out["opt"].step) == 17
+    assert isinstance(out["opt"].nu, list)
+    _assert_equal(out["params"], params)
+    _assert_equal(list(out["opt"]), list(opt))

@@ -24,6 +24,7 @@ from repro_torch.configs.smoke import smoke_variant
 from repro_torch.core import packing
 from repro_torch.core import qmm as QE
 from repro_torch.core import quantization as Q
+from repro_torch.core import tree
 from repro_torch.kernels import binary_qmm as K1
 from repro_torch.kernels import bitserial_qmm as K4
 from repro_torch.kernels import fused_qmm as K2
@@ -810,3 +811,77 @@ def test_float_padded_prefill_on_card(dev):
         d, _ = Z.decode_step(params, nxt[i:i + 1], cfg, c)
         torch.testing.assert_close(logits[i], exact[0], rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(step[i], d[0], rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# QAT training on the card against the CPU
+# ---------------------------------------------------------------------------
+
+# The straight-through quantizers are elementwise IEEE operations and exact
+# reductions (min, max, the ordered row sums), so the card equals the CPU
+# bit for bit.  A train step is not: cuBLAS sums its float32 and bf16
+# products in its own order, which moves a bf16 activation or gradient by
+# an ulp now and then, and at W1A1 such an ulp can cross a quantizer's
+# bucket edge.  chip_smoke.py [14b] logs the gaps on the same step.  TF32
+# products would leave far larger gaps: the package turns TF32 off, and the
+# step below checks that it is off.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-2  # of each gradient leaf's largest magnitude
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_fake_quant_card_matches_cpu(dev, bits, dtype):
+    g = torch.Generator().manual_seed(bits)
+    x = torch.randn((4, 128, 768), generator=g).to(dtype)
+    ct = torch.randn((4, 128, 768), generator=g).to(dtype)
+    out = []
+    for device in ("cpu", dev):
+        xi = x.to(device).requires_grad_(True)
+        y = Q.fake_quant(xi, bits)
+        (dx,) = torch.autograd.grad(y, xi, ct.to(device))
+        out.append((y.detach().cpu(), dx.cpu()))
+    (y0, d0), (y1, d1) = out
+    assert torch.equal(y0, y1) and torch.equal(d0, d1)
+
+
+@pytest.mark.parametrize("shape", [(768, 3072), (3072, 768), (100, 33)])
+def test_fake_binarize_weight_card_matches_cpu(dev, shape):
+    g = torch.Generator().manual_seed(shape[0])
+    w = torch.randn(shape, generator=g)
+    ct = torch.randn(shape, generator=g)
+    out = []
+    for device in ("cpu", dev):
+        wi = w.to(device).requires_grad_(True)
+        y = Q.fake_binarize_weight(wi)
+        (dw,) = torch.autograd.grad(y, wi, ct.to(device))
+        out.append((y.detach().cpu(), dw.cpu()))
+    (y0, d0), (y1, d1) = out
+    assert torch.equal(y0, y1) and torch.equal(d0, d1)
+
+
+@pytest.mark.parametrize("name", ["bit-bert-base", "granite-8b"])
+def test_smoke_train_step_card_matches_cpu(dev, name):
+    """One smoke train step from the same params and batch: the loss and
+    every gradient leaf on the card against the CPU's, and the updated
+    params finite."""
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop as TL
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    cfg = smoke_variant(get_config(name))
+    tcfg = TL.TrainConfig(optimizer=adamw.AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=30))
+    params = Z.init_params(0, cfg, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, size=(4, 64)))
+    runs = [TL.value_and_grad(_to(params, d), {"tokens": tokens.to(d)}, cfg, tcfg) for d in ("cpu", dev)]
+    (m0, g0), (m1, g1) = runs
+    want = float(m0["loss"])
+    assert abs(float(m1["loss"]) - want) <= TRAIN_LOSS_RTOL * abs(want)
+    for a, b in zip(tree.leaves(g1), tree.leaves(g0)):
+        assert a.is_cuda and float((a.cpu() - b).abs().max()) <= TRAIN_GRAD_TOL * float(b.abs().max())
+    step = TL.make_train_step(cfg, tcfg, device=dev)
+    new, opt, metrics = step(_to(params, dev), adamw.init_state(_to(params, dev)), {"tokens": tokens})
+    assert all(bool(torch.isfinite(p).all()) for p in tree.leaves(new))
+    assert int(opt.step) == 1 and np.isfinite(float(metrics["grad_norm"]))
