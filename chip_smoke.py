@@ -2742,6 +2742,298 @@ def train_models(Z, bert_cfg, granite_cfg, device, ops, ref, kernels, smi, workd
     return k3_trained
 
 
+# ---------------------------------------------------------------------------
+# phase 15: QAT of the MoE / MLA and recurrent families -- deepseek-v2-lite-16b
+# (the "Md" prefix and 2 of 26 "Mm" layers), recurrentgemma-2b (5 of 26
+# layers) and mamba2-130m (all 24) at full width; the trained deepseek and
+# mamba2 served through K1
+# ---------------------------------------------------------------------------
+
+# [15a] / [15c]: (layers, batch, seq, steps).  deepseek-v2-lite: 3 layers and
+# both 102,400 x 2,048 tables are ~1.67 B latents, ~31 B each with AdamW, the
+# update's second set and the activations (52 GB on an H100); 4 x 512 tokens
+# give each of the 64 experts a capacity of 240 rows (factor 1.25).
+# recurrentgemma-2b: its (r, r) prefix and one (r, r, l) period, ~1.1 B
+# latents (the 256,000-row tied table is 0.66 B of them).
+DEEPSEEK_TRAIN = (3, 4, 512, 5)
+RECURRENTGEMMA_TRAIN = (5, 4, 512, 5)
+MAMBA2_TRAIN = (None, 8, 1024, 20)  # full depth
+TRAIN15_OPT = dict(lr=1e-3, warmup_steps=1)
+# [15d]: the trained models served: a 128-token prefill and 4 decode steps
+SERVE15_PROMPT, SERVE15_STEPS, SERVE15_MAX_LEN = 128, 4, 256
+# [15b]: the smoke variants held card against CPU, one step of 4 x 64
+TRAIN15_SMOKE = ("deepseek-v2-lite-16b", "deepseek-v3-671b", "recurrentgemma-2b", "mamba2-130m")
+
+
+def _route_spy(M, seen: list):
+    """A stand-in for ``moe._route`` that records each call's experts (on
+    the host) and a stand-in for ``moe._dispatch`` that records ``keep``."""
+    route, dispatch = M._route, M._dispatch
+
+    def spy_route(*args, **kwargs):
+        out = route(*args, **kwargs)
+        seen.append({"experts": out[1].detach().cpu()})
+        return out
+
+    def spy_dispatch(*args, **kwargs):
+        out = dispatch(*args, **kwargs)
+        seen[-1].update(keep=out[2].cpu(), dest=out[3].cpu())
+        return out
+
+    return spy_route, spy_dispatch
+
+
+def _routing(M, e, fn) -> dict:
+    """Run ``fn`` with the router and dispatch recorded; the routes it
+    dropped at capacity (share over every MoE layer) and the most loaded
+    expert's routes (the largest over the layers, before the capacity cut)."""
+    seen = []
+    spy_route, spy_dispatch = _route_spy(M, seen)
+    with mock.patch.object(M, "_route", spy_route), mock.patch.object(M, "_dispatch", spy_dispatch):
+        out = fn()
+    routes = sum(r["keep"].numel() for r in seen)
+    dropped = sum(int((~r["keep"]).sum()) for r in seen)
+    loads = [torch.bincount(r["experts"].reshape(-1), minlength=e.n_routed) for r in seen]
+    return dict(out=out, layers=len(seen), routes=routes, dropped_share=dropped / max(routes, 1),
+                max_expert_routes=max(int(x.max()) for x in loads),
+                mean_expert_routes=routes / max(len(seen), 1) / e.n_routed)
+
+
+def _train_run(Z, TL, adamw, cfg, device, batch: int, seq: int, steps: int, stream, tag: str, smi: str,
+               kernels):
+    """Train ``cfg`` from seed 0 for ``steps`` steps of ``batch`` x ``seq``
+    on the card (AdamW, remat on), time each step, profile one more.
+    Returns (params, readings)."""
+    from repro_torch.core.tree import leaves
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = TL.init_train_state(0, cfg, device=device)
+    n_latent = sum(x.numel() for x in leaves(params))
+    step = TL.make_train_step(cfg, TL.TrainConfig(optimizer=adamw.AdamWConfig(total_steps=steps, **TRAIN15_OPT)),
+                              device=device)
+    pipe = stream(batch, seq, vocab=cfg.vocab_size)
+    _zero(kernels)
+    losses, auxes, times = [], [], []
+    for _ in range(steps):
+        b = pipe.next()
+        t = time.perf_counter()
+        params, opt, metrics = step(params, opt, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(metrics["loss"]))
+        auxes.append(float(metrics["aux"]))
+    peak = torch.cuda.max_memory_allocated()
+    if any(_counts(kernels)):
+        raise AssertionError(f"[15] the {tag} training step launched serving kernels {_counts(kernels)}")
+    if not all(np.isfinite(losses + auxes)):
+        raise AssertionError(f"[15] {tag} losses not finite: {losses} {auxes}")
+    steady = times[1:]
+    p50, p99 = float(np.median(steady)), float(np.percentile(steady, 99))
+    tokens_s = batch * seq / (p50 / 1e3)
+    r = dict(layers=cfg.n_layers, latents=n_latent, steps=steps, tokens_per_step=batch * seq,
+             first_loss=losses[0], last_loss=losses[-1], aux_first=auxes[0], aux_last=auxes[-1],
+             step_p50_ms=p50, step_p99_ms=p99, tokens_per_s=tokens_s, peak_bytes=peak)
+    log(f"{tag}: {cfg.n_layers} layers ({''.join(cfg.layer_kinds)}), d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {n_latent / 1e9:.3f} B latents; {steps} steps of {batch} x {seq}, AdamW lr "
+        f"{TRAIN15_OPT['lr']}, remat on; loss " + " ".join(f"{x:.4f}" for x in losses) + "; aux "
+        + " ".join(f"{x:.4f}" for x in auxes) + f"; step ms first {times[0]:.1f}, then p50 {p50:.2f}, p99 "
+        f"{p99:.2f}; {tokens_s:.0f} trained tokens/s; peak allocated {peak / 1e9:.3f} GB | {smi}")
+    nxt = pipe._batch_at(pipe.cursor)
+    prof = profile_forward(lambda: step(params, opt, nxt))
+    report_profile(f"{tag} train step ({batch} x {seq})", *prof, phase=15, wall_ms=p50)
+    r.update(busy_ms=prof[1], device_ops=prof[2], idle_share=1 - prof[1] / p50)
+    del opt, step
+    torch.cuda.empty_cache()
+    return params, losses, r
+
+
+def _serve_trained(Z, cfg, params, device, ops, ref, kernels, per_prefill: int, per_decode: int, tag: str,
+                   tokens: np.ndarray):
+    """Pack trained latents and serve a prefill of ``tokens`` and
+    SERVE15_STEPS greedy decode steps on ``pallas``: K1's launches against
+    the forward's sites, and logits and every cache leaf bitwise to the same
+    run with K1 swapped for its plain version.  Returns (K1's launches, the
+    serving params)."""
+    scfg = with_backend(cfg, "pallas")
+    served = Z.prepare_serving_params(params, scfg)
+    prompt = torch.as_tensor(tokens, device=device)
+
+    def run():
+        cache = Z.init_cache(1, SERVE15_MAX_LEN, scfg, device=device)
+        logits, cache = Z.prefill(served, prompt, scfg, cache)
+        out = [logits]
+        for _ in range(SERVE15_STEPS):
+            logits, cache = Z.decode_step(served, out[-1].argmax(-1), scfg, cache)
+            out.append(logits)
+        return out, cache
+
+    torch.cuda.synchronize()
+    _zero(kernels)
+    got, cache = run()
+    torch.cuda.synchronize()
+    launched = _counts(kernels)
+    want = per_prefill + SERVE15_STEPS * per_decode
+    if launched != [want, 0, 0, 0]:
+        raise AssertionError(f"[15d] {tag}: K1-K4 launches {launched}; expected K1 = {want}")
+    with mock.patch.object(ops._bq, "binary_qmm", ref.binary_qmm_ref):
+        plain, plain_cache = run()
+    if not all(torch.equal(a, b) for a, b in zip(got, plain)) or not Z.caches_equal(cache, plain_cache):
+        raise AssertionError(f"[15d] {tag}: logits or cache differ with K1 swapped for its plain version")
+    if not all(bool(torch.isfinite(x).all()) and x.shape == (1, cfg.vocab_size) for x in got):
+        raise AssertionError(f"[15d] {tag}: served logits not finite or of the wrong shape")
+    log(f"[15d] {tag} trained latents packed (prepare_serving_params, pallas) and served: a "
+        f"{prompt.shape[1]}-token Z.prefill and {SERVE15_STEPS} decode steps, binary_qmm launches {want} = "
+        f"{per_prefill} + {SERVE15_STEPS} x {per_decode}; logits and every cache leaf bitwise equal with "
+        f"binary_qmm swapped for binary_qmm_ref; greedy tokens " + str([int(x.argmax()) for x in got]))
+    return want, served
+
+
+def train_families(Z, deepseek_cfg, recurrent_cfgs, device, ops, ref, kernels, smi, workdir: Path) -> dict:
+    """Phase 15.  Returns K1's entries for the trained models served in
+    [15d]; the training numbers go on a line of their own (``[15] training
+    numbers``)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.smoke import smoke_variant
+    from repro_torch.core.tree import leaves, leaves_with_paths
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import moe as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import fault_tolerance as FT
+    from repro_torch.runtime import train_loop as TL
+
+    def stream(batch, seq, seed=0, vocab=deepseek_cfg.vocab_size):
+        return TokenPipeline(DataConfig(vocab_size=vocab, seq_len=seq, global_batch=batch, seed=seed))
+
+    t_phase = time.perf_counter()
+    numbers, k1 = {}, {}
+
+    # (a) deepseek-v2-lite-16b at full width: the "Md" prefix + 2 "Mm" layers
+    layers, batch, seq, steps = DEEPSEEK_TRAIN
+    dcfg = dataclasses.replace(deepseek_cfg, n_layers=layers)
+    e = dcfg.moe
+    prompt = stream(1, SERVE15_PROMPT, seed=5).next()["tokens"].astype(np.int64)
+    per_prefill, per_decode = k1_per_forward(dcfg, True), k1_per_forward(dcfg, False)
+    scfg = with_backend(dcfg, "pallas")
+
+    def prefill_routing(served):  # the prefill [15d] serves, its routes recorded
+        return _routing(M, e, lambda: Z.prefill(served, torch.as_tensor(prompt, device=device), scfg,
+                                                Z.init_cache(1, SERVE15_MAX_LEN, scfg, device=device)))
+
+    # the untrained model (seed 0, [15a]'s start) routes the same prompt
+    untrained = prefill_routing(Z.prepare_serving_params(Z.init_params(0, dcfg, device=device), scfg))
+    torch.cuda.empty_cache()
+    capacity = int(max(1, round(e.capacity_factor * batch * seq * e.top_k / e.n_routed)))
+    params, losses, r = _train_run(Z, TL, adamw, dcfg, device, batch, seq, steps, stream,
+                                   f"[15a] {deepseek_cfg.name} W1A8 QAT", smi, kernels)
+    if not r["aux_last"] > 0:
+        raise AssertionError(f"[15a] the balance loss is not positive: {r}")
+    log(f"[15a] {dcfg.name}: {e.n_routed} routed experts top-{e.top_k} + {e.n_shared} shared, capacity "
+        f"{capacity} rows an expert at {batch * seq} tokens; balance loss {r['aux_first']:.4f} -> "
+        f"{r['aux_last']:.4f} (1.0 at a uniform load)")
+    numbers["deepseek"] = dict(r, capacity=capacity)
+
+    # (d) the trained deepseek served through K1, and its routing
+    launches, served = _serve_trained(Z, dcfg, params, device, ops, ref, kernels, per_prefill, per_decode,
+                                      dcfg.name, prompt)
+    k1["trained_deepseek"] = dict(launches=launches)
+    trained = prefill_routing(served)
+    for key, rt in (("untrained", untrained), ("trained", trained)):
+        numbers["deepseek"][f"routing_{key}"] = {k: v for k, v in rt.items() if k != "out"}
+    log(f"[15d] routing of the {SERVE15_PROMPT}-token prefill over its {trained['layers']} MoE layers "
+        f"({e.n_routed} experts top-{e.top_k}, capacity "
+        f"{int(max(1, round(e.capacity_factor * SERVE15_PROMPT * e.top_k / e.n_routed)))} an expert): untrained "
+        f"{untrained['dropped_share']:.4f} of {untrained['routes']} routes dropped at capacity, the most loaded "
+        f"expert {untrained['max_expert_routes']} routes (mean {untrained['mean_expert_routes']:.1f}); after "
+        f"{steps} steps {trained['dropped_share']:.4f} dropped, the most loaded {trained['max_expert_routes']} "
+        f"(a reading: PERF.md section 7)")
+    del params, served, untrained, trained
+    torch.cuda.empty_cache()
+
+    # (c) recurrentgemma-2b on 5 of its 26 layers, mamba2-130m at full depth
+    for rcfg in recurrent_cfgs:
+        spec = RECURRENTGEMMA_TRAIN if rcfg.ssm is None else MAMBA2_TRAIN
+        layers, batch, seq, steps = spec
+        cfg = rcfg if layers is None else dataclasses.replace(rcfg, n_layers=layers)
+        params, losses, r = _train_run(Z, TL, adamw, cfg, device, batch, seq, steps, stream,
+                                       f"[15c] {rcfg.name} W1A8 QAT", smi, kernels)
+        key = rcfg.name.split("-")[0]
+        if cfg.ssm is not None:
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"[15c] {cfg.name} loss did not fall: {losses}")
+            per = recurrent_k1_per_forward(cfg)
+            rtoks = stream(1, SERVE15_PROMPT, seed=6, vocab=cfg.vocab_size).next()["tokens"].astype(np.int64)
+            launches, _ = _serve_trained(Z, cfg, params, device, ops, ref, kernels, per, per, cfg.name, rtoks)
+            k1[f"trained_{key}"] = dict(launches=launches)
+        numbers[key] = r
+        del params
+        torch.cuda.empty_cache()
+
+    # (b) one smoke step on the card against the CPU, routes first
+    tcfg = TL.TrainConfig()
+    for name in TRAIN15_SMOKE:
+        scfg = smoke_variant(get_config(name))
+        sparams = Z.init_params(0, scfg, device="cpu")
+        stoks = torch.from_numpy(stream(*TRAIN_SMOKE_BATCH, seed=1, vocab=scfg.vocab_size).next()["tokens"])
+        runs = []
+        for d in ("cpu", device):
+            seen = []
+            spy_route, spy_dispatch = _route_spy(M, seen)
+            with mock.patch.object(M, "_route", spy_route), mock.patch.object(M, "_dispatch", spy_dispatch):
+                runs.append((seen, *TL.value_and_grad(_to_device(sparams, d), {"tokens": stoks.to(d)}, scfg, tcfg)))
+        (r_cpu, m_cpu, g_cpu), (r_dev, m_dev, g_dev) = runs
+        moved = [int((a["experts"] != b["experts"]).sum()) for a, b in zip(r_cpu, r_dev)]
+        same_dispatch = all(torch.equal(a["keep"], b["keep"]) and torch.equal(a["dest"], b["dest"])
+                            for a, b in zip(r_cpu, r_dev))
+        if len(r_cpu) != len(r_dev) or any(moved) or not same_dispatch:
+            raise AssertionError(f"[15b] {scfg.name}: routes differ card vs CPU ({moved} per router call)")
+        loss_gap = abs(float(m_dev["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+        gaps = {p: float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for (p, a), b in zip(leaves_with_paths(g_dev), leaves(g_cpu))}
+        worst = max(gaps, key=gaps.get)
+        equal = sum(torch.equal(a.cpu(), b) for a, b in zip(leaves(g_dev), leaves(g_cpu)))
+        if loss_gap > TRAIN_LOSS_RTOL or gaps[worst] > TRAIN_GRAD_TOL:
+            raise AssertionError(f"[15b] {scfg.name} card vs CPU: loss gap {loss_gap:.3g}, gradient gap "
+                                 f"{gaps[worst]:.3g} at {worst}")
+        log(f"[15b] {scfg.name} ({scfg.n_layers} layers) step ({TRAIN_SMOKE_BATCH[0]} x {TRAIN_SMOKE_BATCH[1]}) "
+            f"on the card against the CPU: {len(r_cpu)} router calls, routes, keep and dest equal; loss "
+            f"{float(m_dev['loss']):.7f} vs {float(m_cpu['loss']):.7f} (relative gap {loss_gap:.3g}), aux "
+            f"{float(m_dev['aux']):.7f} vs {float(m_cpu['aux']):.7f}; gradient leaves: {equal}/{len(gaps)} bit for "
+            f"bit, largest gap {gaps[worst]:.3g} of a leaf's largest magnitude ({worst}; held to "
+            f"{TRAIN_LOSS_RTOL} / {TRAIN_GRAD_TOL})")
+        numbers[f"card_vs_cpu_{name.split('-')[0]}_{name.split('-')[1]}"] = dict(loss_gap=loss_gap,
+                                                                                grad_gap=gaps[worst])
+
+    # (e) 6 straight steps against 3 + checkpoint + restore + 3 on the
+    # deepseek-v2-lite smoke model (rank-3 experts, aux in the metrics)
+    scfg = smoke_variant(deepseek_cfg)
+
+    def runner(name, total, every):
+        return FT.TrainingRunner(
+            TL.make_train_step(scfg, TL.TrainConfig(optimizer=adamw.AdamWConfig(lr=1e-3, warmup_steps=2,
+                                                                                total_steps=6)), device=device),
+            stream(4, 64, seed=2, vocab=scfg.vocab_size), CheckpointManager(str(workdir / name), keep=1),
+            FT.RunnerConfig(total_steps=total, checkpoint_every=every, log_every=1), log_fn=lambda *_: None)
+
+    p0, o0 = TL.init_train_state(1, scfg, device=device)
+    pa, oa, hist = runner("e_straight", 6, 10**6).run(p0, o0)
+    runner("e_cut", 3, 3).run(p0, o0)
+    resumed = runner("e_cut", 6, 10**6)
+    start, pr, orr = resumed.try_restore(*TL.init_train_state(2, scfg, device=device))
+    pb, ob, hist_b = resumed.run(pr, orr, start)
+    if start != 3 or not (_trees_equal(pa, pb) and _trees_equal(oa, ob)) or [h["aux"] for h in hist[3:]] != \
+            [h["aux"] for h in hist_b]:
+        raise AssertionError(f"[15e] resumed at {start}: params equal {_trees_equal(pa, pb)}, optimizer state "
+                             f"equal {_trees_equal(oa, ob)}")
+    log(f"[15e] {scfg.name}: 6 straight steps (4 x 64) equal 3 + checkpoint + restore + 3, params (rank-3 "
+        f"experts) and AdamW state bit for bit, the aux metric step by step ("
+        + ", ".join(f"{h['aux']:.5f}" for h in hist) + ")")
+    log("[15] training numbers: " + json.dumps(numbers))
+    log(f"[15] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return k1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2952,6 +3244,11 @@ def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg, rec
     # ---- phase 14: QAT training, and the trained model served through K3
     with tempfile.TemporaryDirectory(prefix="chip_smoke_14_") as workdir:
         k3["trained"] = train_models(Z, bert_cfg, model_cfg, device, ops, ref, all_kernels, smi, Path(workdir))
+
+    # ---- phase 15: QAT of the MoE / MLA and recurrent families, served through K1
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_15_") as workdir:
+        k1.update(train_families(Z, deepseek_cfg, recurrent_cfgs, device, ops, ref, all_kernels, smi,
+                                 Path(workdir)))
 
     main_path = {"binary_qmm": k1, "fused_qmm": k2, "popcount_qmm": k3, "bitserial_qmm": k4,
                  "binary_attn_scores_planes": k5}

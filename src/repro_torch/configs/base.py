@@ -74,6 +74,10 @@ class QuantConfig:
     backend: str = "mxu"
     # ((fnmatch pattern over the site name, backend), ...): first match wins.
     backend_overrides: Tuple[Tuple[str, str], ...] = ()
+    # the reference's multi-device QAT packs the binarized weights before
+    # its FSDP gather; the port trains on one device and refuses it
+    # (ROADMAP section 1, item 7.4)
+    prebinarize_gather: bool = False
 
     @staticmethod
     def known_backends() -> Tuple[str, ...]:

@@ -10,9 +10,10 @@ Leaves are converted bit for bit: ``uint32`` packed words become ``int32``
 tensors holding the same bits (rank-3 stacked experts ``(E, K/32, N)``
 included), ``bfloat16`` arrays keep their bits, and everything else keeps
 its dtype (the float32 MoE router and a frontend's ``stub_proj`` among
-them).  deepseek-v3's ``mtp`` subtree is dropped: the multi-token-prediction
-head serves only the reference's training loss, and the port's serving
-params have none.  A frontend's ``encoder`` subtree keeps ``stub_proj`` and
+them).  deepseek-v3's ``mtp`` subtree (the multi-token-prediction head,
+which serves only the training loss) crosses with a latent tree and is
+dropped from a serving one: the port's serving params have none.  A
+frontend's ``encoder`` subtree keeps ``stub_proj`` and
 ``final_norm``; its scanned encoder ``stack`` (a period of one global
 layer, ``encoder.n_layers`` times) becomes its own ``layers`` list.
 """
@@ -64,6 +65,8 @@ def from_reference(tree: dict, cfg: ArchConfig, device="cuda") -> dict:
     (and ``"encoder"``)."""
     out = {k: to_tensor(v, device) for k, v in tree.items() if k not in ("stack", "mtp", "encoder")}
     out["layers"] = _unstack(tree["stack"], cfg.n_periods, device)
+    if "mtp" in tree and "w" in tree["mtp"]["proj"]:  # a latent tree's head
+        out["mtp"] = _leaves(tree["mtp"], lambda a: to_tensor(a, device))
     if "encoder" in tree:
         enc = tree["encoder"]
         out["encoder"] = {k: _leaves(v, lambda a: to_tensor(a, device))

@@ -12,7 +12,11 @@ unless ``--device cpu``.  ``--smoke`` selects the reduced config.  A
 checkpoint every ``--ckpt-every`` steps holds params, optimizer state and
 the data cursor; SIGTERM or SIGINT checkpoints at the next step and exits,
 and a relaunch with the same flags resumes from the latest checkpoint bit
-for bit.  Trainable so far: the dense GQA and BERT-encoder families.
+for bit.  Every family trains but those with a frontend (internvl2-2b's
+patch stub, whisper-tiny's encoder and cross-attention; ROADMAP section 1,
+item 7.3): the dense GQA and BERT-encoder families, deepseek's MLA and MoE
+(with the MoE layers' balance loss, and deepseek-v3's MTP head) and the
+recurrent families.
 """
 
 import argparse

@@ -1,13 +1,13 @@
 """GQA and MLA attention (port of ``repro.models.attention`` for ``kind``
-``"g"``, ``"l"``, ``"Md"`` and ``"Mm"``), serve mode; GQA also in train
-mode.
+``"g"``, ``"l"``, ``"Md"`` and ``"Mm"``), in serve mode and in train mode.
 
 Train mode (QAT, ``mode="train"``): full-sequence attention over the
 in-flight keys and values, no cache; under quantized attention q, k and
 the probabilities are fake-quantized per tensor at ``attn_act_bits``
 around float32 scores and a float P.V, as the reference trains (its
-``attn_scores_dtype="bf16"`` variant is not ported).  MLA has no train
-mode yet (ROADMAP section 1).
+``attn_scores_dtype="bf16"`` variant is not ported).  MLA trains in its
+decompressed form (``mla_attention``): q_nope and the up-projected k_nope
+fake-quantized, the rope parts not.
 
 With quantized attention QK^T and PV run as activation x activation
 integer products through the flow abstraction, grouped over kv heads;
@@ -475,7 +475,7 @@ def attention(
     if train and (cache is not None or kv_override is not None):
         raise NotImplementedError(
             "train mode is full-sequence self-attention without a cache; cross-attention "
-            "training is not ported yet (ROADMAP section 1)")
+            "training is not ported yet (ROADMAP section 1, item 7.3)")
     quant = cfg.quant
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     b, s, _ = x.shape
@@ -638,15 +638,15 @@ def init_mla_cache(batch: int, max_len: int, cfg: ArchConfig, device="cuda") -> 
     }
 
 
-def _mla_q(p, x, cfg: ArchConfig, positions):
+def _mla_q(p, x, cfg: ArchConfig, positions, mode: str = "serve"):
     """Queries -> (q_nope (B,S,H,dn), q_rope (B,S,H,dr) rotated)."""
     m, h = cfg.mla, cfg.n_heads
     if m.q_lora_rank:
-        qc = L.qlinear(p["q_down"], x, cfg.quant, name="attn.q_down")
+        qc = L.qlinear(p["q_down"], x, cfg.quant, mode=mode, name="attn.q_down")
         qc = L.rmsnorm(p["q_norm_lora"], qc, cfg.norm_eps)
-        q = L.qlinear(p["q_up"], qc, cfg.quant, name="attn.q_up")
+        q = L.qlinear(p["q_up"], qc, cfg.quant, mode=mode, name="attn.q_up")
     else:
-        q = L.qlinear(p["q_proj"], x, cfg.quant, name="attn.q")
+        q = L.qlinear(p["q_proj"], x, cfg.quant, mode=mode, name="attn.q")
     q = q.reshape(*x.shape[:-1], h, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = q[..., : m.qk_nope_dim], q[..., m.qk_nope_dim :]
     return q_nope, L.rope(q_rope, positions, cfg.rope_theta)
@@ -721,11 +721,40 @@ def _write_latent(cache: dict, c_m, r_u, s: int) -> None:
     cache["pos"] += s
 
 
+def _mla_decompressed(p, x, ckv, q_nope, q_rope, k_rope, cfg: ArchConfig, scale, mode: str):
+    """The full-sequence form over the in-flight latent ``ckv`` (B, S, R):
+    keys and values up-projected through ``qlinear``, float32 scores, the
+    causal mask, a float P.V in the activation dtype.  In train mode under
+    quantized attention q_nope, k_nope and the probabilities are
+    fake-quantized at ``attn_act_bits``.  Returns the context (B, S, H *
+    v_head_dim)."""
+    m, h, quant = cfg.mla, cfg.n_heads, cfg.quant
+    b, s, _ = x.shape
+    f32 = torch.float32
+    k_nope = L.qlinear(p["k_up"], ckv, quant, mode=mode, name="attn.k_up").reshape(b, s, h, m.qk_nope_dim)
+    v = L.qlinear(p["v_up"], ckv, quant, mode=mode, name="attn.v_up").reshape(b, s, h, m.v_head_dim)
+    fake = mode == "train" and quant.enabled and quant.quantize_attention
+    if fake:
+        q_nope = Q.fake_quant(q_nope, quant.attn_act_bits)
+        k_nope = Q.fake_quant(k_nope, quant.attn_act_bits)
+    scores = (
+        torch.einsum("bshd,bthd->bhst", q_nope.to(f32), k_nope.to(f32))
+        + torch.einsum("bshd,btd->bhst", q_rope.to(f32), k_rope.to(f32))
+    ) * scale
+    scores = scores + _mask(s, s, cfg.causal, 0, x.device)[None, None]
+    probs = L.softmax(scores)
+    if fake:
+        probs = Q.fake_quant(probs, quant.attn_act_bits)
+    ctx = L.float_einsum("bhst,bthd->bshd", probs.to(x.dtype), v)
+    return ctx.reshape(b, s, h * m.v_head_dim)
+
+
 def mla_attention(
-    p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, cache: dict,
+    p: dict, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor, cache: Optional[dict],
     mode: str = "serve",
-) -> Tuple[torch.Tensor, dict]:
-    """One MLA mixer application over the latent cache (int8 or bf16).
+) -> Tuple[torch.Tensor, Optional[dict]]:
+    """One MLA mixer application over the latent cache (int8 or bf16), or,
+    in train mode, over the whole sequence without one.
 
     ``S > 1`` is a prefill from an empty cache in the decompressed form:
     keys and values up-projected from the float latent through ``qlinear``,
@@ -736,13 +765,17 @@ def mla_attention(
     under quantized attention (``_scores_int_latent`` / ``_pv_int_latent``)
     or float32 ones against the cache's values otherwise, and the context
     unfolded through ``v_up``.  Returns (out (B, S, D), cache), the cache
-    updated in place.  Serve mode only: MLA training comes with the MoE
-    slice (ROADMAP section 1).
+    updated in place.
+
+    ``mode="train"`` takes no cache: the decompressed form over the whole
+    sequence (``_mla_decompressed``) on latent weights, every projection a
+    train-mode ``qlinear``; returns (out, None).
     """
-    if mode != "serve":
-        raise NotImplementedError(
-            "mla_attention in train mode is not ported yet (ROADMAP section 1: the MoE / MLA "
-            "training path)")
+    train = mode == "train"
+    if train and cache is not None:
+        raise ValueError("train mode is full-sequence attention without a cache")
+    if mode not in ("serve", "train"):
+        raise ValueError(f"unknown mode {mode!r}")
     m, h = cfg.mla, cfg.n_heads
     b, s, _ = x.shape
     quant = cfg.quant
@@ -750,11 +783,14 @@ def mla_attention(
     qd = m.qk_nope_dim + m.qk_rope_dim
     scale = torch.div(scalar(1.0, torch.float32, dev), torch.sqrt(scalar(float(qd), torch.float32, dev)))
 
-    q_nope, q_rope = _mla_q(p, x, cfg, positions)
-    ckv = L.qlinear(p["kv_down"], x, quant, name="attn.kv_down")
+    q_nope, q_rope = _mla_q(p, x, cfg, positions, mode)
+    ckv = L.qlinear(p["kv_down"], x, quant, mode=mode, name="attn.kv_down")
     ckv = L.rmsnorm(p["kv_norm"], ckv, cfg.norm_eps)
-    k_rope = L.qlinear(p["k_rope"], x, quant, name="attn.k_rope")  # (B, S, dr)
+    k_rope = L.qlinear(p["k_rope"], x, quant, mode=mode, name="attn.k_rope")  # (B, S, dr)
     k_rope = L.rope(k_rope, positions, cfg.rope_theta)
+    if train:
+        ctx = _mla_decompressed(p, x, ckv, q_nope, q_rope, k_rope, cfg, scale, mode)
+        return L.qlinear(p["o"], ctx.to(x.dtype), quant, mode=mode, name="attn.o"), None
 
     quantized = "ckv_scale" in cache
     if not quantized:
@@ -804,15 +840,6 @@ def mla_attention(
             ctx_lat = torch.einsum("bhst,btr->bshr", probs, ckv_all)
         ctx = torch.einsum("bshr,rhd->bshd", ctx_lat, w_uv)
     else:
-        # ---- decompressed prefill
-        f32 = torch.float32
-        k_nope = L.qlinear(p["k_up"], ckv, quant, name="attn.k_up").reshape(b, s, h, m.qk_nope_dim)
-        v = L.qlinear(p["v_up"], ckv, quant, name="attn.v_up").reshape(b, s, h, m.v_head_dim)
-        scores = (
-            torch.einsum("bshd,bthd->bhst", q_nope.to(f32), k_nope.to(f32))
-            + torch.einsum("bshd,btd->bhst", q_rope.to(f32), k_rope.to(f32))
-        ) * scale
-        scores = scores + _mask(s, s, cfg.causal, 0, dev)[None, None]
-        ctx = L.float_einsum("bhst,bthd->bshd", L.softmax(scores).to(x.dtype), v)
+        ctx = _mla_decompressed(p, x, ckv, q_nope, q_rope, k_rope, cfg, scale, mode)
     ctx = ctx.reshape(b, s, h * m.v_head_dim).to(x.dtype)
     return L.qlinear(p["o"], ctx, quant, name="attn.o"), cache

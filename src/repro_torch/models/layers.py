@@ -30,6 +30,7 @@ __all__ = [
     "init_linear",
     "pack_linear_for_serving",
     "qlinear",
+    "train_weight",
     "float_linear",
     "float_einsum",
     "softmax",
@@ -94,7 +95,7 @@ def qlinear(
         return float_linear(p, x)
     bits = act_bits or quant.act_bits
     if mode == "train":
-        w_hat = Q.fake_binarize_weight(p["w"])
+        w_hat = train_weight(p, quant)
         return float_einsum("...k,kn->...n", Q.fake_quant(x, bits), w_hat.to(x.dtype))
     if mode != "serve":
         raise ValueError(f"unknown mode {mode!r}")
@@ -112,6 +113,18 @@ def qlinear(
     xq = Q.quantize_activation(x.to(torch.float32).reshape(-1, k), bits, per_channel_axis=0)
     out = QE.qmm(xq, wq, backend=quant.backend_for(name), w_colsum=p.get("w_colsum"))
     return out.reshape(*lead, -1).to(x.dtype)
+
+
+def train_weight(p: dict, quant: QuantConfig) -> torch.Tensor:
+    """A train-mode site's latent ``{"w"}`` (``(K, N)``, or stacked experts
+    ``(E, K, N)``) fake-binarized over K.  The reference's
+    ``prebinarize_gather`` (weights packed before a multi-device gather)
+    is refused: the port trains on one device."""
+    if quant.prebinarize_gather:
+        raise NotImplementedError(
+            "prebinarize_gather packs weights for a multi-device gather; the port trains on one "
+            "device (ROADMAP section 1, item 7.4: multi-device training)")
+    return Q.fake_binarize_weight(p["w"])
 
 
 def float_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -19,8 +19,9 @@ stack, unstacked).  An MoE block's routed experts are rank-3 ``(E, K, N)``
 linears, packed along K; its router stays float32 (``{"w"}``), as the
 reference keeps it; a recurrent block's float leaves (``conv_w``,
 ``A_log``, ``D``, ``dt_bias``, ``norm_g``, ``lambda_p``) stay float32.
-deepseek-v3's multi-token-prediction head serves only the reference's
-training loss, so serving params carry none.  A model with a frontend has
+deepseek-v3's multi-token-prediction head (``"mtp": {"proj": {"w"}}``, a
+``(2 d, d)`` linear) serves only the training loss: latent params carry
+it, serving params none.  A model with a frontend has
 ``"encoder": {"stub_proj": {"w"}, ...}``, the stub projection kept float32,
 plus ``"layers"`` (the encoder's blocks) and ``"final_norm"`` when it has
 an encoder stack; then every decoder block carries ``ln_cross`` and
@@ -56,8 +57,9 @@ Entry points:
 * ``forward_logits`` / ``loss_fn`` -- the full-sequence forward on latent
   params in train mode (QAT) and the training loss: next-token for a
   causal model, the denoising copy (predict each input token) for an
-  encoder such as bit-bert.  Trainable so far: ``"g"`` / ``"l"`` layers
-  with a dense FFN, no frontend (ROADMAP section 1 lists the rest)
+  encoder such as bit-bert, plus the MoE layers' load-balance loss and
+  deepseek-v3's depth-1 multi-token prediction.  Every block kind trains;
+  a frontend and cross-attention do not yet (ROADMAP section 1, item 7.3)
 
 Caches are updated IN PLACE: ``prefill``, ``decode_step``, ``cache_insert``
 and ``cache_reset`` return the dict they were given, mutated.  Entry points
@@ -139,11 +141,12 @@ def _init_top(gen: torch.Generator, cfg: ArchConfig) -> dict:
 
 
 def _serving_top(params: dict) -> dict:
-    """The top-level leaves for serving: tables in bf16, the rest as they are."""
+    """The top-level leaves for serving: tables in bf16, the rest as they
+    are, without the training-only MTP head."""
     return {
         k: v.to(torch.bfloat16) if k in _TABLES else v
         for k, v in params.items()
-        if k not in ("layers", "encoder")
+        if k not in ("layers", "encoder", "mtp")
     }
 
 
@@ -187,6 +190,8 @@ def init_params(seed: int, cfg: ArchConfig, device="cuda") -> dict:
     p["layers"] = [T.init_block(gen, cfg, kind, cross=cross) for kind in cfg.layer_kinds]
     if cfg.encoder is not None:
         p["encoder"] = _init_encoder(gen, cfg)
+    if cfg.mtp_depth:
+        p["mtp"] = {"proj": L.init_linear(gen, 2 * cfg.d_model, cfg.d_model)}
     return p
 
 
@@ -218,7 +223,7 @@ def prepare_serving_params(params: dict, cfg: ArchConfig) -> dict:
     """Binarize and bit-pack every linear (stacked experts per expert);
     the embedding, unembedding and position tables go to bf16, norm gains,
     the MoE router and a frontend's stub projection stay float32, as in
-    the reference."""
+    the reference.  The MTP head is left out (it serves only training)."""
     out = _serving_top(params)
     out["layers"] = _pack_tree(params["layers"], cfg)
     if "encoder" in params:
@@ -465,20 +470,16 @@ def decode_step(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict
 def _forward_hidden(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
                     frontend: Optional[torch.Tensor] = None, remat: bool = False):
     """Full-sequence train-mode forward on latent params to the final
-    (normed) hidden states, bf16 (B, S, D), and the auxiliary loss (0 for
-    the ported families)."""
+    (normed) hidden states, bf16 (B, S, D), and the auxiliary loss (the
+    MoE layers' load-balance losses summed in layer order, else 0)."""
     if frontend is not None:
         raise NotImplementedError(
-            "training with a frontend is not ported yet (ROADMAP section 1: the encoder frontends)")
-    if cfg.mtp_depth and cfg.causal:
-        raise NotImplementedError(
-            f"{cfg.name}'s multi-token-prediction head has no training loss yet (ROADMAP section 1: "
-            "the MoE / MLA training path)")
+            "training with a frontend is not ported yet (ROADMAP section 1, item 7.3: the encoder "
+            "frontends)")
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).broadcast_to(b, s)
     x = _embed_inputs(params, tokens, cfg, positions)
-    x, _ = T.stack_apply(params["layers"], x, cfg, positions, None, mode="train", remat=remat)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    x, aux = T.stack_apply(params["layers"], x, cfg, positions, None, mode="train", remat=remat)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
@@ -490,6 +491,23 @@ def forward_logits(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     return L.unembed(params, x, cfg.tie_embeddings), aux
 
 
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-position negative log-likelihood of ``targets`` under float32
+    ``logits`` (``log_softmax`` as the reference's)."""
+    return -L.log_softmax(logits).gather(-1, targets[..., None].to(torch.int64))[..., 0]
+
+
+def _mtp_loss(params: dict, hidden: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """deepseek-v3's depth-1 multi-token prediction: token ``t + 2`` from
+    ``[h_t ; emb(t + 1)]`` in float32, through the train-mode ``mtp.proj``
+    and the shared unembedding; its mean NLL, float32."""
+    h_t = hidden[:, :-2].to(torch.float32)
+    emb_next = L.embed(params, tokens[:, 1:-1], cfg.d_model).to(torch.float32)
+    h_mtp = L.qlinear(params["mtp"]["proj"], torch.cat([h_t, emb_next], dim=-1), cfg.quant, mode="train")
+    logits = L.unembed(params, h_mtp, cfg.tie_embeddings)
+    return _nll(logits, tokens[:, 2:]).mean()
+
+
 def loss_fn(params: dict, batch: dict, cfg: ArchConfig, aux_weight: float = 0.01,
             remat: bool = False):
     """The training loss and its metrics ``{"loss", "aux", "nll"}``.
@@ -498,8 +516,10 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig, aux_weight: float = 0.01
     ``t + 1`` from the positions up to ``t``; a non-causal one (BERT family)
     the input token at every position (the reference's denoising copy).
     The logits and the mean NLL are float32 (the reference's
-    ``logits_dtype="bf16"`` variant is not ported);
-    the total adds ``aux_weight * aux``."""
+    ``logits_dtype="bf16"`` variant is not ported).  A causal model with
+    an MTP head (``cfg.mtp_depth`` and ``params["mtp"]``) adds 0.3 times
+    its mean NLL into ``loss``, as the reference reports it; the total adds
+    ``aux_weight * aux``."""
     tokens = batch["tokens"]
     hidden, aux = _forward_hidden(params, tokens, cfg, batch.get("frontend"), remat)
     logits = L.unembed(params, hidden, cfg.tie_embeddings)
@@ -507,8 +527,8 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig, aux_weight: float = 0.01
         pred, tgt = logits[:, :-1], tokens[:, 1:]
     else:
         pred, tgt = logits, tokens
-    logp = L.log_softmax(pred)
-    nll = -logp.gather(-1, tgt[..., None].to(torch.int64))[..., 0]
-    loss = nll.to(torch.float32).mean()
+    loss = _nll(pred, tgt).to(torch.float32).mean()
+    if cfg.mtp_depth and "mtp" in params and cfg.causal:
+        loss = loss + 0.3 * _mtp_loss(params, hidden, tokens, cfg)
     total = loss + aux_weight * aux
     return total, {"loss": loss, "aux": aux, "nll": loss}

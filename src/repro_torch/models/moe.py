@@ -1,5 +1,6 @@
-"""Mixture-of-Experts FFN, serve mode (port of ``repro.models.moe``):
-deepseek-style shared experts plus routed top-k experts.
+"""Mixture-of-Experts FFN (port of ``repro.models.moe``): deepseek-style
+shared experts plus routed top-k experts, in serve mode and in train mode
+(QAT).
 
 Dispatch is capacity-based, as in the reference: each token's ``k`` routes
 are sorted by expert (a stable sort), placed at their position within the
@@ -12,9 +13,17 @@ capacity (a 4-slot decode step has ``capacity`` 1 at deepseek-v2-lite's
 64 experts, top-6), so a request's tokens can depend on what shares its
 step, in the reference as here.
 
-Everything stays on the device: the capacity is a Python int from static
-shapes, and the sorts, ``searchsorted`` and scatters need no host sync, so
-the step captures as a CUDA graph.
+Serving keeps everything on the device: the capacity is a Python int from
+static shapes, and the sorts, ``searchsorted`` and scatters need no host
+sync, so the step captures as a CUDA graph.
+
+Train mode (``mode="train"``) runs the same routing and dispatch on the
+latent float32 experts: each expert fake-binarized (scales per expert and
+output column), the ``(E, C, K)`` buffer fake-quantized per tensor, their
+product a float einsum; gradients flow through the gather into the
+buffer, the bf16 combine weights and the combine, and ``moe_ffn`` also
+returns the reference's Switch-style load-balance loss.  Nothing on the
+autograd path is written in place.
 """
 
 from __future__ import annotations
@@ -67,18 +76,27 @@ def _experts_k1(x: Q.QuantTensor, w: Q.QuantTensor) -> torch.Tensor:
     return out
 
 
-def expert_qlinear(p: dict, x: torch.Tensor, quant: QuantConfig, k: int) -> torch.Tensor:
-    """``x (E, C, K) @ W (E, K, N)`` per expert on the serving datapath.
+def expert_qlinear(p: dict, x: torch.Tensor, quant: QuantConfig, k: int,
+                   mode: str = "serve") -> torch.Tensor:
+    """``x (E, C, K) @ W (E, K, N)`` per expert.
 
-    Each routed token keeps its own ``(E, C, 1)`` activation grid, so its
-    quantization does not depend on the tokens that share its expert.  With
-    ``quant.backend == "pallas"`` the integer product runs on K1, one
-    launch per expert; otherwise it is the plain integer product, the
-    reference's own path (which has no kernel here).  The flow-abstraction
-    epilogue then runs once, batched over the experts.  With quantization
-    off it is the reference's float einsum in ``x.dtype``."""
+    ``"serve"``: each routed token keeps its own ``(E, C, 1)`` activation
+    grid, so its quantization does not depend on the tokens that share its
+    expert.  With ``quant.backend == "pallas"`` the integer product runs on
+    K1, one launch per expert; otherwise it is the plain integer product,
+    the reference's own path (which has no kernel here).  The
+    flow-abstraction epilogue then runs once, batched over the experts.
+    ``"train"``: the latent ``(E, K, N)`` weights fake-binarized (scales
+    ``(E, 1, N)``), the whole buffer fake-quantized per tensor at
+    ``act_bits``, their product a float einsum in ``x.dtype``.  With
+    quantization off either mode is the reference's float einsum."""
     if not quant.enabled:
         return L.float_einsum("eck,ekn->ecn", x, p["w"].to(x.dtype))
+    if mode == "train":
+        w_hat = L.train_weight(p, quant)
+        return L.float_einsum("eck,ekn->ecn", Q.fake_quant(x, quant.act_bits), w_hat.to(x.dtype))
+    if mode != "serve":
+        raise ValueError(f"unknown mode {mode!r}")
     wq = Q.QuantTensor(
         mantissa=p["w_packed"],
         scale=p["w_scale"],
@@ -152,10 +170,46 @@ def _dispatch(experts: torch.Tensor, capacity: int, drop: int):
     return order, st, keep, dest
 
 
-def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _balance_loss(logits: torch.Tensor, experts: torch.Tensor, e: MoEConfig) -> torch.Tensor:
+    """The Switch-style load-balance loss ``E * sum_e f_e * p_e``: ``f_e``
+    the share of the routes sent to expert ``e`` (counted, no gradient),
+    ``p_e`` the mean router probability of ``e`` over the tokens (a softmax
+    of its own, whatever the scoring, as the reference's)."""
+    dev = logits.device
+    probs_mean = L.softmax(logits).mean(dim=0)  # (E,)
+    counts = torch.bincount(experts.reshape(-1), minlength=e.n_routed).to(torch.float32)
+    frac = counts / scalar(float(experts.numel()), torch.float32, dev)
+    return scalar(float(e.n_routed), torch.float32, dev) * torch.sum(frac * probs_mean)
+
+
+class _ScaleRoutes(torch.autograd.Function):
+    """``rows * w[:, None]``: each route's bf16 output row times its bf16
+    combine weight.  The backward is the reference's: the rows' gradient
+    ``g * w``, and each weight's the bf16 sum over its row of ``g * rows``
+    in the order XLA's CPU reduces a bf16 row (windows of 32 elements,
+    each summed in sequence and rounded at every add, then the window
+    sums; ``quantization._tree_sum_rows``).  PyTorch's own backward sums
+    the row in float32 and rounds once, a bf16 ulp or more away, which
+    moved a gradient leaf of the deepseek-v3 smoke model by 2.4e-2 of its
+    scale."""
+
+    @staticmethod
+    def forward(ctx, rows, w):
+        ctx.save_for_backward(rows, w)
+        return rows * w[:, None]
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, w = ctx.saved_tensors
+        return g * w[:, None], Q._tree_sum_rows((rows * g).transpose(0, 1))[0]
+
+
+def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, mode: str = "serve"):
     """The MoE FFN of ``x`` (B, S, D) -> (B, S, D).  Serving computes no
-    load-balance loss (the reference's aux term is for training)."""
+    load-balance loss (the reference's aux term is for training); train mode
+    returns ``(out, aux)``, aux the float32 balance loss."""
     e, quant = cfg.moe, cfg.quant
+    train = mode == "train"
     b, s, d = x.shape
     t = b * s
     dev = x.device
@@ -168,19 +222,22 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     order, st, keep, dest = _dispatch(experts, capacity, drop)
     sw = weights.reshape(-1)[order].to(x.dtype)  # combine weights ride in bf16
     buf = torch.zeros((drop + 1, d), dtype=x.dtype, device=dev)
-    buf.index_copy_(0, dest, xf[st])  # duplicate writes land in the drop slot
+    if train:
+        buf = buf.index_copy(0, dest, xf[st])
+    else:
+        buf.index_copy_(0, dest, xf[st])  # duplicate writes land in the drop slot
     h_in = buf[:drop].reshape(e.n_routed, capacity, d)
 
-    up = expert_qlinear(p["up"], h_in, quant, d)
-    gate = expert_qlinear(p["gate"], h_in, quant, d)
+    up = expert_qlinear(p["up"], h_in, quant, d, mode=mode)
+    gate = expert_qlinear(p["gate"], h_in, quant, d, mode=mode)
     h = L._act("silu", gate.to(torch.float32)).to(x.dtype) * up
-    out_e = expert_qlinear(p["down"], h, quant, e.d_expert_ff)
+    out_e = expert_qlinear(p["down"], h, quant, e.d_expert_ff, mode=mode)
 
     # combine: each token adds its k contributions in bf16 one at a time, in
     # the order of the sorted routes (ascending expert), as the reference's
     # scatter-add does; no atomics, so the sum is deterministic
     out_flat = torch.cat([out_e.reshape(drop, d), torch.zeros((1, d), dtype=x.dtype, device=dev)])
-    gathered = out_flat[dest] * sw[:, None]
+    gathered = _ScaleRoutes.apply(out_flat[dest], sw)
     gathered = torch.where(keep[:, None], gathered, torch.zeros_like(gathered))
     inv = torch.empty_like(order).scatter_(0, order, torch.arange(order.numel(), device=dev))
     slots = inv.reshape(t, e.top_k).sort(dim=-1).values
@@ -189,5 +246,6 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         combined = combined + gathered[slots[:, j]]
 
     if "shared" in p:
-        combined = combined + L.ffn(p["shared"], xf, cfg.ffn_type, quant)
-    return combined.reshape(b, s, d)
+        combined = combined + L.ffn(p["shared"], xf, cfg.ffn_type, quant, mode=mode)
+    out = combined.reshape(b, s, d)
+    return (out, _balance_loss(logits, experts, e)) if train else out

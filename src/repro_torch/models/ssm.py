@@ -1,6 +1,6 @@
-"""Recurrent mixers, serve mode (port of ``repro.models.ssm``): the Mamba-2
-SSD mixer (block kind ``"s"``, mamba2) and the RG-LRU (``"r"``,
-recurrentgemma).
+"""Recurrent mixers (port of ``repro.models.ssm``): the Mamba-2 SSD mixer
+(block kind ``"s"``, mamba2) and the RG-LRU (``"r"``, recurrentgemma), in
+serve mode and in train mode.
 
 The in / out / gate projections are binary-weight ``qlinear`` sites like
 any dense layer (K1 on the ``pallas`` backend).  The recurrences are
@@ -20,6 +20,12 @@ The conv window is stored in float32 and computed in the activation dtype
 state; as in the reference, a one-token prompt takes that branch too.  A
 call with S > 1 is a prefill: its conv window starts from zeros, and it
 carries the recurrent state it is given (zeros after a reset).
+
+Train mode (``mode="train"``, QAT) takes no state: the full-sequence form
+from zeros (the zero-padded causal conv, the chunked SSD from a zero state
+with the sequence padded to whole chunks, the RG-LRU's associative scan
+with no initial ``h``), every projection a train-mode ``qlinear``, and no
+tensor on the autograd path written in place.
 
 Float order, mirrored from the reference run op by op on the CPU:
 
@@ -48,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import quantization as Q
 from repro_torch.models import layers as L
 
 __all__ = [
@@ -118,19 +125,40 @@ def _associative_scan(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, t
         even = combine(odd, (a[:, 2::2], b[:, 2::2]))
 
     def interleave(first, e, o):
-        out = first.new_empty((first.shape[0], n) + tuple(first.shape[2:]))
-        out[:, 0] = first[:, 0]
-        out[:, 2::2] = e
-        out[:, 1::2] = o
-        return out + 0.0
+        # positions 0, 2, 4, ... from ``first[:, 0]`` and ``e``, the odd ones
+        # from ``o``; no tensor written in place, so autograd runs through it
+        evens = torch.cat([first[:, :1], e], dim=1)
+        if n % 2:
+            o = torch.cat([o, torch.zeros_like(evens[:, :1])], dim=1)
+        out = torch.stack([evens, o], dim=2).reshape(first.shape[0], -1, *first.shape[2:])
+        return out[:, :n] + 0.0
 
     return interleave(a, even[0], odd[0]), interleave(b, even[1], odd[1])
 
 
+class _Softplus(torch.autograd.Function):
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` evaluated as jax writes it,
+    ``max(x, 0) + log1p(exp(-|x|))`` (``torch.nn.functional.softplus``
+    returns ``x`` past 20 instead), differentiated as jax's ``logaddexp``
+    is: ``g * exp(x - softplus(x))``.  PyTorch's own backward of the
+    expression passes the whole gradient at ``x == 0``, where the
+    reference passes half (an exact zero ``dt`` pre-activation happens on
+    the SSD's quantized grids)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-x.abs()))
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return g * torch.exp(x - y)
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: ``logaddexp(x, 0)`` evaluated as jax writes it
-    (``torch.nn.functional.softplus`` returns ``x`` past 20 instead)."""
-    return torch.clamp(x, min=0.0) + torch.log1p(torch.exp(-x.abs()))
+    return _Softplus.apply(x)
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -138,12 +166,45 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
-def _causal_conv(w: torch.Tensor, x: torch.Tensor, window: torch.Tensor, decode: bool) -> torch.Tensor:
+class _DepthwiseConv(torch.autograd.Function):
+    """``sum(conv_in[:, i : i + S] * w[i] for i in range(k))`` over a
+    (B, S + k - 1, C) window and (k, C) taps, both in the activation dtype,
+    each product and add rounded as the reference's Python ``sum`` rounds
+    them.  The backward is the reference's: the window's gradient
+    accumulated from the last tap to the first, and each tap's the bf16
+    sum over the B x S rows of ``conv_in * g``, each add rounded
+    (``quantization._tree_sum_rows``: windows of 32 rows in sequence,
+    then the window sums).  Up to 32 rows that is the order of XLA's CPU,
+    bit for bit; past it XLA's order for a reduce over two axes is its
+    own, and the two differ by bf16 ulps.  PyTorch's own backward sums the
+    rows in float32 and rounds once (1.5e-2 of the largest tap gradient
+    from the reference's on the mamba2 smoke model)."""
+
+    @staticmethod
+    def forward(ctx, conv_in, w):
+        ctx.save_for_backward(conv_in, w)
+        s = conv_in.shape[1] - w.shape[0] + 1
+        return sum(conv_in[:, i : i + s] * w[i] for i in range(w.shape[0]))
+
+    @staticmethod
+    def backward(ctx, g):
+        conv_in, w = ctx.saved_tensors
+        k, s = w.shape[0], g.shape[1]
+        g_in = torch.zeros_like(conv_in)
+        for i in reversed(range(k)):
+            g_in[:, i : i + s] = g_in[:, i : i + s] + g * w[i]
+        taps = torch.stack([conv_in[:, i : i + s] * g for i in range(k)])  # (k, B, S, C)
+        g_w = Q._tree_sum_rows(taps.reshape(k, -1, taps.shape[-1]))[:, 0]
+        return g_in, g_w
+
+
+def _causal_conv(w: torch.Tensor, x: torch.Tensor, window: Optional[torch.Tensor],
+                 decode: bool) -> torch.Tensor:
     """Depthwise causal conv of width ``w.shape[0]`` over ``x`` (B, S, C) in
     ``x``'s dtype, each product and add rounded as the reference's Python
     ``sum`` rounds them.  A decode step reads the stored window; a prefill
     starts from zeros.  The window of the last positions is written back
-    into ``window`` (float32) in place."""
+    into ``window`` (float32) in place; train mode passes none."""
     k = w.shape[0]
     b, s, c = x.shape
     if decode:
@@ -151,9 +212,9 @@ def _causal_conv(w: torch.Tensor, x: torch.Tensor, window: torch.Tensor, decode:
         window.copy_(conv_in[:, 1:])
     else:
         conv_in = torch.cat([torch.zeros((b, k - 1, c), dtype=x.dtype, device=x.device), x], dim=1)
-        window.copy_(conv_in[:, -(k - 1):])
-    wq = w.to(x.dtype)
-    return sum(conv_in[:, i : i + s] * wq[i] for i in range(k))
+        if window is not None:
+            window.copy_(conv_in[:, -(k - 1):])
+    return _DepthwiseConv.apply(conv_in, w.to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -253,19 +314,33 @@ def _ssd_chunked(x, dt, a_coef, b_mat, c_mat, chunk: int, init_state: Optional[t
     return (y_diag + y_off).reshape(b, s, h, p), carry
 
 
-def ssd_mixer(p: dict, x: torch.Tensor, cfg: ArchConfig, state: dict) -> Tuple[torch.Tensor, dict]:
+def _check_state(state: Optional[dict], mode: str) -> bool:
+    """Whether ``mode`` is train mode, which takes no state (serve mode
+    needs one)."""
+    if mode == "train":
+        if state is not None:
+            raise ValueError("train mode is the full-sequence form from zeros; it takes no state")
+        return True
+    if mode != "serve":
+        raise ValueError(f"unknown mode {mode!r}")
+    return False
+
+
+def ssd_mixer(p: dict, x: torch.Tensor, cfg: ArchConfig, state: Optional[dict],
+              mode: str = "serve") -> Tuple[torch.Tensor, Optional[dict]]:
     """The mamba2 block's mixer: in_proj -> conv -> SSD -> gated norm ->
     out_proj.  x (B, S, D) bf16.  Returns (out (B, S, D), state), the state
-    updated in place."""
+    updated in place; in train mode (``state=None``) (out, None)."""
+    train = _check_state(state, mode)
     s_cfg = cfg.ssm
     di, nh = s_cfg.d_inner(cfg.d_model), s_cfg.n_heads(cfg.d_model)
     gz = s_cfg.n_groups * s_cfg.d_state
     b, s, _ = x.shape
-    decode = s == 1
+    decode = not train and s == 1
 
-    zxbcdt = L.qlinear(p["in_proj"], x, cfg.quant, name="ssm.in_proj")
+    zxbcdt = L.qlinear(p["in_proj"], x, cfg.quant, mode=mode, name="ssm.in_proj")
     z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * gz, nh], dim=-1)
-    conv_out = _causal_conv(p["conv_w"], xbc, state["conv"], decode)
+    conv_out = _causal_conv(p["conv_w"], xbc, None if train else state["conv"], decode)
     xbc = _silu(conv_out.to(torch.float32)).to(x.dtype)
 
     xs, b_mat, c_mat = torch.split(xbc, [di, gz, gz], dim=-1)
@@ -294,17 +369,19 @@ def ssd_mixer(p: dict, x: torch.Tensor, cfg: ArchConfig, state: dict) -> Tuple[t
         if pad_len:
             xh, bm, cm, dt = (F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad_len)) for t in (xh, bm, cm, dt))
         y, fin = _ssd_chunked(xh.to(torch.float32), dt, a_coef, bm.to(torch.float32),
-                              cm.to(torch.float32), q, state["ssm"])
+                              cm.to(torch.float32), q, None if train else state["ssm"])
         y = y[:, :s]
         y = y + p["D"][None, None, :, None] * xh[:, :s].to(torch.float32)
         y = y.reshape(b, s, di)
-        state["ssm"].copy_(fin)
-    state["pos"] += s
+        if not train:
+            state["ssm"].copy_(fin)
+    if not train:
+        state["pos"] += s
 
     # gated RMSNorm, then the output projection
     gated = y.to(x.dtype) * _silu(z.to(torch.float32)).to(x.dtype)
     y = L.rmsnorm(p["norm_g"], gated, cfg.norm_eps)
-    return L.qlinear(p["out_proj"], y, cfg.quant, name="ssm.out_proj"), state
+    return L.qlinear(p["out_proj"], y, cfg.quant, mode=mode, name="ssm.out_proj"), state
 
 
 # ---------------------------------------------------------------------------
@@ -335,20 +412,24 @@ def init_rglru_state(batch: int, cfg: ArchConfig, device="cuda") -> dict:
     }
 
 
-def rglru_mixer(p: dict, x: torch.Tensor, cfg: ArchConfig, state: dict) -> Tuple[torch.Tensor, dict]:
+def rglru_mixer(p: dict, x: torch.Tensor, cfg: ArchConfig, state: Optional[dict],
+                mode: str = "serve") -> Tuple[torch.Tensor, Optional[dict]]:
     """RG-LRU block (Griffin / recurrentgemma): two branches, conv1d(4) on
     one, the gated linear recurrence, the gelu-gated output.  x (B, S, D)
-    bf16.  Returns (out (B, S, D), state), the state updated in place."""
+    bf16.  Returns (out (B, S, D), state), the state updated in place; in
+    train mode (``state=None``) (out, None), the scan from no initial
+    ``h``."""
+    train = _check_state(state, mode)
     quant = cfg.quant
     s = x.shape[1]
-    decode = s == 1
-    xb = L.qlinear(p["in_x"], x, quant, name="rglru.in_x")
-    gate = L.qlinear(p["in_gate"], x, quant, name="rglru.in_gate")
-    xb = _causal_conv(p["conv_w"], xb, state["conv"], decode)
+    decode = not train and s == 1
+    xb = L.qlinear(p["in_x"], x, quant, mode=mode, name="rglru.in_x")
+    gate = L.qlinear(p["in_gate"], x, quant, mode=mode, name="rglru.in_gate")
+    xb = _causal_conv(p["conv_w"], xb, None if train else state["conv"], decode)
 
     # gates: float32, elementwise
-    r = torch.sigmoid(L.qlinear(p["gate_a"], xb, quant, name="rglru.gate_a").to(torch.float32))
-    i_g = torch.sigmoid(L.qlinear(p["gate_i"], xb, quant, name="rglru.gate_i").to(torch.float32))
+    r = torch.sigmoid(L.qlinear(p["gate_a"], xb, quant, mode=mode, name="rglru.gate_a").to(torch.float32))
+    i_g = torch.sigmoid(L.qlinear(p["gate_i"], xb, quant, mode=mode, name="rglru.gate_i").to(torch.float32))
     log_a = (-_RGLRU_C * _softplus(p["lambda_p"]))[None, None, :] * r
     a = torch.exp(log_a)
     gated_x = xb.to(torch.float32) * i_g
@@ -360,10 +441,12 @@ def rglru_mixer(p: dict, x: torch.Tensor, cfg: ArchConfig, state: dict) -> Tuple
     else:
         # the linear recurrence h_t = a_t h_{t-1} + b_t as an associative scan
         a_scan, y = _associative_scan(a, mult * gated_x)
-        y = y + a_scan * state["h"][:, None, :]
-        h = y[:, -1]
-    state["h"].copy_(h)
-    state["pos"] += s
+        if not train:
+            y = y + a_scan * state["h"][:, None, :]
+            h = y[:, -1]
+    if not train:
+        state["h"].copy_(h)
+        state["pos"] += s
 
     out = y.to(x.dtype) * L.gelu(gate.to(torch.float32)).to(x.dtype)
-    return L.qlinear(p["out"], out, quant, name="rglru.out"), state
+    return L.qlinear(p["out"], out, quant, mode=mode, name="rglru.out"), state

@@ -1,5 +1,5 @@
-"""Block assembly (port of ``repro.models.transformer``), serve mode and,
-for the attention blocks ``"g"`` / ``"l"`` with a dense FFN, train mode.
+"""Block assembly (port of ``repro.models.transformer``), in serve mode and
+in train mode.
 
 The reference scans one stacked ``period`` of params with ``lax.scan``;
 here the stack is a Python loop over per-layer param dicts, in
@@ -14,11 +14,14 @@ axis (``models/ssm.py``).  A decoder block built with ``cross=True`` adds
 cross-attention (``ln_cross``, ``cross_attn``) onto an encoder's output
 between its mixer and its FFN; an encoder stack runs without caches.
 
-Train mode (QAT) runs the stack without caches; with ``remat`` each block
-is checkpointed (``torch.utils.checkpoint``, recomputed in the backward),
-as the reference checkpoints its scanned period body.  Recomputing changes
-no value.  The other block kinds and cross-attention raise in train mode
-(ROADMAP section 1).
+Train mode (QAT) runs the stack without caches, every block kind but
+cross-attention (ROADMAP section 1, item 7.3: the encoder frontends); with
+``remat`` each block is checkpointed (``torch.utils.checkpoint``,
+recomputed in the backward), as the reference checkpoints its scanned
+period body.  Recomputing changes no value.  Each block returns its
+auxiliary loss beside its output (an ``"Mm"`` block's load-balance loss,
+else 0), through the checkpoint, and the stack sums them in float32 in
+layer order, as the reference's prefix loop and period scan do.
 """
 
 from __future__ import annotations
@@ -38,7 +41,6 @@ __all__ = ["init_block", "init_block_cache", "block_apply", "stack_apply"]
 
 RECURRENT_KINDS = ("r", "s")
 KINDS = ("g", "l") + A.MLA_KINDS + RECURRENT_KINDS
-TRAIN_KINDS = ("g", "l")
 
 
 def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str, site=lambda p: p,
@@ -79,14 +81,11 @@ def init_block_cache(batch: int, max_len: int, cfg: ArchConfig, kind: str, devic
     return A.init_kv_cache(batch, max_len, cfg, kind, device=device)
 
 
-def _check_trainable(p: dict, kind: str) -> None:
-    if kind not in TRAIN_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} has no train mode yet (only {TRAIN_KINDS}; ROADMAP section 1: "
-            "the MoE / MLA and recurrent training paths)")
+def _check_trainable(p: dict) -> None:
     if "cross_attn" in p:
         raise NotImplementedError(
-            "cross-attention blocks have no train mode yet (ROADMAP section 1: the encoder frontends)")
+            "cross-attention blocks have no train mode yet (ROADMAP section 1, item 7.3: the "
+            "encoder frontends)")
 
 
 def block_apply(p: dict, x, cfg: ArchConfig, kind: str, positions, cache: Optional[dict],
@@ -95,23 +94,23 @@ def block_apply(p: dict, x, cfg: ArchConfig, kind: str, positions, cache: Option
 
     A block with ``cross_attn`` attends to ``encoder_out`` (B, T, D) when it
     is given: keys and values projected from all T rows, non-causal.
-    ``mode="train"``: an attention block with a dense FFN, no cache."""
-    if mode == "train":
-        _check_trainable(p, kind)
-        h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-        x = x + A.attention(p["attn"], h, cfg, kind, positions, None, mode=mode)[0]
-        h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        return x + L.ffn(p["ffn"], h, cfg.ffn_type, cfg.quant, mode=mode), None
+    ``mode="train"``: no cache and no cross-attention; returns (x, aux),
+    aux the block's float32 auxiliary loss (an MoE block's load balance,
+    else 0)."""
+    train = mode == "train"
+    if train:
+        _check_trainable(p)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) if train else None
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "s":
-        mix, cache = S.ssd_mixer(p["ssd"], h, cfg, cache)
-        return x + mix, cache
+        mix, cache = S.ssd_mixer(p["ssd"], h, cfg, cache, mode=mode)
+        return x + mix, (aux if train else cache)
     if kind == "r":
-        mix, cache = S.rglru_mixer(p["rglru"], h, cfg, cache)
+        mix, cache = S.rglru_mixer(p["rglru"], h, cfg, cache, mode=mode)
     elif kind in A.MLA_KINDS:
-        mix, cache = A.mla_attention(p["attn"], h, cfg, positions, cache)
+        mix, cache = A.mla_attention(p["attn"], h, cfg, positions, cache, mode=mode)
     else:
-        mix, cache = A.attention(p["attn"], h, cfg, kind, positions, cache)
+        mix, cache = A.attention(p["attn"], h, cfg, kind, positions, cache, mode=mode)
     x = x + mix
     if "cross_attn" in p and encoder_out is not None:
         h = L.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
@@ -123,8 +122,12 @@ def block_apply(p: dict, x, cfg: ArchConfig, kind: str, positions, cache: Option
         x = x + mix
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if kind == "Mm":
-        return x + M.moe_ffn(p["moe"], h, cfg), cache
-    return x + L.ffn(p["ffn"], h, cfg.ffn_type, cfg.quant), cache
+        out = M.moe_ffn(p["moe"], h, cfg, mode=mode)
+        if train:
+            out, aux = out
+    else:
+        out = L.ffn(p["ffn"], h, cfg.ffn_type, cfg.quant, mode=mode)
+    return x + out, (aux if train else cache)
 
 
 def stack_apply(layers: List[dict], x, cfg: ArchConfig, positions,
@@ -132,14 +135,19 @@ def stack_apply(layers: List[dict], x, cfg: ArchConfig, positions,
                 mode: str = "serve", remat: bool = False):
     """Apply every layer in order; returns (x, caches).  ``caches=None``
     runs the stack stateless (an encoder).  ``mode="train"`` runs without
-    caches, each block checkpointed when ``remat`` is set."""
+    caches, each block checkpointed when ``remat`` is set, and returns (x,
+    aux), aux the blocks' auxiliary losses summed in float32 from 0 in
+    layer order."""
     if mode == "train":
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for p, kind in zip(layers, cfg.layer_kinds):
             def block(x, p=p, kind=kind):
-                return block_apply(p, x, cfg, kind, positions, None, mode=mode)[0]
+                return block_apply(p, x, cfg, kind, positions, None, mode=mode)
 
-            x = torch.utils.checkpoint.checkpoint(block, x, use_reentrant=False) if remat else block(x)
-        return x, None
+            x, block_aux = (torch.utils.checkpoint.checkpoint(block, x, use_reentrant=False) if remat
+                            else block(x))
+            aux = aux + block_aux
+        return x, aux
     for i, (p, kind) in enumerate(zip(layers, cfg.layer_kinds)):
         x, _ = block_apply(p, x, cfg, kind, positions, None if caches is None else caches[i],
                            encoder_out)

@@ -10,14 +10,16 @@ leaves its inputs as they were.
   microbatches (rows past ``micro * accum`` are dropped, as the reference
   drops them) and sums their gradients from zero in float32, one backward
   at a time, so activation memory scales with the microbatch; gradients
-  and metrics are then divided by ``accum``.
+  and metrics (``loss``, the MoE balance loss ``aux``, ``nll``) are then
+  divided by ``accum``.
 * **Remat**: ``TrainConfig.remat`` checkpoints each block, recomputed in
   the backward (``transformer.stack_apply``).
 
 There is one device and no mesh: the reference's sharded step,
 ``prebinarize_params`` (packing the binarized weights before an FSDP
-gather) and ``make_compressed_dp_step`` wait for the multi-device slice
-(ROADMAP section 1).
+gather; ``QuantConfig.prebinarize_gather`` raises) and
+``make_compressed_dp_step`` wait for the multi-device slice (ROADMAP
+section 1, item 7.4).
 """
 
 from __future__ import annotations

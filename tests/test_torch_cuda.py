@@ -885,3 +885,128 @@ def test_smoke_train_step_card_matches_cpu(dev, name):
     new, opt, metrics = step(_to(params, dev), adamw.init_state(_to(params, dev)), {"tokens": tokens})
     assert all(bool(torch.isfinite(p).all()) for p in tree.leaves(new))
     assert int(opt.step) == 1 and np.isfinite(float(metrics["grad_norm"]))
+
+
+# ---- QAT of the MoE / MLA and recurrent families on the card
+
+NEW_TRAIN_FAMILIES = ["deepseek-v2-lite-16b", "deepseek-v3-671b", "recurrentgemma-2b", "mamba2-130m"]
+
+
+def routes_and_step(params, tokens, cfg, tcfg, device):
+    """One smoke step's (metrics, grads) on ``device`` and the routes
+    (``experts`` of every ``moe._route`` call, in call order) it took."""
+    from unittest import mock
+
+    from repro_torch.models import moe as M
+    from repro_torch.runtime import train_loop as TL
+
+    routes, real = [], M._route
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        routes.append(out[1].cpu())
+        return out
+
+    with mock.patch.object(M, "_route", spy):
+        metrics, grads = TL.value_and_grad(_to(params, device), {"tokens": tokens.to(device)}, cfg, tcfg)
+    return routes, metrics, grads
+
+
+@pytest.mark.parametrize("name", NEW_TRAIN_FAMILIES)
+def test_new_family_train_step_card_matches_cpu(dev, name):
+    """One smoke train step from the same params and batch on the card
+    and on the CPU: an MoE model's routes first (every router call, the
+    remat recompute's included), then the loss and every gradient leaf
+    within TRAIN_LOSS_RTOL / TRAIN_GRAD_TOL, as the dense families'."""
+    from repro_torch.runtime import train_loop as TL
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = smoke_variant(get_config(name))
+    tcfg = TL.TrainConfig()
+    params = Z.init_params(0, cfg, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, size=(4, 64)))
+    (r0, m0, g0), (r1, m1, g1) = (routes_and_step(params, tokens, cfg, tcfg, d) for d in ("cpu", dev))
+    assert len(r0) == len(r1) == (2 * cfg.layer_kinds.count("Mm"))  # forward, then the remat recompute
+    differing = [int((a != b).sum()) for a, b in zip(r0, r1)]
+    assert differing == [0] * len(r0), f"routes differ card vs CPU: {differing}"
+    want = float(m0["loss"])
+    assert abs(float(m1["loss"]) - want) <= TRAIN_LOSS_RTOL * abs(want)
+    assert (float(m0["aux"]) > 0) == (cfg.moe is not None)
+    for (path, a), b in zip(tree.leaves_with_paths(g1), tree.leaves(g0)):
+        assert a.is_cuda and float((a.cpu() - b).abs().max()) <= TRAIN_GRAD_TOL * float(b.abs().max()), path
+
+
+def test_trained_moe_served_through_k1_bitwise(dev):
+    """deepseek-v2-lite smoke trained 3 steps on the card, packed and
+    served (a 12-token prefill and 2 decode steps) on ``pallas``: K1's
+    launches equal the forward's sites, the routed experts one launch per
+    expert, and logits and every cache leaf are bitwise those of the same
+    forward with K1 swapped for its plain version."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop as TL
+
+    cfg = smoke_variant(get_config("deepseek-v2-lite-16b"))
+    tcfg = TL.TrainConfig(optimizer=adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3))
+    params, opt = TL.init_train_state(0, cfg, device=dev)
+    step = TL.make_train_step(cfg, tcfg, device=dev)
+    rng = np.random.default_rng(7)
+    for _ in range(3):
+        params, opt, _ = step(params, opt, {"tokens": rng.integers(0, cfg.vocab_size, size=(4, 32))})
+    scfg = dataclasses.replace(cfg, quant=dataclasses.replace(cfg.quant, backend="pallas"))
+    served = Z.prepare_serving_params(params, scfg)
+    assert "mtp" not in served
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, 12))).to(dev)
+
+    def serve():
+        cache = Z.init_cache(1, 32, scfg, device=dev)
+        logits, cache = Z.prefill(served, prompt, scfg, cache)
+        out = [logits]
+        for _ in range(2):
+            logits, cache = Z.decode_step(served, out[-1].argmax(-1), scfg, cache)
+            out.append(logits)
+        return out, cache
+
+    before = K1.binary_qmm.launches
+    got, cache = serve()
+    torch.cuda.synchronize()
+    assert K1.binary_qmm.launches - before == (deepseek_k1_per_forward(scfg, prefill=True)
+                                               + 2 * deepseek_k1_per_forward(scfg))
+    with mock.patch.object(ops._bq, "binary_qmm", ref.binary_qmm_ref):
+        plain, plain_cache = serve()
+    assert all(torch.equal(a, b) for a, b in zip(got, plain)) and Z.caches_equal(cache, plain_cache)
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+
+
+def test_moe_resume_bitwise_on_card(dev, tmp_path):
+    """deepseek-v2-lite smoke on the card: 6 straight steps equal 3, a
+    checkpoint, a restore and 3 more, bit for bit (rank-3 expert leaves,
+    the aux metric in the history)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import fault_tolerance as FT
+    from repro_torch.runtime import train_loop as TL
+
+    cfg = smoke_variant(get_config("deepseek-v2-lite-16b"))
+
+    def runner(name, total, every):
+        tcfg = TL.TrainConfig(optimizer=adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=6))
+        return FT.TrainingRunner(
+            TL.make_train_step(cfg, tcfg, device=dev),
+            TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4, seed=2)),
+            CheckpointManager(str(tmp_path / name), keep=1),
+            FT.RunnerConfig(total_steps=total, checkpoint_every=every, log_every=1), log_fn=lambda *_: None)
+
+    p0, o0 = TL.init_train_state(1, cfg, device=dev)
+    pa, oa, hist = runner("straight", 6, 10**6).run(p0, o0)
+    assert len(hist) == 6 and all(h["aux"] > 0 for h in hist)
+    runner("cut", 3, 3).run(p0, o0)
+    resumed = runner("cut", 6, 10**6)
+    start, pr, orr = resumed.try_restore(*TL.init_train_state(2, cfg, device=dev))
+    assert start == 3
+    pb, ob, _ = resumed.run(pr, orr, start)
+    for a, b in zip(tree.leaves((pa, oa)), tree.leaves((pb, ob))):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)

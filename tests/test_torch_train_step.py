@@ -47,7 +47,6 @@ from repro_torch.configs import get_config as tget
 from repro_torch.configs.smoke import smoke_variant as tsmoke
 from repro_torch.core import tree
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
-from repro_torch.models import attention as TA_attn
 from repro_torch.models import layers as TL
 from repro_torch.models import model_zoo as TZ
 from repro_torch.optim import adamw as TA
@@ -246,10 +245,6 @@ def test_three_steps_track_the_compiled_reference():
 
 
 UNPORTED = {
-    "deepseek-v2-lite-16b": "block kind 'Md'",  # MLA (and MoE in its 'Mm' layers)
-    "deepseek-v3-671b": "multi-token-prediction",
-    "recurrentgemma-2b": "block kind 'r'",
-    "mamba2-130m": "block kind 's'",
     "whisper-tiny": "cross-attention",
 }
 
@@ -261,27 +256,25 @@ def test_unported_kinds_raise(name):
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
     with pytest.raises(NotImplementedError, match=UNPORTED[name]) as err:
         TZ.loss_fn(params, batch, cfg)
-    assert "ROADMAP" in str(err.value)
+    assert "ROADMAP section 1, item 7.3" in str(err.value)
 
 
 def test_unported_paths_raise_directly():
-    """MoE blocks, MLA, a frontend and an unknown mode refuse train mode;
-    nothing falls back to the serving path."""
-    cfg = tsmoke(tget("deepseek-v2-lite-16b"))
-    params = TZ.init_params(0, cfg, device="cpu")
-    x = torch.zeros((1, 4, cfg.d_model), dtype=torch.bfloat16)
-    pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match="block kind 'Mm'"):
-        from repro_torch.models import transformer as TT
+    """A cross-attention block, a frontend and an unknown mode refuse train
+    mode; nothing falls back to the serving path."""
+    from repro_torch.models import transformer as TT
 
-        TT.block_apply(params["layers"][1], x, cfg, "Mm", pos, None, mode="train")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TA_attn.mla_attention(params["layers"][0]["attn"], x, cfg, pos, None, mode="train")
+    wcfg = tsmoke(tget("whisper-tiny"))
+    wparams = TZ.init_params(0, wcfg, device="cpu")
+    x = torch.zeros((1, 4, wcfg.d_model), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="7.3"):
+        TT.block_apply(wparams["layers"][0], x, wcfg, "g", torch.arange(4)[None], None, mode="train")
     vcfg = tsmoke(tget("internvl2-2b"))
     vparams = TZ.init_params(0, vcfg, device="cpu")
     frontend = torch.zeros((1, vcfg.encoder.n_positions, vcfg.encoder.d_input or vcfg.d_model))
-    with pytest.raises(NotImplementedError, match="frontend"):
+    with pytest.raises(NotImplementedError, match="frontend") as err:
         TZ.loss_fn(vparams, {"tokens": torch.zeros((1, 16), dtype=torch.int32), "frontend": frontend}, vcfg)
+    assert "7.3" in str(err.value)
     gcfg = tsmoke(tget("granite-8b"))
     with pytest.raises(ValueError, match="unknown mode"):
         TL.qlinear({"w": torch.zeros(64, 64)}, torch.zeros(2, 64), gcfg.quant, mode="float")
