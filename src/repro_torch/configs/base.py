@@ -197,6 +197,11 @@ class ArchConfig:
     ssm: Optional[SSMConfig] = None
     encoder: Optional[EncoderConfig] = None
     quant: QuantConfig = QuantConfig()
+    # compute dtypes of the full-sequence attention scores and of the
+    # training loss's logits: "f32" (default) or "bf16", as the reference's
+    # variants set them through ``dataclasses.replace``
+    attn_scores_dtype: str = "f32"
+    logits_dtype: str = "f32"
     mtp_depth: int = 0  # deepseek-v3 multi-token prediction heads (training only)
     max_seq: int = 131072
     source: str = ""
@@ -204,6 +209,9 @@ class ArchConfig:
     def __post_init__(self):
         if self.d_head == 0:
             object.__setattr__(self, "d_head", self.d_model // self.n_heads)
+        for field in ("attn_scores_dtype", "logits_dtype"):
+            if getattr(self, field) not in ("f32", "bf16"):
+                raise ValueError(f"{self.name}: {field} {getattr(self, field)!r} is not 'f32' or 'bf16'")
         n_pattern = self.n_layers - len(self.prefix_layers)
         if n_pattern < 0 or (
             len(self.pattern_period) and n_pattern % len(self.pattern_period)

@@ -15,7 +15,9 @@ which serves only the training loss) crosses with a latent tree and is
 dropped from a serving one: the port's serving params have none.  A
 frontend's ``encoder`` subtree keeps ``stub_proj`` and
 ``final_norm``; its scanned encoder ``stack`` (a period of one global
-layer, ``encoder.n_layers`` times) becomes its own ``layers`` list.
+layer, ``encoder.n_layers`` times) becomes its own ``layers`` list.  A
+tree of the reference's gradients (or AdamW moments) crosses the same
+way, every leaf landing where the port's ``init_params`` puts it.
 """
 
 from __future__ import annotations

@@ -12,11 +12,13 @@ unless ``--device cpu``.  ``--smoke`` selects the reduced config.  A
 checkpoint every ``--ckpt-every`` steps holds params, optimizer state and
 the data cursor; SIGTERM or SIGINT checkpoints at the next step and exits,
 and a relaunch with the same flags resumes from the latest checkpoint bit
-for bit.  Every family trains but those with a frontend (internvl2-2b's
-patch stub, whisper-tiny's encoder and cross-attention; ROADMAP section 1,
-item 7.3): the dense GQA and BERT-encoder families, deepseek's MLA and MoE
-(with the MoE layers' balance loss, and deepseek-v3's MTP head) and the
-recurrent families.
+for bit.  Every family trains: the dense GQA and BERT-encoder families,
+deepseek's MLA and MoE (with the MoE layers' balance loss, and
+deepseek-v3's MTP head), the recurrent families, and the frontends -- the
+stream then also carries a float32 stub frontend per row
+(``encoder.n_positions`` x ``d_input``): internvl2-2b's patch rows,
+whisper-tiny's frames through its encoder and the decoder's
+cross-attention.
 """
 
 import argparse
@@ -56,9 +58,11 @@ def main() -> None:
         ),
         accum_steps=args.accum,
     )
+    enc = cfg.encoder
     pipe = TokenPipeline(
         DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq, global_batch=args.batch,
-                   seed=args.seed)
+                   seed=args.seed, frontend_positions=enc.n_positions if enc else 0,
+                   frontend_dim=(enc.d_input or cfg.d_model) if enc else 0)
     )
     step = TL.make_train_step(cfg, tcfg, device=args.device)
     params, opt = TL.init_train_state(args.seed, cfg, device=args.device)

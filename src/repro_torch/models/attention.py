@@ -2,12 +2,19 @@
 ``"g"``, ``"l"``, ``"Md"`` and ``"Mm"``), in serve mode and in train mode.
 
 Train mode (QAT, ``mode="train"``): full-sequence attention over the
-in-flight keys and values, no cache; under quantized attention q, k and
-the probabilities are fake-quantized per tensor at ``attn_act_bits``
-around float32 scores and a float P.V, as the reference trains (its
-``attn_scores_dtype="bf16"`` variant is not ported).  MLA trains in its
-decompressed form (``mla_attention``): q_nope and the up-projected k_nope
+in-flight keys and values (or, for cross-attention, an encoder's), no
+cache; under quantized attention q, k and the probabilities are
+fake-quantized per tensor at ``attn_act_bits`` around the float scores
+and a float P.V, as the reference trains.  MLA trains in its decompressed
+form (``mla_attention``): q_nope and the up-projected k_nope
 fake-quantized, the rope parts not.
+
+``cfg.attn_scores_dtype="bf16"``: every full-sequence pass (a prefill, a
+stateless or cross-attention pass, training; GQA and MLA's decompressed
+form) takes its scores, their scaling and mask and the softmax in bf16,
+as the reference's variant does: the float scores as a bf16 product, the
+integer ones cast after their epilogue.  A decode step over the cache
+keeps float32 scores.
 
 With quantized attention QK^T and PV run as activation x activation
 integer products through the flow abstraction, grouped over kv heads;
@@ -366,14 +373,27 @@ def _scores_binary_latent(q_abs, ckv_m, ckv_scale, ckv_offset, backend: str):
     return counts * (a1 * a2) + (a1 * g2) * row + (g1 * a2) * col + g1 * g2 * r
 
 
-def _scores_float(q, k):
-    """Grouped float32 scores: q (B,S,H,dh) x k (B,T,kvH,dh) -> (B,H,S,T),
-    head ``h`` against kv head ``h // (H / kvH)``."""
+def _scores_float(q, k, dtype=torch.float32):
+    """Grouped scores in ``dtype`` (float32, or a bf16 product through
+    ``float_einsum``): q (B,S,H,dh) x k (B,T,kvH,dh) -> (B,H,S,T), head
+    ``h`` against kv head ``h // (H / kvH)``."""
     b, s, h, dh = q.shape
     kvh = k.shape[2]
-    qg = q.reshape(b, s, kvh, h // kvh, dh).to(torch.float32)
-    out = torch.einsum("bskgd,btkd->bkgst", qg, k.to(torch.float32))
+    qg = q.reshape(b, s, kvh, h // kvh, dh).to(dtype)
+    out = L.float_einsum("bskgd,btkd->bkgst", qg, k.to(dtype))
     return out.reshape(b, h, s, k.shape[1])
+
+
+def _scores_dtype(cfg: ArchConfig) -> torch.dtype:
+    """The full-sequence scores' dtype, ``cfg.attn_scores_dtype``."""
+    return torch.bfloat16 if cfg.attn_scores_dtype == "bf16" else torch.float32
+
+
+def _full_probs(scores, mask, dh: int, sdt: torch.dtype):
+    """The full-sequence probabilities as the reference takes them:
+    ``softmax(scores.astype(sdt) / sqrt(sdt(dh)) + mask.astype(sdt))``."""
+    sqrt_dh = torch.sqrt(scalar(float(dh), sdt, scores.device))
+    return L.softmax(scores.to(sdt) / sqrt_dh + mask.to(sdt))
 
 
 def _pv_float(probs, v, dtype):
@@ -466,16 +486,16 @@ def attention(
     the same float scores and context (over the int8 cache dequantized).
     Returns (out (B, S, D), cache), the cache updated in place.
 
-    ``mode="train"`` takes no cache and no ``kv_override``: the float
-    full-sequence path, with q, k and the probabilities fake-quantized
-    under quantized attention.
+    ``mode="train"`` takes no cache: the float full-sequence path over
+    the in-flight keys and values or ``kv_override``'s, with q, k and the
+    probabilities fake-quantized under quantized attention.
     """
     _check_supported(cfg, kind)
     train = mode == "train"
-    if train and (cache is not None or kv_override is not None):
-        raise NotImplementedError(
-            "train mode is full-sequence self-attention without a cache; cross-attention "
-            "training is not ported yet (ROADMAP section 1, item 7.3)")
+    if train and cache is not None:
+        raise ValueError("train mode is full-sequence attention without a cache")
+    if mode not in ("serve", "train"):
+        raise ValueError(f"unknown mode {mode!r}")
     quant = cfg.quant
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     b, s, _ = x.shape
@@ -511,12 +531,13 @@ def attention(
     # a local layer's cache is a ring when it holds exactly the window
     windowed = cache is not None and kind == "l" and 0 < cfg.window_size == cache["k"].shape[1]
 
+    sdt = _scores_dtype(cfg)
     if kv_override is not None or (not use_int and (s > 1 or cache is None)):
         # cross-attention, a float prefill / stateless pass, or training
         fake = train and quant.enabled and quant.quantize_attention
         qf, kf = (Q.fake_quant(q, bits), Q.fake_quant(k, bits)) if fake else (q, k)
-        scores = _scores_float(qf, kf) / sqrt_dh + _mask(s, k.shape[1], causal, window, x.device)
-        probs = L.softmax(scores)
+        mask = _mask(s, k.shape[1], causal, window, x.device)
+        probs = _full_probs(_scores_float(qf, kf, sdt), mask, dh, sdt)
         if fake:
             probs = Q.fake_quant(probs, bits)
         ctx = _pv_float(probs, v, x.dtype)
@@ -541,9 +562,8 @@ def attention(
             k_sc, k_off = _calibrate_rows(k)
             k_m = _quantize_to_cache(k, k_sc, k_off)
             scores = _scores_int(q, k_m, k_sc, k_off, bits)
-        mask = _mask(s, s, causal, window, x.device)
-        probs = L.softmax(scores / sqrt_dh + mask[None, None])
-        ctx = _pv_int(probs, v_m, v_sc, v_off)
+        probs = _full_probs(scores, _mask(s, s, causal, window, x.device), dh, sdt)
+        ctx = _pv_int(probs.to(torch.float32), v_m, v_sc, v_off)
         if cache is not None:
             _write_prefill_cache(cache, k_m, v_m, s, windowed, k_sc, k_off, v_sc, v_off)
     else:
@@ -723,14 +743,15 @@ def _write_latent(cache: dict, c_m, r_u, s: int) -> None:
 
 def _mla_decompressed(p, x, ckv, q_nope, q_rope, k_rope, cfg: ArchConfig, scale, mode: str):
     """The full-sequence form over the in-flight latent ``ckv`` (B, S, R):
-    keys and values up-projected through ``qlinear``, float32 scores, the
-    causal mask, a float P.V in the activation dtype.  In train mode under
-    quantized attention q_nope, k_nope and the probabilities are
-    fake-quantized at ``attn_act_bits``.  Returns the context (B, S, H *
-    v_head_dim)."""
+    keys and values up-projected through ``qlinear``, the scores in
+    ``cfg.attn_scores_dtype`` (two products summed, then scaled and masked
+    in that dtype), the causal mask, a float P.V in the activation dtype.
+    In train mode under quantized attention q_nope, k_nope and the
+    probabilities are fake-quantized at ``attn_act_bits``.  Returns the
+    context (B, S, H * v_head_dim)."""
     m, h, quant = cfg.mla, cfg.n_heads, cfg.quant
     b, s, _ = x.shape
-    f32 = torch.float32
+    sdt = _scores_dtype(cfg)
     k_nope = L.qlinear(p["k_up"], ckv, quant, mode=mode, name="attn.k_up").reshape(b, s, h, m.qk_nope_dim)
     v = L.qlinear(p["v_up"], ckv, quant, mode=mode, name="attn.v_up").reshape(b, s, h, m.v_head_dim)
     fake = mode == "train" and quant.enabled and quant.quantize_attention
@@ -738,10 +759,10 @@ def _mla_decompressed(p, x, ckv, q_nope, q_rope, k_rope, cfg: ArchConfig, scale,
         q_nope = Q.fake_quant(q_nope, quant.attn_act_bits)
         k_nope = Q.fake_quant(k_nope, quant.attn_act_bits)
     scores = (
-        torch.einsum("bshd,bthd->bhst", q_nope.to(f32), k_nope.to(f32))
-        + torch.einsum("bshd,btd->bhst", q_rope.to(f32), k_rope.to(f32))
-    ) * scale
-    scores = scores + _mask(s, s, cfg.causal, 0, x.device)[None, None]
+        L.float_einsum("bshd,bthd->bhst", q_nope.to(sdt), k_nope.to(sdt))
+        + L.float_einsum("bshd,btd->bhst", q_rope.to(sdt), k_rope.to(sdt))
+    ) * scale.to(sdt)
+    scores = scores + _mask(s, s, cfg.causal, 0, x.device).to(sdt)
     probs = L.softmax(scores)
     if fake:
         probs = Q.fake_quant(probs, quant.attn_act_bits)

@@ -146,43 +146,96 @@ def float_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     return float_einsum("...k,kn->...n", x, p["w"].to(x.dtype))
 
 
-def _softmax_value(x: torch.Tensor) -> torch.Tensor:
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over its last axis in its own dtype, keepdims: a bf16
+    row on the CPU in the order XLA's CPU reduces it, rounding at every add
+    (``quantization._tree_sum_rows``: windows of 32 in sequence)."""
+    if x.dtype == torch.float32 or x.device.type == "cuda":
+        return x.sum(dim=-1, keepdim=True)
+    return Q._tree_sum_rows(x[..., None])[..., 0, :]
+
+
+def _sum_last(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sum(x, -1, keepdims=True)``: a bf16 row summed in float32 and
+    rounded once, as jnp upcasts a half-precision sum."""
+    return x.to(torch.float32).sum(dim=-1, keepdim=True).to(x.dtype)
+
+
+def _softmax_value(x: torch.Tensor):
     e = torch.exp(x - x.amax(dim=-1, keepdim=True))
-    return e / e.sum(dim=-1, keepdim=True)
+    w = _sum_last(e)
+    return e / w, e, w
 
 
 class _Softmax(torch.autograd.Function):
-    """``jax.nn.softmax`` with its custom derivative: the forward as
-    ``_softmax_value``, the backward the transpose of its JVP
-    ``y * (t - sum(y * t))``, accumulated as JAX transposes it:
-    ``y*g + y*(-sum(y*g))``."""
+    """``jax.nn.softmax`` differentiated.  In bf16 as the reference
+    differentiates it: its custom JVP is off by default
+    (``jax_softmax_custom_jvp``), so the backward is the transpose of ``e /
+    w`` (``e = exp(x - max)``, ``w = sum(e)``), op by op: ``(g / w -
+    sum((g * w**-2) * e)) * e``, ``w**-2`` as ``1 / (w * w)``, the sum a
+    bf16 reduce (``_row_sum``); so it is bit for bit the reference's.  In
+    float32, where XLA's ``exp`` is its own anyway, the transpose of the
+    custom JVP ``y * (t - sum(y * t))``, ``y*g + y*(-sum(y*g))``: it
+    cancels less than the other form, which kept a deepseek-v3 smoke step
+    on the card within 1e-2 of the CPU's, where the other form took a leaf
+    to 1.2e-2."""
 
     @staticmethod
     def forward(ctx, x):
-        y = _softmax_value(x)
-        ctx.save_for_backward(y)
+        y, e, w = _softmax_value(x)
+        ctx.save_for_backward(*((y,) if x.dtype == torch.float32 else (e, w)))
         return y
 
     @staticmethod
     def backward(ctx, g):
-        (y,) = ctx.saved_tensors
-        yg = y * g
-        return yg + y * -yg.sum(dim=-1, keepdim=True)
+        if g.dtype == torch.float32:
+            (y,) = ctx.saved_tensors
+            yg = y * g
+            return yg + y * -yg.sum(dim=-1, keepdim=True)
+        e, w = ctx.saved_tensors
+        one = scalar(1.0, w.dtype, w.device)
+        z = (g * (one / (w * w))) * e
+        return (g / w + -_row_sum(z)) * e
+
+
+class _LogSoftmax(torch.autograd.Function):
+    """``jax.nn.log_softmax`` (``s - log(w)``, ``s = x - max``, ``e =
+    exp(s)``, ``w = sum(e)``) and its backward, the transpose of those
+    steps: ``g + (sum(-g) / w) * e``, the sum in the order XLA's CPU
+    reduces a row (``_row_sum``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        shifted = x - x.amax(dim=-1, keepdim=True)
+        e = torch.exp(shifted)
+        w = _sum_last(e)
+        ctx.save_for_backward(e, w)
+        return shifted - torch.log(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        e, w = ctx.saved_tensors
+        return g + (_row_sum(-g) / w) * e
 
 
 def softmax(x: torch.Tensor) -> torch.Tensor:
-    """Softmax over the last axis as ``jax.nn.softmax`` evaluates it, and
-    differentiated as it is (``_Softmax``) where gradients are recorded."""
+    """Softmax over the last axis as ``jax.nn.softmax`` evaluates it, in
+    ``x.dtype`` (float32, or bf16 with every step rounded and the row sum
+    taken in float32), and differentiated as it is (``_Softmax``) where
+    gradients are recorded."""
     if x.requires_grad and torch.is_grad_enabled():
         return _Softmax.apply(x)
-    return _softmax_value(x)
+    return _softmax_value(x)[0]
 
 
 def log_softmax(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.log_softmax`` over the last axis: ``s - log(sum(exp(s)))``
-    with ``s = x - max(x)``, the max detached."""
-    shifted = x - x.amax(dim=-1, keepdim=True).detach()
-    return shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
+    """``jax.nn.log_softmax`` over the last axis, each step in ``x.dtype``
+    and the sum in float32, differentiated as the reference differentiates
+    it (``_LogSoftmax``) where gradients are recorded."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _LogSoftmax.apply(x)
+    shifted = x - x.amax(dim=-1, keepdim=True)
+    return shifted - torch.log(_sum_last(torch.exp(shifted)))
 
 
 def rmsnorm(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -327,5 +380,9 @@ def embed(p: dict, tokens: torch.Tensor, d_model: int, dtype=torch.bfloat16) -> 
 
 
 def unembed(p: dict, x: torch.Tensor, tied: bool, dtype=torch.float32) -> torch.Tensor:
+    """Logits ``x @ table.T`` in ``dtype``: float32, or bf16 as the
+    reference's bf16 dot computes it (``float_einsum``)."""
     table = p["embedding"] if tied else p["unembedding"]
-    return torch.matmul(x.to(dtype), table.to(dtype).T)
+    if dtype == torch.float32:
+        return torch.matmul(x.to(dtype), table.to(dtype).T)
+    return float_einsum("...d,vd->...v", x.to(dtype), table.to(dtype))

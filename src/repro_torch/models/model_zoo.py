@@ -58,8 +58,11 @@ Entry points:
   params in train mode (QAT) and the training loss: next-token for a
   causal model, the denoising copy (predict each input token) for an
   encoder such as bit-bert, plus the MoE layers' load-balance loss and
-  deepseek-v3's depth-1 multi-token prediction.  Every block kind trains;
-  a frontend and cross-attention do not yet (ROADMAP section 1, item 7.3)
+  deepseek-v3's depth-1 multi-token prediction.  Every block kind trains,
+  and so do the frontends: a patch stub's projected rows spliced over the
+  first positions, an encoder stack run in train mode on the frames and
+  cross-attended to by every decoder block.  ``cfg.logits_dtype="bf16"``
+  takes the loss's logits and ``log_softmax`` in bf16
 
 Caches are updated IN PLACE: ``prefill``, ``decode_step``, ``cache_insert``
 and ``cache_reset`` return the dict they were given, mutated.  Entry points
@@ -370,26 +373,34 @@ def _embed_inputs(params: dict, tokens: torch.Tensor, cfg: ArchConfig, positions
     return x.to(torch.bfloat16)
 
 
-def _run_encoder(params: dict, frontend: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _run_encoder(params: dict, frontend: torch.Tensor, cfg: ArchConfig, mode: str = "serve",
+                 remat: bool = False) -> torch.Tensor:
     """The encoder over stub frame embeddings, in the frontend's dtype:
-    projection, sinusoidal positions, the non-causal stack without caches,
+    the float projection (in either mode, as the reference keeps it),
+    sinusoidal positions, the non-causal stack without caches in ``mode``
+    (train mode: latent weights, each layer checkpointed under ``remat``),
     final norm.  Returns (B, T, d_model)."""
     enc = params["encoder"]
     x = L.float_linear(enc["stub_proj"], frontend)
     b, t = x.shape[:2]
     pos = torch.arange(t, device=x.device).broadcast_to(b, t)
     x = x + _sinusoidal(pos, cfg.d_model).to(x.dtype)
-    x, _ = T.stack_apply(enc["layers"], x, _encoder_cfg(cfg), pos)
+    x, _ = T.stack_apply(enc["layers"], x, _encoder_cfg(cfg), pos, mode=mode, remat=remat)
     return L.rmsnorm(enc["final_norm"], x, cfg.norm_eps)
 
 
-def _check_frontend(cfg: ArchConfig, tokens: torch.Tensor, frontend: torch.Tensor) -> None:
+def _check_frontend(cfg: ArchConfig, tokens: torch.Tensor, frontend: torch.Tensor,
+                    exact: bool = True) -> None:
+    """A frontend's shape against the model's: an encoder stack's frames
+    are ``(B, n_positions, d_input)`` (any number of frames in training,
+    ``exact=False``, as the reference's encoder takes them), a patch
+    stub's at most the prompt's length."""
     enc = cfg.encoder
     if enc is None:
         raise ValueError(f"{cfg.name} has no frontend")
     b, s = tokens.shape
     if _has_encoder_stack(cfg):
-        want = (b, enc.n_positions, enc.d_input or cfg.d_model)
+        want = (b, enc.n_positions if exact else frontend.shape[1], enc.d_input or cfg.d_model)
         if tuple(frontend.shape) != want:
             raise ValueError(f"frontend of shape {tuple(frontend.shape)}, {cfg.name} takes {want}")
     if enc.kind == "patch_stub" and frontend.shape[1] > s:
@@ -471,15 +482,22 @@ def _forward_hidden(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
                     frontend: Optional[torch.Tensor] = None, remat: bool = False):
     """Full-sequence train-mode forward on latent params to the final
     (normed) hidden states, bf16 (B, S, D), and the auxiliary loss (the
-    MoE layers' load-balance losses summed in layer order, else 0)."""
-    if frontend is not None:
-        raise NotImplementedError(
-            "training with a frontend is not ported yet (ROADMAP section 1, item 7.3: the encoder "
-            "frontends)")
+    MoE layers' load-balance losses summed in layer order, else 0).  A
+    ``frontend`` is a patch stub's rows, spliced over the first positions
+    (the token embeddings they cover get no gradient), or an encoder
+    stack's frames, run in train mode and cross-attended to by every
+    decoder block; a model with an encoder stack and no frontend skips
+    cross-attention, as the reference does."""
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).broadcast_to(b, s)
-    x = _embed_inputs(params, tokens, cfg, positions)
-    x, aux = T.stack_apply(params["layers"], x, cfg, positions, None, mode="train", remat=remat)
+    encoder_out = None
+    if frontend is not None:
+        _check_frontend(cfg, tokens, frontend, exact=False)
+        if _has_encoder_stack(cfg):
+            encoder_out = _run_encoder(params, frontend, cfg, "train", remat)
+    x = _embed_inputs(params, tokens, cfg, positions, frontend)
+    x, aux = T.stack_apply(params["layers"], x, cfg, positions, None, encoder_out, mode="train",
+                           remat=remat)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
@@ -492,8 +510,8 @@ def forward_logits(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Per-position negative log-likelihood of ``targets`` under float32
-    ``logits`` (``log_softmax`` as the reference's)."""
+    """Per-position negative log-likelihood of ``targets`` under
+    ``logits``, in their dtype (``log_softmax`` as the reference's)."""
     return -L.log_softmax(logits).gather(-1, targets[..., None].to(torch.int64))[..., 0]
 
 
@@ -512,17 +530,19 @@ def loss_fn(params: dict, batch: dict, cfg: ArchConfig, aux_weight: float = 0.01
             remat: bool = False):
     """The training loss and its metrics ``{"loss", "aux", "nll"}``.
 
-    batch: ``{"tokens": (B, S) int}``.  A causal model predicts token
-    ``t + 1`` from the positions up to ``t``; a non-causal one (BERT family)
-    the input token at every position (the reference's denoising copy).
-    The logits and the mean NLL are float32 (the reference's
-    ``logits_dtype="bf16"`` variant is not ported).  A causal model with
-    an MTP head (``cfg.mtp_depth`` and ``params["mtp"]``) adds 0.3 times
-    its mean NLL into ``loss``, as the reference reports it; the total adds
-    ``aux_weight * aux``."""
+    batch: ``{"tokens": (B, S) int}``, and ``"frontend"`` for a model with
+    one (``_forward_hidden``).  A causal model predicts token ``t + 1``
+    from the positions up to ``t``; a non-causal one (BERT family) the
+    input token at every position (the reference's denoising copy).  The
+    logits and their ``log_softmax`` are in ``cfg.logits_dtype`` (float32,
+    or bf16: a bf16 product and every step rounded), the mean NLL float32.
+    A causal model with an MTP head (``cfg.mtp_depth`` and
+    ``params["mtp"]``) adds 0.3 times its mean NLL into ``loss``, as the
+    reference reports it; the total adds ``aux_weight * aux``."""
     tokens = batch["tokens"]
     hidden, aux = _forward_hidden(params, tokens, cfg, batch.get("frontend"), remat)
-    logits = L.unembed(params, hidden, cfg.tie_embeddings)
+    logits = L.unembed(params, hidden, cfg.tie_embeddings,
+                       torch.bfloat16 if cfg.logits_dtype == "bf16" else torch.float32)
     if cfg.causal:
         pred, tgt = logits[:, :-1], tokens[:, 1:]
     else:

@@ -14,14 +14,14 @@ axis (``models/ssm.py``).  A decoder block built with ``cross=True`` adds
 cross-attention (``ln_cross``, ``cross_attn``) onto an encoder's output
 between its mixer and its FFN; an encoder stack runs without caches.
 
-Train mode (QAT) runs the stack without caches, every block kind but
-cross-attention (ROADMAP section 1, item 7.3: the encoder frontends); with
-``remat`` each block is checkpointed (``torch.utils.checkpoint``,
-recomputed in the backward), as the reference checkpoints its scanned
-period body.  Recomputing changes no value.  Each block returns its
-auxiliary loss beside its output (an ``"Mm"`` block's load-balance loss,
-else 0), through the checkpoint, and the stack sums them in float32 in
-layer order, as the reference's prefix loop and period scan do.
+Train mode (QAT) runs the stack without caches, every block kind and
+cross-attention onto an encoder's output; with ``remat`` each block is
+checkpointed (``torch.utils.checkpoint``, recomputed in the backward), as
+the reference checkpoints its scanned period body.  Recomputing changes
+no value.  Each block returns its auxiliary loss beside its output (an
+``"Mm"`` block's load-balance loss, else 0), through the checkpoint, and
+the stack sums them in float32 in layer order, as the reference's prefix
+loop and period scan do.
 """
 
 from __future__ import annotations
@@ -81,25 +81,16 @@ def init_block_cache(batch: int, max_len: int, cfg: ArchConfig, kind: str, devic
     return A.init_kv_cache(batch, max_len, cfg, kind, device=device)
 
 
-def _check_trainable(p: dict) -> None:
-    if "cross_attn" in p:
-        raise NotImplementedError(
-            "cross-attention blocks have no train mode yet (ROADMAP section 1, item 7.3: the "
-            "encoder frontends)")
-
-
 def block_apply(p: dict, x, cfg: ArchConfig, kind: str, positions, cache: Optional[dict],
                 encoder_out=None, mode: str = "serve"):
     """Pre-norm residual block.  Returns (x, cache) (cache updated in place).
 
     A block with ``cross_attn`` attends to ``encoder_out`` (B, T, D) when it
-    is given: keys and values projected from all T rows, non-causal.
-    ``mode="train"``: no cache and no cross-attention; returns (x, aux),
-    aux the block's float32 auxiliary loss (an MoE block's load balance,
-    else 0)."""
+    is given (and skips cross-attention when it is not): keys and values
+    projected from all T rows, non-causal.  ``mode="train"``: no cache;
+    returns (x, aux), aux the block's float32 auxiliary loss (an MoE
+    block's load balance, else 0)."""
     train = mode == "train"
-    if train:
-        _check_trainable(p)
     aux = torch.zeros((), dtype=torch.float32, device=x.device) if train else None
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "s":
@@ -115,10 +106,12 @@ def block_apply(p: dict, x, cfg: ArchConfig, kind: str, positions, cache: Option
     if "cross_attn" in p and encoder_out is not None:
         h = L.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
         rows = (*encoder_out.shape[:-1], cfg.n_kv_heads, cfg.d_head)
-        ck = L.qlinear(p["cross_attn"]["k"], encoder_out, cfg.quant, name="cross_attn.k").reshape(rows)
-        cv = L.qlinear(p["cross_attn"]["v"], encoder_out, cfg.quant, name="cross_attn.v").reshape(rows)
+        ck = L.qlinear(p["cross_attn"]["k"], encoder_out, cfg.quant, mode=mode,
+                       name="cross_attn.k").reshape(rows)
+        cv = L.qlinear(p["cross_attn"]["v"], encoder_out, cfg.quant, mode=mode,
+                       name="cross_attn.v").reshape(rows)
         mix, _ = A.attention(p["cross_attn"], h, cfg, "g", positions, None,
-                             kv_override=(ck, cv), causal=False)
+                             kv_override=(ck, cv), causal=False, mode=mode)
         x = x + mix
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     if kind == "Mm":
@@ -135,17 +128,18 @@ def stack_apply(layers: List[dict], x, cfg: ArchConfig, positions,
                 mode: str = "serve", remat: bool = False):
     """Apply every layer in order; returns (x, caches).  ``caches=None``
     runs the stack stateless (an encoder).  ``mode="train"`` runs without
-    caches, each block checkpointed when ``remat`` is set, and returns (x,
-    aux), aux the blocks' auxiliary losses summed in float32 from 0 in
-    layer order."""
+    caches (cross-attending to ``encoder_out`` where it is given), each
+    block checkpointed when ``remat`` is set, and returns (x, aux), aux
+    the blocks' auxiliary losses summed in float32 from 0 in layer
+    order."""
     if mode == "train":
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for p, kind in zip(layers, cfg.layer_kinds):
-            def block(x, p=p, kind=kind):
-                return block_apply(p, x, cfg, kind, positions, None, mode=mode)
+            def block(x, enc, p=p, kind=kind):
+                return block_apply(p, x, cfg, kind, positions, None, enc, mode=mode)
 
-            x, block_aux = (torch.utils.checkpoint.checkpoint(block, x, use_reentrant=False) if remat
-                            else block(x))
+            x, block_aux = (torch.utils.checkpoint.checkpoint(block, x, encoder_out, use_reentrant=False)
+                            if remat else block(x, encoder_out))
             aux = aux + block_aux
         return x, aux
     for i, (p, kind) in enumerate(zip(layers, cfg.layer_kinds)):

@@ -107,14 +107,24 @@ def decay_mask(params: dict, cfg: ArchConfig) -> dict:
     """1.0 for a leaf the reference decays, else 0.0: rank >= 2 in the
     reference's layout, where a period layer's leaves carry one more axis
     (its stack) than here; the prefix layers (``cfg.prefix_layers``) and
-    the top-level leaves keep their rank."""
-    n_prefix = len(cfg.prefix_layers)
-
+    the top-level leaves keep their rank.  An encoder stack is a period of
+    one layer (``encoder.n_layers`` times), so each of its layers' leaves
+    carries the extra axis too; its ``stub_proj`` and ``final_norm`` keep
+    their rank."""
     def mark(node, extra: int):
         return tree.unflatten(node, [float(x.ndim + extra >= 2) for x in tree.leaves(node)])
 
-    return {k: [mark(layer, 0 if i < n_prefix else 1) for i, layer in enumerate(v)]
-            if k == "layers" else mark(v, 0) for k, v in params.items()}
+    def stack(layers: list, n_prefix: int) -> list:
+        return [mark(layer, 0 if i < n_prefix else 1) for i, layer in enumerate(layers)]
+
+    def top(k, v):
+        if k == "layers":
+            return stack(v, len(cfg.prefix_layers))
+        if k == "encoder":
+            return {ek: stack(ev, 0) if ek == "layers" else mark(ev, 0) for ek, ev in v.items()}
+        return mark(v, 0)
+
+    return {k: top(k, v) for k, v in params.items()}
 
 
 def apply_updates(params, grads, state: OptState, cfg: AdamWConfig,

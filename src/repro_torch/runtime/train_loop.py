@@ -63,7 +63,9 @@ def value_and_grad(params: dict, batch: dict, cfg: ArchConfig, tcfg: TrainConfig
 
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, device="cuda"):
     """The train step for ``cfg`` on ``device``.  ``batch``: ``{"tokens":
-    (B, S)}`` as numpy or tensors (moved to ``device``)."""
+    (B, S)}``, and ``"frontend"`` (B, P, d_input) for a model with one, as
+    numpy or tensors (moved to ``device``; microbatches slice every leaf
+    along B)."""
     accum = tcfg.accum_steps
 
     def step(params, opt_state, batch):

@@ -24,6 +24,10 @@ the smoke variants here:
   4 float32 ulps (XLA sums in its own order), and where it differs (the
   clipped case) every leaf within 1e-6 of its largest magnitude.  The cosine schedule within 2
   ulps (observed 1): XLA's float32 ``cos`` is its own.
+* **Blocks the port once refused**: a whisper-tiny cross-attention block
+  in train mode and internvl2-2b's loss with a patch frontend
+  (``tests/test_torch_train_encoder.py`` holds the encoder families
+  whole).
 * **Trajectory** against the compiled reference (``TL.make_train_step``
   on a 1x1 mesh, XLA's fused layers and fma): 3 losses within 1e-3
   relative; observed 2.4e-5 on bit-bert-base W1A1.
@@ -244,40 +248,75 @@ def test_three_steps_track_the_compiled_reference():
     assert int(to.step) == int(jo.step) == 3
 
 
-UNPORTED = {
-    "whisper-tiny": "cross-attention",
-}
-
-
-@pytest.mark.parametrize("name", sorted(UNPORTED))
+@pytest.mark.parametrize("name", ["whisper-tiny"])
 def test_unported_kinds_raise(name):
-    cfg = tsmoke(tget(name))
-    params = TZ.init_params(0, cfg, device="cpu")
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match=UNPORTED[name]) as err:
-        TZ.loss_fn(params, batch, cfg)
-    assert "ROADMAP section 1, item 7.3" in str(err.value)
+    """Once a refusal, now a parity case: a whisper-tiny decoder block
+    (self-attention, cross-attention onto an encoder's output, FFN) trains.
+    Its output bit for bit and every gradient (params, input, encoder
+    output) within ``GRAD_TOL`` of their scale, under ``jax.vjp`` of the
+    reference's ``block_apply``."""
+    from repro.models import transformer as JT
+    from repro_torch.models import transformer as TT
+
+    jcfg, tcfg = jsmoke(jget(name)), tsmoke(tget(name))
+    jparams = JZ.init_params(jax.random.PRNGKey(0), jcfg)
+    pj = jax.tree.map(lambda a: a[0], jparams["stack"]["period"][0])
+    pt = convert.from_reference(_np_tree(jparams), tcfg, device="cpu")["layers"][0]
+    rng = np.random.default_rng(3)
+    x = jnp.asarray(rng.standard_normal((BATCH, SEQ, tcfg.d_model)), jnp.bfloat16)
+    enc = jnp.asarray(rng.standard_normal((BATCH, 24, tcfg.d_model)), jnp.bfloat16)
+    ct = jnp.asarray(rng.standard_normal((BATCH, SEQ, tcfg.d_model)), jnp.bfloat16)
+    pos = np.broadcast_to(np.arange(SEQ), (BATCH, SEQ))
+    with jax.disable_jit():
+        out, vjp = jax.vjp(lambda p, a, e: JT.block_apply(p, a, jcfg, "g", "train", jnp.asarray(pos), None, e)[0],
+                           pj, x, enc)
+        want = vjp(ct)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(jnp.asarray(a).astype(jnp.float32))).to(torch.bfloat16)
+
+    leaves = [a.detach().requires_grad_(True) for a in tree.leaves(pt)]
+    xt, et = t(x).requires_grad_(True), t(enc).requires_grad_(True)
+    got, aux = TT.block_apply(tree.unflatten(pt, leaves), xt, tcfg, "g", torch.from_numpy(pos.copy()), None, et,
+                              mode="train")
+    assert float(aux) == 0.0 and torch.equal(got.float(), t(out).float())
+    grads = torch.autograd.grad(got, leaves + [xt, et], t(ct))
+    for g, w in zip(grads, [*jax.tree.leaves(want[0]), want[1], want[2]]):
+        w = torch.from_numpy(np.asarray(jnp.asarray(w).astype(jnp.float32)))
+        assert float((g.float() - w).abs().max()) <= GRAD_TOL * float(w.abs().max())
 
 
 def test_unported_paths_raise_directly():
-    """A cross-attention block, a frontend and an unknown mode refuse train
-    mode; nothing falls back to the serving path."""
-    from repro_torch.models import transformer as TT
+    """Once a refusal, now a parity case: internvl2-2b smoke's loss with a
+    patch frontend (12 projected rows spliced over a 16-token prompt)
+    against the reference's op by op.  The unknown-mode check is
+    ``test_unknown_mode_raises``."""
+    jcfg, tcfg = jsmoke(jget("internvl2-2b")), tsmoke(tget("internvl2-2b"))
+    jparams = JZ.init_params(jax.random.PRNGKey(0), jcfg)
+    tparams = convert.from_reference(_np_tree(jparams), tcfg, device="cpu")
+    tokens = _tokens(tcfg)
+    frontend = np.random.default_rng(2).standard_normal(
+        (BATCH, tcfg.encoder.n_positions, tcfg.encoder.d_input), dtype=np.float32)
+    with jax.disable_jit():
+        want, _ = JZ.loss_fn(jparams, {"tokens": jnp.asarray(tokens), "frontend": jnp.asarray(frontend)}, jcfg)
+    got, metrics = TZ.loss_fn(tparams, {"tokens": torch.from_numpy(tokens), "frontend": torch.from_numpy(frontend)},
+                              tcfg)
+    assert abs(float(got) - float(want)) <= LOSS_RTOL * abs(float(want))
+    assert float(metrics["aux"]) == 0.0
 
-    wcfg = tsmoke(tget("whisper-tiny"))
-    wparams = TZ.init_params(0, wcfg, device="cpu")
-    x = torch.zeros((1, 4, wcfg.d_model), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="7.3"):
-        TT.block_apply(wparams["layers"][0], x, wcfg, "g", torch.arange(4)[None], None, mode="train")
-    vcfg = tsmoke(tget("internvl2-2b"))
-    vparams = TZ.init_params(0, vcfg, device="cpu")
-    frontend = torch.zeros((1, vcfg.encoder.n_positions, vcfg.encoder.d_input or vcfg.d_model))
-    with pytest.raises(NotImplementedError, match="frontend") as err:
-        TZ.loss_fn(vparams, {"tokens": torch.zeros((1, 16), dtype=torch.int32), "frontend": frontend}, vcfg)
-    assert "7.3" in str(err.value)
+
+def test_unknown_mode_raises():
+    """A mode other than serve or train is refused; nothing falls back to
+    the serving path."""
+    from repro_torch.models import attention as TAT
+
     gcfg = tsmoke(tget("granite-8b"))
     with pytest.raises(ValueError, match="unknown mode"):
         TL.qlinear({"w": torch.zeros(64, 64)}, torch.zeros(2, 64), gcfg.quant, mode="float")
+    params = TZ.init_params(0, gcfg, device="cpu")
+    x = torch.zeros((1, 4, gcfg.d_model), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="unknown mode"):
+        TAT.attention(params["layers"][0]["attn"], x, gcfg, "g", torch.arange(4)[None], mode="float")
 
 
 def test_float_quant_trains_through_float_einsums(models):
