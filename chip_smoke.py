@@ -223,6 +223,30 @@ Phases (each prints its own lines):
    layers (all 36 would need ~131 GB with Adam): 5 steps of 4 x 512, every
    loss finite, step time and peak memory logged.  The training numbers
    go on one ``[14] training numbers`` line.
+17. the paper's measurement modules on the card.  [17a]
+   ``core/qmm_roofline.measure_cell`` for every registered ``qmm`` backend
+   at granite-8b's W1A8 sites (``pallas`` -> K1, ``fused`` -> K2),
+   bit-bert-base's W1A1 sites (``pallas`` -> K3) and A8xA8 (128, 64, 128)
+   (``pallas`` -> K4), one draw of the operands a site, each cell timed as
+   the autotuner times it (a CUDA graph of 16 calls, operands rotated
+   through copies past twice the L2) beside the H100's roofs; the plain
+   cores are not timed at granite's 128-row up site (``PLAIN_UNTIMED``);
+   the table with each cell's share of its roof (over 1.0 raises), and
+   each kernel cell's product bitwise equal to the same call on the
+   kernel's plain version.  [17b]
+   ``core/attn_bench.run_attn_bench`` over every scores backend at
+   bit-bert's prefill, its 4-slot decode and a GQA decode, the scores
+   kernel bitwise against its plain version.  [17c] the paper's metric:
+   bit-bert-base's 128-token prefill through ``make_prefill`` replayed back
+   to back for ``GOPS_W_SECONDS`` at W1A1 (K3) and W1A2 / A4 / A8 (K1), the
+   card's energy read from NVML (``libnvidia-ml.so.1`` through ``ctypes``,
+   the handle matched to the CUDA device by UUID) around the loop and over
+   ``IDLE_SECONDS`` idle before it; GOPS counted as the paper counts them
+   (``core/energy_model.bert_base_qmm_workload``: 22.35 G operations a
+   forward), mean board watts, GOPS/W, beside the energy model's figures
+   for BETA on the ZCU102 and the paper's Table II.  [17d] the four
+   ``examples/torch_*.py`` as subprocesses on the card at once (training
+   20 steps, the precision trade-off 10 steps a mode), each exiting 0.
 11. (printed last) one JSON line of per-kernel numbers, the ``nvidia-smi``
    line, and last ``{"ok": true, "device": {...}}``.  Each kernel's
    ``launches`` is its wrapper's count over its main path's run alone
@@ -238,7 +262,10 @@ Phases (each prints its own lines):
    and ``whisper``, the same numbers for phases 7 to 10, and ``robust``,
    phase [13a]'s faulted run with its snapshot and restore numbers; K2
    adds ``demotion``, [13b]'s run; K3 adds ``trained``, [14e]'s
-   launches; ``deepseek`` with
+   launches; each QMM kernel adds ``roofline_launches``, its wrapper calls
+   in [17a], and the scores kernel ``scores_bench_launches``, in [17b]; K3
+   and K1 add ``gops_per_w``, [17c]'s measured numbers at W1A1 and W1A2-A8
+   (the energy model's ZCU102 figures stay on the ``[17c]`` lines); ``deepseek`` with
    its ``expert_loop`` rows, ``internvl2`` and ``whisper`` with their
    prefill graph's launches; ``whisper``'s ``launches`` are its
    transcription's).  The whole run took 634.1 s on an H100 80GB HBM3 at
@@ -249,6 +276,7 @@ Phases (each prints its own lines):
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -267,14 +295,16 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# H100 SXM data sheet: HBM3 rate and dense int8 tensor-core rate (700 W part).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_INT8_OPS_PER_S = 1979e12
+from repro_torch.core.qmm_roofline import HBM_BW, PEAK_INT_OPS, rotation_copies  # noqa: E402
+
+# H100 SXM data sheet, kept in one place (``core/qmm_roofline.py``): HBM3
+# rate and dense int8 tensor-core rate (700 W part).
+PEAK_BYTES_PER_S = HBM_BW
+PEAK_INT8_OPS_PER_S = PEAK_INT_OPS
 # Hopper publishes no binary (1-bit) tensor-core rate.  An m16n8k256 .b1 mma
 # does 8x the operations of an m16n8k32 int8 one and issues at about the same
 # rate (phase 2's ``mma_rates``), so K3's peak is taken as 8x the int8 one.
 PEAK_B1_OPS_PER_S = 8 * PEAK_INT8_OPS_PER_S
-L2_BYTES = 50 * 2**20
 SITES_PER_LAYER = 7  # attn.q/k/v/o, ffn.up/gate/down
 BERT_SITES_PER_LAYER = 6  # attn.q/k/v/o, ffn.up/down (no gate: a plain gelu FFN)
 
@@ -507,7 +537,7 @@ K1_ONLY_SHAPES = (BERT_K1_SHAPES + [(128, 5376, 21504)] + DEEPSEEK_SHAPES + RECU
 
 
 def _copies(nbytes: int) -> int:
-    return max(1, min(16, -(-2 * L2_BYTES // max(nbytes, 1))))
+    return rotation_copies(nbytes, "cuda")
 
 
 def _library_mm(a_i8: torch.Tensor, b_i8: torch.Tensor):
@@ -3297,6 +3327,308 @@ def train_encoders(Z, encoder_cfgs, recurrent_cfg, granite_cfg, device, ops, ref
     return k1
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the paper's measurement modules on the card -- the QMM roofline
+# and the scores bench on the H100's roofs, the paper's GOPS/W, the examples
+# ---------------------------------------------------------------------------
+
+# (M, K, N, act_bits, weight_bits): the main path's sites -- granite-8b W1A8,
+# bit-bert-base W1A1, act x act A8xA8 (BERT-base's per-head Q.K^T)
+ROOF_SITES = [
+    (4, 4096, 14336, 8, 1), (4, 14336, 4096, 8, 1), (4, 4096, 4096, 8, 1), (4, 4096, 1024, 8, 1),
+    (128, 4096, 14336, 8, 1),
+    (128, 768, 3072, 1, 1), (128, 3072, 768, 1, 1), (128, 768, 768, 1, 1),
+    (128, 64, 128, 8, 8),
+]
+# The backends that launch the kernels, timed as the autotuner times them
+# (the fastest of 3 graph replays).  The plain cores are timed on one replay
+# and not at granite's 128-row up site, where the `popcount` core takes
+# 178 ms a call on an H100, 8.2 s a timing, and checks nothing of a kernel.
+KERNEL_BACKENDS = ("pallas", "fused")
+PLAIN_UNTIMED = {(128, 4096, 14336, 8, 1)}
+# (B, H, G, S, T, dh): bit-bert's prefill, its 4-slot decode, a GQA decode
+SCORES_SHAPES = [(1, 12, 12, 128, 128, 64), (4, 12, 12, 1, 512, 64), (4, 32, 8, 1, 512, 128)]
+GOPS_W_BITS = (1, 2, 4, 8)  # W1A1 through K3, W1A2 / A4 / A8 through K1
+GOPS_W_SECONDS = 5.0  # back-to-back replays a mode
+IDLE_SECONDS = 2.0
+EXAMPLE_TIMEOUT_S = 300
+
+
+def _example_runs(device: torch.device, ckpt_dir: str) -> dict:
+    dev = ["--device", device.type]
+    return {
+        "quickstart": ["examples/torch_quickstart.py"] + dev,
+        "serve": ["examples/torch_serve_binary_lm.py"] + dev,
+        "train": ["examples/torch_train_binary_lm.py", "--steps", "20", "--ckpt-dir", ckpt_dir] + dev,
+        "precision_tradeoff": ["examples/torch_precision_tradeoff.py", "--steps", "10"] + dev,
+    }
+
+
+class Nvml:
+    """The card's energy counter through NVML (``libnvidia-ml.so.1``, which
+    comes with the card's NVIDIA software; ``torch.cuda.power_draw`` would
+    need pynvml), the handle matched to the CUDA device by UUID.  Any NVML
+    error raises: no number is ever guessed."""
+
+    def __init__(self, device: torch.device):
+        import uuid as uuidlib
+
+        self.lib = ctypes.CDLL("libnvidia-ml.so.1")
+        self._ok(self.lib.nvmlInit_v2(), "nvmlInit_v2")
+        raw = getattr(torch.cuda.get_device_properties(device), "uuid", None)
+        if raw is None:
+            raise RuntimeError("NVML: torch gives no UUID for the CUDA device to match")
+        uuid = f"gpu-{uuidlib.UUID(bytes=bytes(raw.bytes))}"
+        count = ctypes.c_uint()
+        self._ok(self.lib.nvmlDeviceGetCount_v2(ctypes.byref(count)), "nvmlDeviceGetCount_v2")
+        for i in range(count.value):
+            h = ctypes.c_void_p()
+            self._ok(self.lib.nvmlDeviceGetHandleByIndex_v2(i, ctypes.byref(h)), "nvmlDeviceGetHandleByIndex_v2")
+            buf = ctypes.create_string_buffer(96)
+            self._ok(self.lib.nvmlDeviceGetUUID(h, buf, 96), "nvmlDeviceGetUUID")
+            if buf.value.decode().lower() == uuid:  # NVML's reads "GPU-<uuid>"
+                self.handle, self.match = h, f"UUID {buf.value.decode()}"
+                return
+        raise RuntimeError(f"NVML: no device has the CUDA device's UUID {uuid}")
+
+    def _ok(self, rc: int, what: str) -> None:
+        if rc != 0:
+            err = self.lib.nvmlErrorString
+            err.restype = ctypes.c_char_p
+            raise RuntimeError(f"NVML {what} failed: {err(rc).decode()} ({rc})")
+
+    def energy_j(self) -> float:
+        """Joules the card has used since NVML's counter started."""
+        mj = ctypes.c_ulonglong()
+        self._ok(self.lib.nvmlDeviceGetTotalEnergyConsumption(self.handle, ctypes.byref(mj)),
+                 "nvmlDeviceGetTotalEnergyConsumption")
+        return mj.value / 1e3
+
+
+def _plain_kernels(ops, ref):
+    """The four QMM kernels swapped for their plain versions."""
+    from contextlib import ExitStack
+
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(ops._bq, "binary_qmm", ref.binary_qmm_ref))
+    stack.enter_context(mock.patch.object(ops._fq, "fused_qmm", ref.fused_qmm_ref))
+    stack.enter_context(mock.patch.object(ops._pq, "popcount_qmm",
+                                          lambda a, b: ref.popcount_qmm_ref(a, b, 32 * a.shape[1])))
+    stack.enter_context(mock.patch.object(ops._bs, "bitserial_qmm",
+                                          lambda a, b: ref.bitserial_qmm_ref(a, b, 32 * a.shape[-1])))
+    return stack
+
+
+def roofline_cells(device, ops, ref, kernels) -> dict:
+    """[17a] ``measure_cell`` for every registered qmm backend at the main
+    path's sites, one draw of the operands a site; each kernel cell's
+    product held bitwise to the same call on the kernel's plain version.
+    Returns the kernels' launches in the timed calls and the cells."""
+    from repro_torch.core import backend_registry
+    from repro_torch.core import qmm as QE
+    from repro_torch.core import qmm_roofline as R
+
+    names = backend_registry.backend_names(family="qmm")
+    cells, launched = [], [0] * len(kernels)
+    for site in ROOF_SITES:
+        problem = R.make_problem(*site, device=device)  # numpy, ~1.9 s at granite's up site
+        _zero(kernels)
+        for b in names:
+            if b in KERNEL_BACKENDS:
+                cells.append(R.measure_cell(b, *site, reps=3, device=device, problem=problem))
+            elif site not in PLAIN_UNTIMED:
+                cells.append(R.measure_cell(b, *site, reps=1, device=device, problem=problem))
+        torch.cuda.synchronize()
+        launched = [a + c for a, c in zip(launched, _counts(kernels))]
+        xq, wq, colsum = problem
+        for backend in KERNEL_BACKENDS:
+            got = QE.qmm(xq, wq, backend=backend, w_colsum=colsum)
+            with _plain_kernels(ops, ref):
+                want = QE.qmm(xq, wq, backend=backend, w_colsum=colsum)
+            if not torch.equal(got, want) or not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"[17a] {backend} (M, K, N, A, W) {site}: kernel != plain version, "
+                                     f"max |diff| {(got - want).abs().max().item()}")
+        del problem, xq, wq, colsum
+    doc = R.validate_qmm_bench(R.make_document(cells, device, names))
+    for line in R.format_table(doc).splitlines():
+        log(f"[17a] {line}")
+    kern = [c["roof_us"] / c["measured_us"] for c in cells if c["backend"] in KERNEL_BACKENDS]
+    log(f"[17a] {len(cells)} cells, {len(names)} backends {list(names)} (the plain cores not timed at "
+        f"{sorted(PLAIN_UNTIMED)}); the {len(KERNEL_BACKENDS) * len(ROOF_SITES)} kernel cells bitwise equal to "
+        f"their plain versions; kernel shares of the roof {min(kern):.4f}-{max(kern):.4f}, none over 1; wrapper "
+        f"calls K1 {launched[0]}, K2 {launched[1]}, K3 {launched[2]}, K4 {launched[3]}")
+    if not all(launched):
+        raise AssertionError(f"[17a] a QMM kernel was never launched: {launched}")
+    return dict(launches=launched, cells=cells)
+
+
+def scores_cells(device, ref, kernel) -> dict:
+    """[17b] ``run_attn_bench`` over every scores backend; the kernel's
+    scores held bitwise to its plain version at each shape."""
+    from repro_torch.core import attn_bench as A
+
+    kernel.launches = 0
+    doc = A.run_attn_bench(SCORES_SHAPES, device=device)
+    torch.cuda.synchronize()
+    launched = kernel.launches
+    A.validate_attn_bench(doc)
+    for line in A.format_table(doc).splitlines():
+        log(f"[17b] {line}")
+    for b, h, g, s, t, dh in SCORES_SHAPES:
+        q, k = A.make_planes(b, h, s, dh, device=device), A.make_planes(b, g, t, dh, seed=1, device=device)
+        got, want = kernel(q, k, dh=dh), ref.binary_attn_scores_ref(q, k, dh)
+        if not torch.equal(got, want):
+            raise AssertionError(f"[17b] {kernel.__name__} != plain at {(b, h, g, s, t, dh)}")
+    if not launched:
+        raise AssertionError("[17b] the scores kernel was never launched")
+    log(f"[17b] {len(doc['cells'])} cells; {kernel.__name__} bitwise equal to its plain version at "
+        f"{len(SCORES_SHAPES)} shapes, {launched} wrapper calls in the bench")
+    return dict(launches=launched, cells=doc["cells"])
+
+
+def gops_per_watt(Z, make_prefill, bert_cfg, device, kernels, smi) -> dict:
+    """[17c] The paper's metric on the card: bit-bert-base's 128-token
+    prefill through ``make_prefill`` (phase 5's compiled prefill), replayed
+    back to back for ``GOPS_W_SECONDS`` at W1A1 (K3) and W1A2 / A4 / A8
+    (K1), with the card's energy counter read around the loop.  Operations
+    are counted as the paper counts them (``energy_model``: 2 M K N of
+    every QMM of one BERT-base forward).  Returns the numbers a mode."""
+    from repro_torch.core import energy_model as E
+    from repro_torch.core.precision import get_mode
+
+    nvml = Nvml(device)
+    ops_fwd = 2 * sum(s.macs for s in E.bert_base_qmm_workload(seq=128))
+    per_forward = BERT_SITES_PER_LAYER * bert_cfg.n_layers
+    params = Z.init_serving_params(0, with_backend(bert_cfg, "pallas"), device=device)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, bert_cfg.vocab_size, size=(1, 128))).to(device)
+    torch.cuda.synchronize()
+    e0, t0 = nvml.energy_j(), time.perf_counter()
+    time.sleep(IDLE_SECONDS)
+    idle_w = (nvml.energy_j() - e0) / (time.perf_counter() - t0)
+    log(f"[17c] NVML energy counter matched by {nvml.match}; idle {idle_w:.2f} W over {IDLE_SECONDS:.1f} s "
+        f"| {smi}")
+    out = {}
+    for bits in GOPS_W_BITS:
+        # bit-bert-base-a{bits}: the same model at other activation bits
+        quant = dataclasses.replace(bert_cfg.quant, act_bits=bits, attn_act_bits=bits, backend="pallas")
+        cfg = dataclasses.replace(bert_cfg, quant=quant)
+        name = bert_cfg.name if bits == 1 else f"{bert_cfg.name}-a{bits}"
+        kernel = kernels[2] if bits == 1 else kernels[0]
+        fn = make_prefill(cfg, 1, 128, 512, device=device)
+        cache = Z.init_cache(1, 512, cfg, device=device)
+        want, _ = Z.prefill(params, tokens, cfg, Z.init_cache(1, 512, cfg, device=device))
+        _zero(kernels)
+        first, _ = fn(params, tokens, cache)
+        torch.cuda.synchronize()
+        launched = _counts(kernels)
+        expect = [0, 0, 0, 0]
+        expect[kernels.index(kernel)] = 2 * per_forward
+        if launched != expect or not torch.equal(first, want):
+            raise AssertionError(f"[17c] {name}: capture launches {launched} (expected {expect}), logits "
+                                 f"{'equal' if torch.equal(first, want) else 'differ from'} the eager prefill")
+
+        def replay():
+            for layer in cache["layers"]:
+                layer["pos"].zero_()  # the cursor back to 0: every replay the same forward
+            return fn(params, tokens, cache)[0]
+
+        replay()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(10):  # warm replays set the loop's length
+            replay()
+        torch.cuda.synchronize()
+        n = max(1, round(GOPS_W_SECONDS / ((time.perf_counter() - t) / 10)))
+        e0, t0 = nvml.energy_j(), time.perf_counter()
+        for _ in range(n):
+            last = replay()
+        torch.cuda.synchronize()
+        secs, joules = time.perf_counter() - t0, nvml.energy_j() - e0
+        if not torch.equal(last, want):
+            raise AssertionError(f"[17c] {name}: the last replay's logits differ from the eager prefill")
+        gops = ops_fwd * n / secs / 1e9
+        watts = joules / secs
+        mode = get_mode(f"W1A{bits}")
+        wl, oh = E.bert_base_qmm_workload(), E.BENCHMARK_OVERHEADS["BiT"]
+        z_gops, z_eff = E.throughput_gops(wl, mode, E.ZCU102_BETA, oh)[0], E.energy_efficiency(wl, mode, E.ZCU102_BETA, oh)
+        out[mode.name] = dict(forwards=n, seconds=secs, ms_per_forward=secs / n * 1e3, gops=gops, watts=watts,
+                              idle_watts=idle_w, gops_per_w=gops / watts, joules=joules,
+                              launches=launched[kernels.index(kernel)])
+        paper = ""
+        if bits == 1:
+            paper = "; the paper's Table II at W1A1: " + ", ".join(
+                f"{k} {v['gops']} GOPS / {v['gops_per_w']} GOPS/W" for k, v in E.PAPER_TABLE2.items())
+        log(f"[17c] {name} (W1A{bits}, {kernel.__name__} {launched[kernels.index(kernel)]} wrapper calls in the "
+            f"capture): {n} replayed 128-token prefills back to back in {secs:.2f} s ({secs / n * 1e3:.3f} ms each); "
+            f"{ops_fwd / 1e9:.2f} G ops a forward -> {gops:.1f} GOPS at {watts:.1f} W mean board power (idle "
+            f"{idle_w:.1f} W): {gops / watts:.2f} GOPS/W | BETA on the ZCU102 (energy model, BiT overheads): "
+            f"{z_gops:.1f} GOPS, {z_eff:.1f} GOPS/W{paper} | {smi}")
+        del fn, cache
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_examples(device, workdir: Path) -> dict:
+    """[17d] The four torch examples as subprocesses on ``device``, at once;
+    each must exit 0.  Returns each one's seconds."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src") + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = {}
+    for name, args in _example_runs(device, str(workdir / "train_ckpt")).items():
+        out = open(workdir / f"{name}.log", "w+")
+        procs[name] = (subprocess.Popen([sys.executable] + args, cwd=ROOT, env=env, stdout=out,
+                                        stderr=subprocess.STDOUT), out, time.perf_counter())
+    secs, failed = {}, []
+    for name, (p, out, t) in procs.items():
+        try:
+            rc = p.wait(timeout=max(1.0, EXAMPLE_TIMEOUT_S - (time.perf_counter() - t)))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rc = p.wait()
+        secs[name] = time.perf_counter() - t
+        out.seek(0)
+        lines = out.read().splitlines()
+        out.close()
+        if rc != 0:
+            failed.append(name)
+            log(f"[17d] {name} exited {rc}; its last lines:\n" + "\n".join(lines[-30:]))
+        else:
+            log(f"[17d] {name} ({' '.join(_example_runs(device, '...')[name])}) exited 0 in ~{secs[name]:.1f} s: "
+                + " | ".join(lines[-3:]))
+    for p, _, _ in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    if failed:
+        raise AssertionError(f"[17d] examples failed: {failed}")
+    return secs
+
+
+def measure_modules(Z, bert_cfg, device, ops, ref, kernels, smi, make_prefill) -> dict:
+    """Phase 17.  Returns the kernels' entries for the JSON line."""
+    t_phase = time.perf_counter()
+    qmm_kernels, scores_kernel = kernels[:4], kernels[4]
+    roof = roofline_cells(device, ops, ref, qmm_kernels)
+    t_roof = time.perf_counter() - t_phase
+    scores = scores_cells(device, ref, scores_kernel)
+    lap = time.perf_counter()
+    t_scores = lap - t_phase - t_roof
+    metric = gops_per_watt(Z, make_prefill, bert_cfg, device, qmm_kernels, smi)
+    log("[17c] GOPS/W numbers: " + json.dumps(metric))
+    t_metric = time.perf_counter() - lap
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_17_") as workdir:
+        examples = run_examples(device, Path(workdir))
+    log(f"[17] phase 17 took {time.perf_counter() - t_phase:.1f} s ([17a] {t_roof:.1f} s, [17b] {t_scores:.1f} s, "
+        f"[17c] {t_metric:.1f} s, [17d] {max(examples.values()):.1f} s)")
+    names = ("binary_qmm", "fused_qmm", "popcount_qmm", "bitserial_qmm")
+    entries = {n: dict(roofline_launches=roof["launches"][i]) for i, n in enumerate(names)}
+    entries["binary_attn_scores_planes"] = dict(scores_bench_launches=scores["launches"])
+    entries["popcount_qmm"]["gops_per_w"] = metric["W1A1"]
+    entries["binary_qmm"]["gops_per_w"] = {k: v for k, v in metric.items() if k != "W1A1"}
+    return entries
+
+
 # The serving paths of phases 7-9 at full width, cut in depth so that the
 # whole run stays well inside its 1,200 s on a slow host (1,157.2 s with
 # every path at full depth on an H100): gemma3-27b its prefix and one period
@@ -3531,6 +3863,13 @@ def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg, rec
     # ---- phase 16: QAT of the encoder families and the bf16 variants, served through K1
     k1.update(train_encoders(Z, encoder_cfgs, recurrent_cfgs[0], model_cfg, device, ops, ref, all_kernels, smi,
                              make_prefill, make_decode_step, numbers15.get("recurrentgemma")))
+
+    # ---- phase 17: the measurement modules on the card, the paper's GOPS/W, the examples
+    measured = measure_modules(Z, bert_cfg, device, ops, ref, all_kernels + (K5.binary_attn_scores_planes,), smi,
+                               make_prefill)
+    for path, name in ((k1, "binary_qmm"), (k2, "fused_qmm"), (k3, "popcount_qmm"), (k4, "bitserial_qmm"),
+                       (k5, "binary_attn_scores_planes")):
+        path.update(measured[name])
 
     main_path = {"binary_qmm": k1, "fused_qmm": k2, "popcount_qmm": k3, "bitserial_qmm": k4,
                  "binary_attn_scores_planes": k5}

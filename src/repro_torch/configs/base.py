@@ -31,6 +31,9 @@ __all__ = [
     "SSMConfig",
     "EncoderConfig",
     "ArchConfig",
+    "InputShape",
+    "LM_SHAPES",
+    "SHAPES_BY_NAME",
     "register",
     "get_config",
     "list_configs",
@@ -95,6 +98,10 @@ class QuantConfig:
                     f"backend_overrides[{pattern!r}] names unknown backend "
                     f"{b!r}; valid: {known}"
                 )
+
+    @property
+    def mode_name(self) -> str:
+        return f"W{self.weight_bits}A{self.act_bits}"
 
     def backend_for(self, layer_name: str = "") -> str:
         """Backend for a named site ("ffn.up", "attn.o", ...)."""
@@ -229,6 +236,89 @@ class ArchConfig:
     def layer_kinds(self) -> Tuple[str, ...]:
         return self.prefix_layers + self.pattern_period * self.n_periods
 
+    @property
+    def is_sub_quadratic(self) -> bool:
+        """True when no layer attends over the whole sequence (recurrent or
+        bounded-window layers only)."""
+        return all(k in ("l", "r", "s") for k in self.layer_kinds)
+
+    @property
+    def has_decoder(self) -> bool:
+        return self.family != "encoder"
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks), for
+        MODEL_FLOPS = 6*N*D accounting; the reference's arithmetic."""
+        d, ff = self.d_model, self.d_ff
+        total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        for kind in self.layer_kinds:
+            if kind in ("g", "l"):
+                attn = d * (self.n_heads + 2 * self.n_kv_heads) * self.d_head
+                attn += self.n_heads * self.d_head * d
+                total += attn + self._ffn_params(ff)
+            elif kind in ("Md", "Mm"):
+                m = self.mla
+                q = (
+                    d * m.q_lora_rank
+                    + m.q_lora_rank * self.n_heads * (m.qk_nope_dim + m.qk_rope_dim)
+                    if m.q_lora_rank
+                    else d * self.n_heads * (m.qk_nope_dim + m.qk_rope_dim)
+                )
+                kv = d * (m.kv_lora_rank + m.qk_rope_dim) + m.kv_lora_rank * self.n_heads * (
+                    m.qk_nope_dim + m.v_head_dim
+                )
+                total += q + kv + self.n_heads * m.v_head_dim * d
+                if kind == "Md":
+                    total += self._ffn_params(ff)
+                else:
+                    e = self.moe
+                    total += e.n_routed * self._ffn_params(e.d_expert_ff)
+                    total += self._ffn_params(e.shared_ff)
+                    total += d * e.n_routed  # router
+            elif kind == "r":
+                di = self.d_model  # RG-LRU width = d_model (recurrentgemma)
+                total += 2 * d * di + di * d + 3 * di  # in / gate / out + gates
+                total += self._ffn_params(ff)
+            elif kind == "s":
+                s = self.ssm
+                di = s.d_inner(d)
+                nh = s.n_heads(d)
+                total += d * (2 * di + 2 * s.n_groups * s.d_state + nh)  # in_proj
+                total += di * d  # out_proj
+                total += di * s.d_conv + nh * 2  # conv + A, D
+        return total
+
+    def _ffn_params(self, ff: int) -> int:
+        mult = 3 if self.ffn_type.endswith("glu") else 2
+        return mult * self.d_model * ff
+
+    def active_param_count(self) -> int:
+        """Parameters a token uses (MoE: the routed top-k and the shared)."""
+        total = self.param_count()
+        if self.moe is None:
+            return total
+        e = self.moe
+        n_moe_layers = sum(1 for k in self.layer_kinds if k == "Mm")
+        return total - n_moe_layers * (e.n_routed - e.top_k) * self._ffn_params(e.d_expert_ff)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+#: The LM shape grid of the reference's dry-run sweep.
+LM_SHAPES: Tuple[InputShape, ...] = (
+    InputShape("train_4k", 4096, 256, "train"),
+    InputShape("prefill_32k", 32768, 32, "prefill"),
+    InputShape("decode_32k", 32768, 128, "decode"),
+    InputShape("long_500k", 524288, 1, "decode"),
+)
+
+SHAPES_BY_NAME: Dict[str, InputShape] = {s.name: s for s in LM_SHAPES}
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 

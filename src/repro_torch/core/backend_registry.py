@@ -20,7 +20,11 @@ Capabilities, as in the reference:
 * ``rank2_only`` -- rank-2 operands only (the kernel backends);
 * ``cuda_kernel`` -- launches a hand-written CUDA kernel on CUDA tensors.
   On a card only these are candidates (``candidate_names(on_card=True)``):
-  ``"auto"`` never picks a plain PyTorch core there.
+  ``"auto"`` never picks a plain PyTorch core there;
+* ``traffic_model`` -- optional ``f(m, k, n, act_bits, weight_bits) -> int``,
+  the bytes one problem moves to and from device memory as the reference
+  models them; ``core/qmm_roofline.py`` places the backend against the
+  card's memory roof with it (the packed-operand floor when None).
 """
 
 from __future__ import annotations
@@ -29,7 +33,16 @@ import dataclasses
 import importlib
 from typing import Callable, Dict, FrozenSet, Optional, Tuple
 
-__all__ = ["QMMBackend", "register", "get_backend", "backend_names", "candidate_names"]
+__all__ = [
+    "QMMBackend",
+    "register",
+    "register_backend",
+    "unregister",
+    "get_backend",
+    "backend_names",
+    "backend_specs",
+    "candidate_names",
+]
 
 _BUILTIN_MODULES = ("repro_torch.core.qmm", "repro_torch.kernels.ops")
 
@@ -47,6 +60,7 @@ class QMMBackend:
     precisions: Optional[FrozenSet[Tuple[int, int]]] = None
     rank2_only: bool = False
     cuda_kernel: bool = False
+    traffic_model: Optional[Callable[[int, int, int, int, int], int]] = None
     families: FrozenSet[str] = frozenset({"qmm"})
     run_scores: Optional[Callable] = None
 
@@ -81,6 +95,22 @@ def register(spec: QMMBackend) -> QMMBackend:
     return spec
 
 
+def register_backend(name: str, **caps):
+    """Decorator form of :func:`register` over the run callable, which it
+    returns unchanged."""
+
+    def deco(fn: Callable) -> Callable:
+        register(QMMBackend(name=name, run=fn, **caps))
+        return fn
+
+    return deco
+
+
+def unregister(name: str) -> None:
+    """Remove a backend (test isolation; no-op if absent)."""
+    _REGISTRY.pop(name, None)
+
+
 def _load_builtins() -> None:
     for mod in _BUILTIN_MODULES:
         importlib.import_module(mod)
@@ -101,6 +131,11 @@ def backend_names(family: Optional[str] = None) -> Tuple[str, ...]:
     serving that operator family."""
     _load_builtins()
     return tuple(n for n, s in _REGISTRY.items() if family is None or family in s.families)
+
+
+def backend_specs() -> Tuple[QMMBackend, ...]:
+    _load_builtins()
+    return tuple(_REGISTRY.values())
 
 
 def candidate_names(m: int, k: int, n: int, act_bits: int, weight_bits: int, *,

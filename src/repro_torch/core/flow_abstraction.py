@@ -18,7 +18,15 @@ from repro_torch.core import quantization
 from repro_torch.core.constants import as_scalar, scalar
 from repro_torch.core.quantization import QuantTensor
 
-__all__ = ["default_int_matmul", "exact_int_matmul", "qmm_flow", "weight_corrections"]
+__all__ = [
+    "default_int_matmul",
+    "exact_int_matmul",
+    "op_counts_abstracted",
+    "op_counts_naive",
+    "qmm_dequant_reference",
+    "qmm_flow",
+    "weight_corrections",
+]
 
 # int8 x int8 products over K accumulate in int32; K is chunked when the
 # worst-case accumulator |K * max_prod| would pass this bound.
@@ -124,3 +132,36 @@ def qmm_flow(
     col = col[..., None, :].to(out_dtype)
     out = out + (g1 * a2) * col
     return out + g1 * g2 * scalar(k, out_dtype, dev)
+
+
+def qmm_dequant_reference(x: QuantTensor, w: QuantTensor, out_dtype: torch.dtype = torch.float32):
+    """The naive flow the paper replaces: dequantize both operands to full
+    precision and multiply (N^3 float operations).  The correctness oracle
+    and the float baseline of Table II."""
+    return torch.matmul(x.dequantize(out_dtype), w.dequantize(out_dtype))
+
+
+# ---------------------------------------------------------------------------
+# Op counting (Fig. 2's complexity accounting, used by the energy model).
+# ---------------------------------------------------------------------------
+
+def op_counts_naive(m: int, k: int, n: int) -> dict:
+    """Full-precision MM of dequantized operands: M*N dots of length K."""
+    return {"fp_ops": 2 * m * k * n, "int_ops": 0}
+
+
+def op_counts_abstracted(m: int, k: int, n: int, *, weight_static: bool = True) -> dict:
+    """Abstracted flow: integer MM + quadratic float epilogue.
+
+    Matches Fig. 2's ``2N^3 Iop + (3N^2 + 2) Op`` for m=k=n, weight_static
+    (colsum offline, coefficient products offline).
+    """
+    int_ops = 2 * m * k * n  # the integer MM (MACs counted as 2 ops)
+    int_ops += m * k  # rowsum(X1)
+    if not weight_static:
+        int_ops += k * n  # colsum(X2) when the right operand is an activation
+    fp_ops = m * n  # scale by a1*a2
+    fp_ops += m * n  # add rank-1 row correction (broadcast add)
+    fp_ops += m * n  # add rank-1 col correction + constant (fused broadcast)
+    fp_ops += 2  # offline coefficient products a1*a2, g1*a2 (paper's "+2")
+    return {"fp_ops": fp_ops, "int_ops": int_ops}

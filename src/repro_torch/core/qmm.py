@@ -127,6 +127,29 @@ def _mxu_scores(q_planes: torch.Tensor, k_planes: torch.Tensor, *, dh: int) -> t
     return unpacked_scores(q_planes, k_planes, dh, torch.float64).to(torch.int32)
 
 
+def _mxu_traffic(m, k, n, act_bits, weight_bits) -> int:
+    # The reference's model of an integer product on unpacked int8
+    # mantissas, the output written once.  The port's plain core moves more:
+    # it multiplies in float64 (8 bytes an operand element) and its
+    # epilogue is separate PyTorch passes over the output.
+    return m * k + k * n + 4 * m * n + 8 * (m + n)
+
+
+def _popcount_traffic(m, k, n, act_bits, weight_bits) -> int:
+    # Bit-serial over packed planes: each (i, j) plane pair re-reads plane i
+    # of the activations and plane j of the weights.  The port's plain core
+    # moves more: each sweep materialises the AND of a row block with up to
+    # 256 columns as int64 words before it counts them.
+    kw_bytes = 4 * packing.packed_len(k, 1)
+    plane_reads = act_bits * weight_bits
+    return (
+        plane_reads * m * kw_bytes
+        + plane_reads * kw_bytes * n
+        + 4 * m * n
+        + 8 * (m + n)
+    )
+
+
 def _run_mxu(x: QuantTensor, w: QuantTensor, *, w_colsum=None, out_dtype=torch.float32):
     return flow_abstraction.qmm_flow(x, w, w_colsum=w_colsum, out_dtype=out_dtype)
 
@@ -136,6 +159,7 @@ backend_registry.register(
         name="mxu",
         run=_run_mxu,
         description="plain PyTorch integer product (float64, exact) + flow epilogue",
+        traffic_model=_mxu_traffic,
         families=frozenset({"qmm", "scores"}),
         run_scores=_mxu_scores,
     )
@@ -164,5 +188,6 @@ backend_registry.register(
         name="popcount",
         run=_run_popcount,
         description="plain PyTorch bit-serial AND-popcount over packed planes + flow epilogue",
+        traffic_model=_popcount_traffic,
     )
 )

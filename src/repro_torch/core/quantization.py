@@ -22,6 +22,7 @@ from repro_torch.core.constants import as_scalar, scalar
 
 __all__ = [
     "QuantTensor",
+    "dequantize",
     "quantize_activation",
     "binarize_weight",
     "quantize_weight",
@@ -74,6 +75,14 @@ class QuantTensor:
             self, mantissa=m, packed=True, packed_axis=axis,
             length=self.mantissa.shape[axis],
         )
+
+    def dequantize(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        x = self.unpack().mantissa.to(dtype)
+        return x * self.scale.to(dtype) + self.offset.to(dtype)
+
+
+def dequantize(q: QuantTensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return q.dequantize(dtype)
 
 
 def recenter(q: QuantTensor) -> QuantTensor:

@@ -153,6 +153,38 @@ def qmm_fused(
     return out if out_dtype == f32 else out.to(out_dtype)
 
 
+def _packed_operand_bytes(m, k, n, act_bits, weight_bits):
+    """Bytes of both operands as 1-bit planes packed along K."""
+    kw_bytes = 4 * packing.packed_len(k, 1)
+    return act_bits * m * kw_bytes, weight_bits * kw_bytes * n
+
+
+def _traffic_pallas(m, k, n, act_bits, weight_bits) -> int:
+    # The staged kernels: the int32 product goes out to device memory and
+    # comes back for the PyTorch epilogue, which writes the float32 output
+    # (12 bytes an output element against the fused kernel's 4).  K3 (W1A1)
+    # and K4 (act x act) read packed planes; K1 (W1A2..A8) re-centered int8
+    # activations and packed weights.  Not charged, as in the reference:
+    # the activation packing or re-centering before the launch, and K1's
+    # and K3's split-K, where the partial sums of the K splits meet in the
+    # int32 output through atomicAdd on a zeroed output (one more write of
+    # it, and an atomic per split).
+    if weight_bits == 1 and act_bits > 1:
+        a_bytes = m * k
+        b_bytes = 4 * packing.packed_len(k, 1) * n
+    else:
+        a_bytes, b_bytes = _packed_operand_bytes(m, k, n, act_bits, weight_bits)
+    return a_bytes + b_bytes + 12 * m * n + 8 * (m + n)
+
+
+def _traffic_fused(m, k, n, act_bits, weight_bits) -> int:
+    # K2: packed planes read once, the float32 output written once, the
+    # per-row and per-column coefficients.  Not charged, as in the
+    # reference: the activation planes packed in PyTorch before the launch.
+    a_bytes, b_bytes = _packed_operand_bytes(m, k, n, act_bits, weight_bits)
+    return a_bytes + b_bytes + 4 * m * n + 8 * (m + n)
+
+
 backend_registry.register(
     backend_registry.QMMBackend(
         name="pallas",
@@ -161,6 +193,7 @@ backend_registry.register(
         "bitserial_qmm (K4) + PyTorch flow epilogue",
         rank2_only=True,
         cuda_kernel=True,
+        traffic_model=_traffic_pallas,
     )
 )
 
@@ -171,6 +204,7 @@ backend_registry.register(
         description="hand-written CUDA kernel fused_qmm (K2): AND-popcount core + epilogue",
         rank2_only=True,
         cuda_kernel=True,
+        traffic_model=_traffic_fused,
     )
 )
 
@@ -223,6 +257,20 @@ def _float_scores(q_planes: torch.Tensor, k_planes: torch.Tensor, *, dh: int) ->
     return unpacked_scores(q_planes, k_planes, dh, torch.float32).to(torch.int32)
 
 
+def _traffic_scores_binary(m, k, n, act_bits, weight_bits) -> int:
+    # Packed planes in, int32 counts out: m and n rows of ceil(k/32) words.
+    # ``binary_attn.cu`` reads each K row once per block of folded query
+    # rows, so at many blocks it reads K more than once.
+    kw_bytes = 4 * packing.packed_len(k, 1)
+    return m * kw_bytes + n * kw_bytes + 4 * m * n
+
+
+def _traffic_scores_float(m, k, n, act_bits, weight_bits) -> int:
+    # Planes unpacked to float32 (the reference's model); the port's core
+    # also writes that unpacked copy before it reads it.
+    return 4 * (m * k + n * k) + 4 * m * n
+
+
 backend_registry.register(
     backend_registry.QMMBackend(
         name="binary",
@@ -233,6 +281,7 @@ backend_registry.register(
         precisions=frozenset({(1, 1)}),
         families=frozenset({"scores"}),
         cuda_kernel=True,
+        traffic_model=_traffic_scores_binary,
     )
 )
 
@@ -245,5 +294,6 @@ backend_registry.register(
         "(the differential oracle's core)",
         precisions=frozenset({(1, 1)}),
         families=frozenset({"scores"}),
+        traffic_model=_traffic_scores_float,
     )
 )

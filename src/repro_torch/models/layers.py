@@ -36,6 +36,7 @@ __all__ = [
     "softmax",
     "log_softmax",
     "rmsnorm",
+    "layernorm",
     "rope",
     "ffn",
     "gelu",
@@ -242,6 +243,17 @@ def rmsnorm(g: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     x32 = x.to(torch.float32)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * (1.0 + g.to(torch.float32))).to(x.dtype)
+
+
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm with gain ``p["g"]`` and bias ``p["b"]``, in float32 (no
+    served model of either package calls it)."""
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    centered = x32 - mu
+    var = torch.mean(centered * centered, dim=-1, keepdim=True)
+    y = centered * torch.rsqrt(var + eps)
+    return (y * p["g"].to(torch.float32) + p["b"].to(torch.float32)).to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

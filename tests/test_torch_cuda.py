@@ -1133,3 +1133,32 @@ def test_trained_encoder_model_served_through_k1_bitwise(dev, name):
         plain, _, plain_cache = eager(fed)
     assert all(torch.equal(x, y) for x, y in zip(got, plain)) and Z.caches_equal(got_cache, plain_cache)
     assert all(bool(torch.isfinite(x).all()) and x.shape == (b, cfg.vocab_size) for x in got)
+
+
+# the measurement modules on the card: a cell's operands rotate past twice
+# the L2, so no kernel cell reads more than its roof (the share <= 1)
+@pytest.mark.parametrize("backend,site", [("pallas", (4, 4096, 14336, 8, 1)), ("fused", (4, 4096, 14336, 8, 1)),
+                                          ("pallas", (128, 768, 3072, 1, 1)), ("pallas", (128, 64, 128, 8, 8))])
+def test_roofline_cell_on_card(dev, backend, site):
+    from unittest import mock
+
+    from repro_torch.core import qmm_roofline as R
+    from repro_torch.kernels import ops
+
+    cell = R.measure_cell(backend, *site, device=dev)
+    assert 0 < cell["roof_us"] <= cell["measured_us"]
+    xq, wq, colsum = R.make_problem(*site, dev)
+    got = QE.qmm(xq, wq, backend=backend, w_colsum=colsum)
+    with mock.patch.object(ops._bq, "binary_qmm", ref.binary_qmm_ref), \
+            mock.patch.object(ops._fq, "fused_qmm", ref.fused_qmm_ref), \
+            mock.patch.object(ops._pq, "popcount_qmm", lambda a, b: ref.popcount_qmm_ref(a, b, 32 * a.shape[1])), \
+            mock.patch.object(ops._bs, "bitserial_qmm", lambda a, b: ref.bitserial_qmm_ref(a, b, 32 * a.shape[-1])):
+        assert torch.equal(got, QE.qmm(xq, wq, backend=backend, w_colsum=colsum))
+
+
+def test_scores_bench_on_card(dev):
+    from repro_torch.core import attn_bench as A
+
+    doc = A.run_attn_bench([(4, 12, 12, 1, 512, 64)], device=dev, reps=1)
+    assert doc["platform"] == "cuda" and {"name", "power_limit"} <= set(doc["hardware"])
+    assert all(0 < c["roof_us"] <= c["measured_us"] for c in A.validate_attn_bench(doc)["cells"])

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the reference package ``repro``, and
-the whole package imports with both made unimportable."""
+"""The port stands alone: no module of ``src/repro_torch``, not
+``chip_smoke.py`` and no ``examples/torch_*.py`` imports ``jax`` or the
+reference package ``repro``, and the whole package imports with both made
+unimportable."""
 
 import ast
 import os
@@ -11,7 +12,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
