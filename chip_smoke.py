@@ -247,12 +247,38 @@ Phases (each prints its own lines):
    for BETA on the ZCU102 and the paper's Table II.  [17d] the four
    ``examples/torch_*.py`` as subprocesses on the card at once (training
    20 steps, the precision trade-off 10 steps a mode), each exiting 0.
+18. multi-device QAT training on ``torch.distributed``.  Two ranks share
+   the card (spawned processes, gloo, mesh 2x1; gloo takes each CUDA
+   tensor's collective through the host, ``runtime/collectives.py``).
+   [18a] bit-bert-base W1A1 whole through ``TrainingRunner``, FSDP
+   storage, 5 steps of 32 x 128, the checkpoint gathered to rank 0 alone;
+   after each step the state is gathered to rank 0, which takes the
+   1-rank step from it: every step's loss within ``MD_STEP_LOSS_RTOL``,
+   AdamW's first moments within ``MD_MU_RTOL`` of a leaf's largest, under
+   ``MD_APART_SHARE`` of the params apart by more than lr / 10 (``MD_*``
+   bounds); one rank's rows alone must read beyond ``MD_MU_RTOL``.  [18b]
+   granite-8b at full width on 4 of 36 layers with ``prebinarize_gather``,
+   2 steps of 4 x 512 against a 1-rank prebinarized run; the bytes the
+   gathers bring a rank as packed sign words, as the float32 latents they
+   replace and as float leaves.  [18c] ``make_compressed_dp_step`` on
+   bit-bert-base, 5 steps, the int8 and the float32 update from one state
+   at each step, the next batch's loss of both; the last step's gradients
+   all-gathered outside the step: the int8 average within half a
+   quantization step of the ranks' mean ``g + e``, the float32 average
+   the ranks' mean ``g``, each step's first moments AdamW's on those
+   averages; the bytes each step hands to the collectives.  Each part
+   logs its seconds and its host-staged gloo seconds by op.  [18d] one
+   rank over NCCL: the mesh step bit for bit the step without a process
+   group.  [18e] [18a]'s checkpoint packed and one 128-token ``Z.prefill``
+   at W1A1 through K3 (72 launches, K3's ``multidevice`` entry), bitwise
+   to K3's plain version.
 11. (printed last) one JSON line of per-kernel numbers, the ``nvidia-smi``
    line, and last ``{"ok": true, "device": {...}}``.  Each kernel's
    ``launches`` is its wrapper's count over its main path's run alone
    (phase 3's engine run for K1, phase 4's fused pass for K2, phase 5's
    engine run for K3, phase 6 for K4, phase 12's engine run for the scores
-   kernel, which adds ``autotune``, [12c]'s keys, timing runs and winners);
+   kernel, which adds ``autotune``, [12c]'s keys, timing runs and winners;
+   K3 adds ``multidevice``, [18e]'s launches);
    ``replays`` is the number of replayed ticks in that run, and
    ``replay_launches`` the kernel's launches counted on the device in one
    profiled replay of that path's decode graph (K3 and the scores kernel add
@@ -3629,6 +3655,499 @@ def measure_modules(Z, bert_cfg, device, ops, ref, kernels, smi, make_prefill) -
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 18: multi-device QAT training on torch.distributed -- two ranks on the
+# one card (gloo, collectives staged through the host), held to the 1-rank
+# step; one rank over NCCL; the trained model served through K3
+# ---------------------------------------------------------------------------
+
+MD_BATCH, MD_SEQ, MD_STEPS = 32, 128, 5  # [18a] / [18c]: bit-bert-base, 2 ranks, mesh 2x1
+MD_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=MD_STEPS)
+MD_GRANITE = (4, 4, 512, 2)  # [18b]: granite-8b layers, batch, seq, steps (prebinarize_gather)
+MD_RANKS_TIMEOUT_S = 300
+# Stated bounds (ROADMAP section 3).  At W1A1 a trajectory is chaotic:
+# Adam's early steps move each latent by about lr whatever its gradient's
+# size, so a gradient that differs in its last bits can move an element the
+# other way, flip its sign bit and the binarized layer; two runs apart by
+# float rounding alone part by 5-53% in loss within 5 steps on an H100
+# (PERF.md section 6).  So each 2-rank step is held to the 1-rank step taken
+# from the same state, inside the ranks.  Every fake-quant range spans the
+# global batch, so the loss differs by the order of the mean alone
+# (MD_STEP_LOSS_RTOL).  The gradients are held through the first moments
+# AdamW keeps of them: each leaf's largest gap within MD_MU_RTOL of its
+# largest value, as the CPU test holds them (each rank's weight gradients
+# leave a bf16 product rounded before the ranks' sum).  Fewer than
+# MD_APART_SHARE of the params may part by more than lr / 10 (a flipped
+# sign moves an element by up to 2 lr).  The params' largest gap is a
+# reading only: Adam moves an element by at most about lr a side, so any
+# gradient lands within 2 lr.  A gradient of one rank's rows alone (a
+# dropped rank) must read beyond MD_MU_RTOL, which shows that the check can
+# see it.  [18b] (W1A8) is held to a 1-rank run of its own: its first step
+# within MD_STEP_LOSS_RTOL (alpha's partial sums over a K split across the
+# ranks are added in another order), its second within MD_LOSS_RTOL.  [18c]
+# checks its last step outside the steps: this rank's gradients of its rows
+# and their means over the ranks by an all-gather; the int8 average within
+# half a quantization step of the mean of the ranks' g + e (MD_HALF_STEP,
+# with float32 rounding), the float32 average within MD_F32_RTOL of the
+# mean of the ranks' g (of a leaf's largest); and each step's first moments
+# within MD_MU_RTOL of AdamW's on those averages (a rank's own gradient,
+# unaveraged, must read beyond it).  The loss of the int8 and the float32
+# result on the next batch stays within MD_COMPRESSED_LOSS_RTOL: an element
+# whose gradient rounds to 0 at int8 gets no Adam step where float32 gives
+# it lr, so a fifth of the elements part and the W1A1 loss follows (16% seen
+# on an H100, PERF.md section 6).
+MD_STEP_LOSS_RTOL = 1e-5
+MD_LOSS_RTOL = 2e-2
+MD_MU_RTOL = 2.0 ** -6
+MD_APART_SHARE = 1e-2
+MD_HALF_STEP = 0.5 + 1e-3
+MD_F32_RTOL = 2.0 ** -22
+MD_COMPRESSED_LOSS_RTOL = 0.25
+
+
+def _mu_gap(got, want) -> float:
+    """The largest, over the leaves, of a leaf's largest gap between two
+    trees of the same shapes, of the leaf's largest magnitude in ``want``
+    (infinite where ``want``'s leaf is 0 and ``got``'s is not)."""
+    worst = 0.0
+    for x, y in zip(torch_leaves(got), torch_leaves(want)):
+        scale, gap = float(y.abs().max()), float((x - y).abs().max())
+        worst = max(worst, gap / scale if scale > 0 else (0.0 if gap == 0 else float("inf")))
+    return worst
+
+
+def _md_rank(rank: int, world: int, tmp: str, plan: dict) -> None:
+    """One rank of phase 18: [18a], [18b] and [18c] over a 2x1 mesh (gloo,
+    both ranks on the one card), its numbers saved to ``tmp``."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.optim import adamw, compression
+    from repro_torch.runtime import collectives as C
+    from repro_torch.runtime import fault_tolerance as FT
+    from repro_torch.runtime import sharding as SH
+    from repro_torch.runtime import train_loop as TL
+
+    device = torch.device(plan["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/init", rank=rank, world_size=world)
+    out = {}
+    try:
+        mesh = make_host_mesh(2, 1, device=str(device))
+        group = mesh.get_group("data")
+        cfg, gcfg = plan["bert"], plan["granite"]
+        tcfg = TL.TrainConfig(optimizer=adamw.AdamWConfig(**MD_OPT))
+        lr = MD_OPT["lr"]
+        n = 2
+
+        def stream(c, batch, seq):
+            return TokenPipeline(DataConfig(vocab_size=c.vocab_size, seq_len=seq, global_batch=batch, seed=0))
+
+        def sync():
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+
+        def start():
+            """Zero the peak memory and the collectives' counters: a part begins."""
+            sync()
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            for counter in (C.STAGED, C.STAGED_S, C.BYTES):
+                counter.clear()
+            return time.perf_counter()
+
+        def finish(t0):
+            """The part's seconds, peak allocated bytes and collectives."""
+            sync()
+            return dict(s=time.perf_counter() - t0, staged=dict(C.STAGED), staged_s=dict(C.STAGED_S),
+                        bytes=dict(C.BYTES),
+                        peak=torch.cuda.max_memory_allocated() if device.type == "cuda" else 0)
+
+        def apart(a, b):
+            """(largest gap, elements apart by more than lr / 10) of two trees."""
+            la, lb = torch_leaves(a), torch_leaves(b)
+            return (max(float((x - y).abs().max()) for x, y in zip(la, lb)),
+                    sum(int(((x - y).abs() > lr / 10).sum()) for x, y in zip(la, lb)))
+
+        def rows_of(batch):
+            """This rank's rows of the global batch, as the steps take them."""
+            return {k: torch.as_tensor(v)[rank * MD_BATCH // n:(rank + 1) * MD_BATCH // n].to(device)
+                    for k, v in batch.items()}
+
+        # [18a] bit-bert-base whole, FSDP storage, through TrainingRunner;
+        # each step beside the 1-rank step from the same state (rank 0)
+        t0 = start()
+        params, opt = TL.init_train_state(0, cfg, device=device, mesh=mesh)
+        p_sh, o_sh = TL.train_shardings(cfg, mesh)
+        mesh_step = TL.make_train_step(cfg, tcfg, device=device, mesh=mesh)
+        one_step = TL.make_train_step(cfg, tcfg, device=device)
+        checks, ms, spent = [], [], Counter()
+
+        def whole(params, opt):
+            """The 2-rank state whole on rank 0's card (gathered to rank 0
+            alone), None on rank 1."""
+            t = time.perf_counter()
+            full = SH.gather_tree_to((params, opt), (p_sh, o_sh), device=device)
+            sync()
+            spent["gather"] += time.perf_counter() - t
+            return full
+
+        state = [TL.init_train_state(0, cfg, device=device) if rank == 0 else None]  # the shards' draw
+
+        def checked(params, opt, batch):
+            if rank == 0:
+                t = time.perf_counter()
+                full_p, full_o = state[0]
+                want = one_step(full_p, full_o, batch)
+                half = None
+                if not checks:  # once: one rank's rows alone, as a dropped rank leaves the gradient
+                    half = _mu_gap(one_step(full_p, full_o, {k: v[:MD_BATCH // n] for k, v in batch.items()})[1].mu,
+                                   want[1].mu)
+                del full_p, full_o
+                sync()
+                spent["one_rank"] += time.perf_counter() - t
+            state[0] = None
+            sync()
+            t = time.perf_counter()
+            params, opt, met = mesh_step(params, opt, batch)
+            sync()
+            ms.append((time.perf_counter() - t) * 1e3)
+            state[0] = whole(params, opt)
+            if rank == 0:
+                t = time.perf_counter()
+                got_p, got_o = state[0]
+                gap, n_apart = apart(got_p, want[0])
+                loss, ref_loss = float(met["loss"]), float(want[2]["loss"])
+                checks.append(dict(loss=loss, ref_loss=ref_loss, loss_gap=abs(loss - ref_loss) / abs(ref_loss),
+                                   mu_gap=_mu_gap(got_o.mu, want[1].mu), param_gap=gap, apart=n_apart,
+                                   half_mu_gap=half))
+                spent["compare"] += time.perf_counter() - t
+            return params, opt, met
+
+        runner = FT.TrainingRunner(
+            checked, stream(cfg, MD_BATCH, MD_SEQ), CheckpointManager(plan["ckpt"], keep=1, writer=rank == 0),
+            FT.RunnerConfig(total_steps=MD_STEPS, checkpoint_every=MD_STEPS, log_every=1),
+            log_fn=lambda *_: None, shardings={"params": p_sh, "opt": o_sh})
+        t = time.perf_counter()
+        params, opt, hist = runner.run(params, opt)
+        spent["runner"] = time.perf_counter() - t
+        out["a"] = dict(losses=[h["loss"] for h in hist], checks=checks, ms=ms, spent=dict(spent),
+                        shard_bytes=sum(x.numel() * x.element_size() for x in torch_leaves((params, opt))),
+                        **finish(t0))
+        del params, opt, runner, one_step, mesh_step, state
+
+        # [18b] granite-8b at full width, 4 layers, the packed-weight gather
+        t0 = start()
+        layers, gb, gs, gsteps = MD_GRANITE
+        pcfg = dataclasses.replace(gcfg, quant=dataclasses.replace(gcfg.quant, prebinarize_gather=True))
+        params, opt = TL.init_train_state(0, pcfg, device=device, mesh=mesh)
+        step = TL.make_train_step(pcfg, tcfg, device=device, mesh=mesh)
+        pipe = stream(pcfg, gb, gs)
+        rows = []
+        for _ in range(gsteps):
+            TL.GATHERED.update(packed=0, latent=0, latent_equiv=0)
+            batch = pipe.next()
+            sync()
+            t = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            loss = float(met["loss"])
+            rows.append(dict(loss=loss, ms=(time.perf_counter() - t) * 1e3, **TL.GATHERED))
+        out["b"] = dict(steps=rows, **finish(t0))
+        del params, opt, step
+
+        # [18c] the compressed data-parallel step: each step's int8 and
+        # float32 updates from the same state, the int8 one carried on;
+        # the last step's gradient path checked outside the steps
+        t0 = start()
+        params, opt = TL.init_train_state(0, cfg, device=device)
+        err = compression.init_error_state(params)
+        int8 = TL.make_compressed_dp_step(cfg, tcfg, mesh, compress=True, device=device)
+        f32 = TL.make_compressed_dp_step(cfg, tcfg, mesh, compress=False, device=device)
+        mask = adamw.decay_mask(params, cfg)
+        pipe = stream(cfg, MD_BATCH, MD_SEQ)
+        rows = []
+
+        def next_loss(p, batch):
+            """The loss of params ``p`` on this rank's rows of ``batch``,
+            the mean over the ranks (a forward alone)."""
+            with torch.no_grad():
+                _, m = Z.loss_fn(p, {"tokens": rows_of(batch)["tokens"]}, cfg)
+            return float(C.all_reduce(m["loss"], group=group)) / n
+
+        def averages(params, opt, err, batch, mu_i, mu_f):
+            """The gradient path of a step, outside it: this rank's
+            gradients of its rows, the ranks' means of them by an
+            all-gather, ``compressed_psum``'s averages of the same, and the
+            first moments AdamW keeps of those against the steps'."""
+            _, g = TL.value_and_grad(params, rows_of(batch), cfg, tcfg)
+            gl, el = torch_leaves(g), torch_leaves(err)
+            sizes = [x.numel() for x in gl]
+            g_all = C.all_gather(torch.cat([x.float().reshape(-1) for x in gl]), group)
+            c_all = g_all + C.all_gather(torch.cat([x.reshape(-1) for x in el]), group)
+            mean_g, mean_c = g_all.sum(0) / n, c_all.sum(0) / n
+            avg_i, _ = compression.compressed_psum(g, err, group, True)
+            avg_f, _ = compression.compressed_psum(g, err, group, False)
+            steps_off = f32_gap = 0.0
+            for a_i, a_f, m_g, m_c, c in zip(torch_leaves(avg_i), torch_leaves(avg_f), mean_g.split(sizes),
+                                             mean_c.split(sizes), c_all.split(sizes, dim=1)):
+                unit = max(float(c.abs().max()), 1e-12) / 127.0
+                steps_off = max(steps_off, float((a_i.float().reshape(-1) - m_c).abs().max()) / unit)
+                scale = float(m_g.abs().max())
+                f32_gap = max(f32_gap, float((a_f.float().reshape(-1) - m_g).abs().max()) / max(scale, 1e-30))
+            want_i = adamw.apply_updates(params, avg_i, opt, tcfg.optimizer, mask)[1].mu
+            want_f = adamw.apply_updates(params, avg_f, opt, tcfg.optimizer, mask)[1].mu
+            own = adamw.apply_updates(params, g, opt, tcfg.optimizer, mask)[1].mu
+            return dict(steps_off=steps_off, f32_gap=f32_gap, mu_gap=_mu_gap(mu_i, want_i),
+                        mu_gap_f32=_mu_gap(mu_f, want_f), own_mu_gap=_mu_gap(own, want_f))
+
+        batch = pipe.next()
+        for i in range(MD_STEPS):
+            C.BYTES.clear()
+            sync()
+            t = time.perf_counter()
+            p_i, o_i, err_i, met = int8(params, opt, err, batch)
+            sync()
+            t_i, bytes_i = (time.perf_counter() - t) * 1e3, sum(C.BYTES.values())
+            C.BYTES.clear()
+            t = time.perf_counter()
+            p_f, o_f, err_f, met_f = f32(params, opt, err, batch)
+            sync()
+            t_f, bytes_f = (time.perf_counter() - t) * 1e3, sum(C.BYTES.values())
+            check = averages(params, opt, err, batch, o_i.mu, o_f.mu) if i == MD_STEPS - 1 else {}
+            gap, n_apart = apart(p_i, p_f)
+            batch = pipe.next()
+            rows.append(dict(loss=float(met["loss"]), loss_f32=float(met_f["loss"]), param_gap=gap,
+                             apart=n_apart, next_loss=next_loss(p_i, batch), next_loss_f32=next_loss(p_f, batch),
+                             ms=t_i, ms_f32=t_f, bytes=bytes_i, bytes_f32=bytes_f,
+                             err_kept=all(x is y for x, y in zip(torch_leaves(err_f), torch_leaves(err))), **check))
+            params, opt, err = p_i, o_i, err_i
+            del p_f, o_f
+        out["c"] = dict(steps=rows, payload=compression.payload_bytes(params), n_leaves=len(torch_leaves(params)),
+                        n=sum(x.numel() for x in torch_leaves(params)), **finish(t0))
+        del params, opt, err
+    finally:
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+        dist.destroy_process_group()
+
+
+def torch_leaves(tree):
+    from repro_torch.core.tree import leaves
+
+    return leaves(tree)
+
+
+def train_multidevice(Z, bert_cfg, granite_cfg, device, ops, ref, kernels, smi, workdir: Path) -> dict:
+    """Phase 18.  Returns K3's ``multidevice`` entry: its launches in
+    [18e]'s ``Z.prefill`` of the 2-rank-trained model."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop as TL
+
+    t_phase = time.perf_counter()
+    cfg = bert_cfg
+    layers, gb, gs, gsteps = MD_GRANITE
+    gcfg = dataclasses.replace(granite_cfg, n_layers=layers)
+    tcfg = TL.TrainConfig(optimizer=adamw.AdamWConfig(**MD_OPT))
+    lr = MD_OPT["lr"]
+    tmp = workdir / "ranks"
+    tmp.mkdir()
+    plan = dict(device=str(device), bert=cfg, granite=gcfg, ckpt=str(workdir / "ckpt_a"))
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_md_rank, args=(r, 2, str(tmp), plan)) for r in range(2)]
+    for p in procs:
+        p.start()
+
+    def stream(c, batch, seq):
+        return TokenPipeline(DataConfig(vocab_size=c.vocab_size, seq_len=seq, global_batch=batch, seed=0))
+
+    # while the ranks run: [18b]'s reference, a 1-rank prebinarized run
+    pcfg = dataclasses.replace(gcfg, quant=dataclasses.replace(gcfg.quant, prebinarize_gather=True))
+    gp, go = TL.init_train_state(0, pcfg, device=device)
+    gp, go, ref_glosses, _ = _timed_steps(TL.make_train_step(pcfg, tcfg, device=device), gp, go,
+                                          stream(pcfg, gb, gs), gsteps)
+    del gp, go
+    torch.cuda.empty_cache()
+
+    # [18d] one rank over NCCL: the mesh step against the step without a group
+    p0, o0 = TL.init_train_state(0, cfg, device=device)
+    batch0 = stream(cfg, MD_BATCH, MD_SEQ).next()
+    plain = TL.make_train_step(cfg, tcfg, device=device)(p0, o0, batch0)
+    dist.init_process_group("nccl", init_method=f"file://{workdir}/nccl_init", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device=str(device))
+        ps, os_ = TL.init_train_state(0, cfg, device=device, mesh=mesh)
+        meshed = TL.make_train_step(cfg, tcfg, device=device, mesh=mesh)(ps, os_, batch0)
+        torch.cuda.synchronize()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    if not (_trees_equal(meshed[0], plain[0]) and _trees_equal(meshed[1], plain[1])
+            and all(torch.equal(meshed[2][k], plain[2][k]) for k in plain[2])):
+        raise AssertionError("[18d] the 1-rank NCCL mesh step differs from the step without a process group")
+    log(f"[18d] one rank over {backend} (mesh 1x1, {cfg.name}, {MD_BATCH} x {MD_SEQ}): the mesh step's params, "
+        f"AdamW state and metrics bit for bit the step without a process group's (each collective over a "
+        f"group of one rank is the identity: the gradients' reduce-scatter, the fake-quant range, loss and "
+        f"global-norm all-reduces; the gathers skip an axis of one rank) | {smi}")
+    del p0, o0, ps, os_, plain, meshed
+    torch.cuda.empty_cache()
+    t_parent = time.perf_counter() - t_phase
+
+    for p in procs:
+        p.join(max(1.0, MD_RANKS_TIMEOUT_S - (time.perf_counter() - t_phase)))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"[18] ranks exited {[p.exitcode for p in procs]}")
+    t_ranks = time.perf_counter() - t_phase
+    runs = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    a = runs[0]["a"]
+    n_el = sum(x.numel() for x in torch_leaves(Z.init_params(0, cfg, device="meta")))
+
+    def staged(part):
+        return ", ".join(f"{op} {part['staged'][op]} calls {part['staged_s'].get(op, 0.0):.2f} s"
+                         for op in sorted(part["staged"]))
+
+    # [18a] each 2-rank step against the 1-rank step from the same state
+    checks = a["checks"]
+    half = checks[0]["half_mu_gap"] if checks else None
+    bad = [c for c in checks if c["loss_gap"] > MD_STEP_LOSS_RTOL or c["mu_gap"] > MD_MU_RTOL
+           or c["apart"] > MD_APART_SHARE * n_el]
+    if len(checks) != MD_STEPS or bad or runs[1]["a"]["losses"] != a["losses"] or not half > MD_MU_RTOL:
+        raise AssertionError(f"[18a] 2-rank steps against the 1-rank step from the same state: {checks}")
+    log(f"[18a] {cfg.name} whole ({cfg.n_layers} layers, d_model {cfg.d_model}) in 2 ranks on the one card "
+        f"(gloo, mesh 2x1, FSDP storage: {a['shard_bytes'] / 1e6:.1f} MB of latents and moments a rank), "
+        f"{MD_STEPS} steps of {MD_BATCH} x {MD_SEQ} through TrainingRunner, the checkpoint gathered to rank 0 "
+        f"alone; each step against the 1-rank step from the same state (gathered to rank 0): loss relative gaps "
+        + ", ".join(f"{c['loss_gap']:.3g}" for c in checks) + f" (held to {MD_STEP_LOSS_RTOL}); first moments' "
+        "largest gap of a leaf's largest " + ", ".join(f"{c['mu_gap']:.3g}" for c in checks)
+        + f" (held to {MD_MU_RTOL:g}; the gradient of one rank's rows alone reads {half:.3g}, held to exceed "
+        f"it); elements apart by more than lr / 10: " + ", ".join(str(c["apart"]) for c in checks)
+        + f" of {n_el} (held under {MD_APART_SHARE:g} of them); params largest gaps (a reading, 2 lr = "
+        f"{2 * lr:g} holds any update) " + ", ".join(f"{c['param_gap']:.3g}" for c in checks) + "; losses "
+        + " ".join(f"{x:.6f}" for x in a["losses"]) + "; mesh step ms " + ", ".join(f"{x:.0f}" for x in a["ms"])
+        + f"; [18a] took {a['s']:.1f} s in the ranks (rank 0: the runner {a['spent']['runner']:.1f} s, of "
+        f"it the mesh steps {sum(a['ms']) / 1e3:.1f} s, the check's gathers of the state "
+        f"{a['spent']['gather']:.1f} s, its 1-rank steps {a['spent']['one_rank']:.1f} s, its comparisons "
+        f"{a['spent']['compare']:.1f} s); peak allocated rank 0 {a['peak'] / 1e9:.3f} GB (with the "
+        f"1-rank check), rank 1 {runs[1]['a']['peak'] / 1e9:.3f} GB; host-staged gloo ops (rank 0) {staged(a)} "
+        f"| {smi}")
+
+    # [18b] granite-8b with the packed-weight gather
+    b = runs[0]["b"]["steps"]
+    ggaps = [abs(r["loss"] - y) / abs(y) for r, y in zip(b, ref_glosses)]
+    if ggaps[0] > MD_STEP_LOSS_RTOL or max(ggaps) > MD_LOSS_RTOL or not all(np.isfinite(r["loss"]) for r in b) \
+            or [r["loss"] for r in runs[1]["b"]["steps"]] != [r["loss"] for r in b]:
+        raise AssertionError(f"[18b] prebinarized 2 ranks vs 1: loss gaps {ggaps}")
+    g0 = b[0]
+    log(f"[18b] {gcfg.name} at full width, {layers} of its {granite_cfg.n_layers} layers, prebinarize_gather "
+        f"on, mesh 2x1, {gsteps} steps of {gb} x {gs}: losses " + " ".join(f"{r['loss']:.6f}" for r in b)
+        + " against the 1-rank prebinarized run's " + " ".join(f"{x:.6f}" for x in ref_glosses)
+        + f" (relative gaps {', '.join(f'{x:.3g}' for x in ggaps)}; held to {MD_STEP_LOSS_RTOL} / "
+        f"{MD_LOSS_RTOL}); gathered into a rank a step: QMM weights {g0['packed'] / 1e6:.2f} MB as packed sign "
+        f"words against {g0['latent_equiv'] / 1e6:.1f} MB as the float32 latents they replace "
+        f"({g0['latent_equiv'] / max(g0['packed'], 1):.1f}x), other leaves {g0['latent'] / 1e6:.1f} MB float32; "
+        f"step ms " + ", ".join(f"{r['ms']:.0f}" for r in b) + f"; [18b] took {runs[0]['b']['s']:.1f} s in the "
+        f"ranks; peak allocated {runs[0]['b']['peak'] / 1e9:.2f} / {runs[1]['b']['peak'] / 1e9:.2f} GB; "
+        f"host-staged gloo ops (rank 0) {staged(runs[0]['b'])} | {smi}")
+
+    # [18c] the compressed data-parallel step
+    c = runs[0]["c"]
+    rows = c["steps"]
+    fin = rows[-1]
+    cgaps = [abs(r["next_loss"] - r["next_loss_f32"]) / abs(r["next_loss_f32"]) for r in rows]
+    bad = [r for r in rows if r["loss"] != r["loss_f32"] or not r["err_kept"]]
+    if bad or max(cgaps) > MD_COMPRESSED_LOSS_RTOL or fin["steps_off"] > MD_HALF_STEP \
+            or fin["f32_gap"] > MD_F32_RTOL or max(fin["mu_gap"], fin["mu_gap_f32"]) > MD_MU_RTOL \
+            or not fin["own_mu_gap"] > MD_MU_RTOL \
+            or [r["loss"] for r in runs[1]["c"]["steps"]] != [r["loss"] for r in rows]:
+        raise AssertionError(f"[18c] compressed vs float32 DP: {rows}")
+    i8, f32 = c["payload"]
+    log(f"[18c] make_compressed_dp_step on {cfg.name} in 2 ranks (params replicated, each rank's ranges "
+        f"local), {MD_STEPS} steps of {MD_BATCH} x {MD_SEQ}, the int8 error-feedback update and the float32 "
+        f"one from the same state at each step; step {MD_STEPS} checked outside the steps against the ranks' "
+        f"gradients all-gathered: the int8 average within {fin['steps_off']:.4f} of a quantization step of "
+        f"the mean of the ranks' g + e (held to {MD_HALF_STEP}), the float32 average within "
+        f"{fin['f32_gap']:.3g} of the mean of their g (of a leaf's largest; held to {MD_F32_RTOL:.3g}); the "
+        f"steps' first moments against AdamW's on those averages: int8 {fin['mu_gap']:.3g}, float32 "
+        f"{fin['mu_gap_f32']:.3g} (held to {MD_MU_RTOL:g}; a rank's own gradient unaveraged reads "
+        f"{fin['own_mu_gap']:.3g}, held to exceed it); losses " + " ".join(f"{r['loss']:.6f}" for r in rows)
+        + "; the two results' loss on the next batch "
+        + ", ".join(f"{r['next_loss']:.6f} / {r['next_loss_f32']:.6f}" for r in rows)
+        + " (relative gaps " + ", ".join(f"{x:.3g}" for x in cgaps) + f"; held to {MD_COMPRESSED_LOSS_RTOL}); "
+        "params largest gaps (a reading) " + ", ".join(f"{r['param_gap']:.3g}" for r in rows)
+        + ", elements apart by more than lr / 10: " + ", ".join(str(r["apart"]) for r in rows)
+        + f" of {c['n']}; bytes a rank handed to the collectives a step: int8 {rows[0]['bytes'] / 1e6:.1f} MB "
+        f"(the mantissas' int32 sum, the MAX of {c['n_leaves']} leaves' maxima, the metrics), float32 "
+        f"{rows[0]['bytes_f32'] / 1e6:.1f} MB (the int8 payload's own size {i8 / 1e6:.1f} MB, float32's "
+        f"{f32 / 1e6:.1f} MB); step ms int8 " + ", ".join(f"{r['ms']:.0f}" for r in rows) + ", float32 "
+        + ", ".join(f"{r['ms_f32']:.0f}" for r in rows) + f"; [18c] took {c['s']:.1f} s in the ranks; peak "
+        f"allocated {c['peak'] / 1e9:.2f} GB; host-staged gloo ops (rank 0) {staged(c)} | {smi}")
+
+    # [18e] the 2-rank-trained model (rank 0's checkpoint) served through K3 (W1A1)
+    like = TL.init_train_state(0, cfg, device=device)
+    step_no, saved, _ = CheckpointManager(plan["ckpt"]).restore(like={"params": like[0], "opt": like[1]})
+    del like
+    if step_no != MD_STEPS:
+        raise AssertionError(f"[18e] the ranks' checkpoint is of step {step_no}")
+    serve_cfg = with_backend(cfg, "pallas")
+    sp = Z.prepare_serving_params(saved["params"], serve_cfg)
+    prompt = torch.as_tensor(stream(cfg, 1, MD_SEQ).next()["tokens"], device=device).to(torch.int64)
+    per_forward = BERT_SITES_PER_LAYER * cfg.n_layers
+
+    def serve_prefill():
+        return Z.prefill(sp, prompt, serve_cfg, Z.init_cache(1, MD_SEQ, serve_cfg, device=device))
+
+    torch.cuda.synchronize()
+    _zero(kernels)
+    last, cache = serve_prefill()
+    torch.cuda.synchronize()
+    launched = _counts(kernels)
+    if launched != [0, 0, per_forward, 0]:
+        raise AssertionError(f"[18e] the trained model's prefill launched K1-K4 {launched}; expected K3 = "
+                             f"{per_forward} and no other")
+    plain_k3 = lambda x, w: ref.popcount_qmm_ref(x, w, 32 * x.shape[1])  # noqa: E731
+    with mock.patch.object(ops._pq, "popcount_qmm", plain_k3):
+        last_plain, cache_plain = serve_prefill()
+    if not torch.equal(last, last_plain) or not Z.caches_equal(cache, cache_plain):
+        raise AssertionError("[18e] the 2-rank-trained model's prefill differs with K3 swapped for its plain "
+                             "version")
+    if not bool(torch.isfinite(last).all()) or last.shape != (1, cfg.vocab_size):
+        raise AssertionError("[18e] served logits not finite or of the wrong shape")
+    log(f"[18e] the 2-rank-trained params (rank 0's checkpoint) packed and a {MD_SEQ}-token Z.prefill served at "
+        f"W1A1: popcount_qmm launches {launched[2]} = {BERT_SITES_PER_LAYER} x {cfg.n_layers}, logits and cache "
+        f"bitwise equal with popcount_qmm swapped for popcount_qmm_ref | {smi}")
+    numbers = dict(a_step_loss_gaps=[x["loss_gap"] for x in checks], a_mu_gaps=[x["mu_gap"] for x in checks],
+                   a_half_batch_mu_gap=half, a_apart=[x["apart"] for x in checks],
+                   a_param_gaps=[x["param_gap"] for x in checks], a_step_ms=a["ms"], a_spent=a["spent"],
+                   a_peak_bytes=[r["a"]["peak"] for r in runs], b_loss_gaps=ggaps, b_step_ms=[r["ms"] for r in b],
+                   b_packed_bytes=g0["packed"], b_latent_equiv_bytes=g0["latent_equiv"], b_float_bytes=g0["latent"],
+                   c_next_loss_gaps=cgaps, c_steps_off=fin["steps_off"], c_f32_gap=fin["f32_gap"],
+                   c_mu_gaps=[fin["mu_gap"], fin["mu_gap_f32"]], c_own_mu_gap=fin["own_mu_gap"],
+                   c_step_ms=[r["ms"] for r in rows], c_step_ms_f32=[r["ms_f32"] for r in rows],
+                   c_bytes=[rows[0]["bytes"], rows[0]["bytes_f32"]], c_payload_int8=i8, c_payload_float32=f32,
+                   seconds={"a": a["s"], "b": runs[0]["b"]["s"], "c": c["s"], "parent": t_parent,
+                            "ranks": t_ranks},
+                   staged={k: {"calls": runs[0][k]["staged"], "s": runs[0][k]["staged_s"],
+                               "bytes": runs[0][k]["bytes"]} for k in "abc"})
+    log("[18] multi-device numbers (rank 0's parts; staged: its host-staged gloo collectives by op): "
+        + json.dumps(numbers) + f" | {smi}")
+    del saved, sp
+    torch.cuda.empty_cache()
+    log(f"[18] phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launched[2])
+
+
 # The serving paths of phases 7-9 at full width, cut in depth so that the
 # whole run stays well inside its 1,200 s on a slow host (1,157.2 s with
 # every path at full depth on an H100): gemma3-27b its prefix and one period
@@ -3870,6 +4389,11 @@ def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg, rec
     for path, name in ((k1, "binary_qmm"), (k2, "fused_qmm"), (k3, "popcount_qmm"), (k4, "bitserial_qmm"),
                        (k5, "binary_attn_scores_planes")):
         path.update(measured[name])
+
+    # ---- phase 18: multi-device QAT training (2 ranks on the card, NCCL), served through K3
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_18_") as workdir:
+        k3["multidevice"] = train_multidevice(Z, bert_cfg, model_cfg, device, ops, ref, all_kernels, smi,
+                                              Path(workdir))
 
     main_path = {"binary_qmm": k1, "fused_qmm": k2, "popcount_qmm": k3, "bitserial_qmm": k4,
                  "binary_attn_scores_planes": k5}

@@ -24,10 +24,18 @@ Durability contract (the reference's):
   never before.
 
 The manifest is JSON (the reference writes msgpack, optionally
-zstd-compressed, neither of which this package needs).  There is one
-device, so the reference's re-sharding on restore has no counterpart:
-``restore`` puts each leaf on its template's device with its template's
-dtype.
+zstd-compressed, neither of which this package needs).  ``restore`` puts
+each leaf on its template's device with its template's dtype.
+
+**Sharded runs**: a checkpoint always holds the global leaves.
+``save(..., gather=)`` takes a collective from its caller
+(``runtime.sharding.gather_tree_to``, passed in by ``TrainingRunner``)
+that puts the global tree on one rank's host and returns ``None`` on the
+others: that rank writes, and the caller waits for its commit.
+``restore(..., shardings=)`` gives each rank its slice of each saved leaf
+(each sharding's ``shard``), so a run saved on one mesh resumes on another
+(the reference's elastic restore).  Only the writer repairs or prunes the
+directory.  The manager imports nothing of the runtime.
 """
 
 from __future__ import annotations
@@ -77,14 +85,16 @@ def _from_host(arr: np.ndarray, entry: dict) -> torch.Tensor:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, writer: bool = True):
         self.directory = directory
         self.keep = keep
+        self.writer = writer
         os.makedirs(directory, exist_ok=True)
-        self._recover()
+        if writer:
+            self._recover()
 
     # ------------------------------------------------------------------
-    def save(self, step: int, tree: Any, extras: Optional[dict] = None) -> str:
+    def save(self, step: int, tree: Any, extras: Optional[dict] = None, gather: Any = None) -> str:
         """Atomically persist ``tree`` (tensors, + JSON-able ``extras``) for ``step``.
 
         Overwriting an existing committed step never opens a loss window:
@@ -93,7 +103,21 @@ class CheckpointManager:
         commit lands.  A crash anywhere in between leaves either the final
         dir or the aside dir committed; :meth:`_recover` (run at manager
         construction) renames a stranded aside back into place.
+
+        ``gather``: when ``tree`` holds this rank's shards, a collective
+        that every rank of the mesh calls through ``save``, returning the
+        global tree on one rank and ``None`` on the others; the rank that
+        gets the tree writes it, the others return the step's path at
+        once.  The caller waits for the commit (a barrier) before it
+        counts on the step.
         """
+        if gather is not None:
+            tree = gather(tree)
+            if tree is None:
+                return os.path.join(self.directory, f"step_{step:09d}")
+        return self._write(step, tree, extras)
+
+    def _write(self, step: int, tree: Any, extras: Optional[dict]) -> str:
         final = os.path.join(self.directory, f"step_{step:09d}")
         tmp = tempfile.mkdtemp(prefix=f"step_{step:09d}.tmp-", dir=self.directory)
         old = None
@@ -170,12 +194,16 @@ class CheckpointManager:
         steps = self._committed_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, like: Any = None) -> Tuple[int, Any, dict]:
+    def restore(self, step: Optional[int] = None, like: Any = None,
+                shardings: Any = None) -> Tuple[int, Any, dict]:
         """Load (step, tree, extras).
 
         ``like``: template tree -- the structure to restore into; each leaf
         comes back on its template's device with its template's dtype, and
-        must have its template's shape.
+        must have its template's shape.  ``shardings``: a matching tree of
+        ``NamedSharding`` -- each saved (global) leaf is sliced to this
+        rank's piece on that mesh (its ``shard``), which ``like`` holds; the
+        mesh may differ from the one that saved it (elastic restore).
         """
         step = self.latest_step() if step is None else step
         if step is None:
@@ -187,11 +215,15 @@ class CheckpointManager:
         data = np.load(os.path.join(d, "arrays.npz"))
         by_path = {m["path"]: (m, data[f"a{i}"]) for i, m in enumerate(manifest["leaves"])}
         out = []
-        for p, leaf in leaves_with_paths(like):
+        placed = [None] * len(leaves_with_paths(like)) if shardings is None else [
+            sh for _, sh in leaves_with_paths(shardings)]
+        for (p, leaf), sh in zip(leaves_with_paths(like), placed):
             if p not in by_path:
                 raise KeyError(f"checkpoint missing leaf {p}")
             entry, arr = by_path[p]
             t = _from_host(arr, entry)
+            if sh is not None:
+                t = sh.shard(t)
             if tuple(t.shape) != tuple(leaf.shape):
                 raise ValueError(f"shape mismatch at {p}: {tuple(t.shape)} vs {tuple(leaf.shape)}")
             out.append(t.to(device=leaf.device, dtype=leaf.dtype))
@@ -199,6 +231,8 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def _prune(self) -> None:
+        if not self.writer:
+            return
         steps = self._committed_steps()
         for s in steps[: -self.keep] if self.keep else []:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:09d}"), ignore_errors=True)

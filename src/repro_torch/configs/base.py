@@ -77,9 +77,9 @@ class QuantConfig:
     backend: str = "mxu"
     # ((fnmatch pattern over the site name, backend), ...): first match wins.
     backend_overrides: Tuple[Tuple[str, str], ...] = ()
-    # the reference's multi-device QAT packs the binarized weights before
-    # its FSDP gather; the port trains on one device and refuses it
-    # (ROADMAP section 1, item 7.4)
+    # multi-device QAT: binarize and pack each QMM weight on its shard
+    # before the gather (runtime/train_loop.py::prebinarize_params); train
+    # mode then takes the sites' weights as they come
     prebinarize_gather: bool = False
 
     @staticmethod

@@ -12,6 +12,7 @@ with the reference's gradients (autograd through the same expressions).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -145,7 +146,10 @@ def _tree_sum_rows(x: torch.Tensor) -> torch.Tensor:
     data and ``pad - pad // 2`` after, as XLA pads the reduce-window levels
     it rewrites a long reduce into.  This is the order of the reference's
     compiled float32 reduce, so the weight scales come out bit-identical to
-    it at every K."""
+    it at every K.  A ``meta`` tensor (a shape-only tree) takes one sum:
+    it has no values to order."""
+    if x.is_meta:
+        return x.sum(dim=-2, keepdim=True)
     while x.shape[-2] > _SUM_WINDOW:
         pad = (-x.shape[-2]) % _SUM_WINDOW
         if pad:
@@ -201,16 +205,43 @@ def _ste_clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
 
+#: ``(lo, hi) -> (lo, hi)`` applied to every ``fake_quant``'s statistics
+#: while set (``ranges_reduced``)
+_range_reduce = None
+
+
+@contextlib.contextmanager
+def ranges_reduced(fn):
+    """Within the block every ``fake_quant`` calibrates on ``fn(lo, hi)``
+    of its tensor's own minimum and maximum: a multi-device step passes an
+    all-reduce (MIN / MAX over its data ranks), so each range spans the
+    global batch, in the forward and in remat's recompute alike."""
+    global _range_reduce
+    prev, _range_reduce = _range_reduce, fn
+    try:
+        yield
+    finally:
+        _range_reduce = prev
+
+
+def _calibrate(xd: torch.Tensor):
+    lo, hi = xd.amin(), xd.amax()
+    if _range_reduce is not None:
+        lo, hi = _range_reduce(lo, hi)
+    return lo, hi
+
+
 def fake_quant(x: torch.Tensor, bits: int) -> torch.Tensor:
     """Quantize-dequantize with straight-through gradients, calibrated per
     tensor: ``round(clip((x - lo) / s, 0, 2**bits - 1)) * s + lo`` with
-    ``lo = min(x)``, ``s = max((max(x) - lo) / (2**bits - 1), 1e-8)``,
+    ``lo = min(x)``, ``s = max((max(x) - lo) / (2**bits - 1), 1e-8)``
+    (over the global batch within ``ranges_reduced``),
     the statistics detached and every step in ``x.dtype`` (bf16
     activations stay bf16).  The tensor's own minimum always sits on the
     lower bound, so its gradient there is halved (``_ste_clip``)."""
     qmax = float(2**bits - 1)
     xd = x.detach()
-    lo, hi = xd.amin(), xd.amax()
+    lo, hi = _calibrate(xd)
     scale = torch.maximum((hi - lo) / scalar(qmax, x.dtype, x.device),
                           scalar(1e-8, x.dtype, x.device))
     q = ste_round(_ste_clip((x - lo) / scale, 0.0, qmax))

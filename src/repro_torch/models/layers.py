@@ -118,13 +118,12 @@ def qlinear(
 
 def train_weight(p: dict, quant: QuantConfig) -> torch.Tensor:
     """A train-mode site's latent ``{"w"}`` (``(K, N)``, or stacked experts
-    ``(E, K, N)``) fake-binarized over K.  The reference's
-    ``prebinarize_gather`` (weights packed before a multi-device gather)
-    is refused: the port trains on one device."""
+    ``(E, K, N)``) fake-binarized over K.  With ``prebinarize_gather`` the
+    weight arrives binarized already (``runtime.train_loop.prebinarize_params``:
+    packed before the multi-device gather, a bf16 ``alpha * sign(w)``) and
+    is used as it is, as the reference does."""
     if quant.prebinarize_gather:
-        raise NotImplementedError(
-            "prebinarize_gather packs weights for a multi-device gather; the port trains on one "
-            "device (ROADMAP section 1, item 7.4: multi-device training)")
+        return p["w"]
     return Q.fake_binarize_weight(p["w"])
 
 

@@ -41,7 +41,9 @@ bitwise attention, a GQA layer's ``k`` holds packed 1-bit rows (int32,
 
 Entry points:
 
-* ``init_params(seed, cfg)``           -- latent float32 params
+* ``init_params(seed, cfg)``           -- latent float32 params (on
+  ``device="meta"``, a shape-only tree: ``prepare_serving_params`` and
+  ``init_cache`` take it there too)
 * ``prepare_serving_params(params)``   -- binarize, bit-pack, colsums
 * ``init_serving_params(seed, cfg)``   -- the two above one layer at a time,
   so a full-width model never holds every latent weight at once
@@ -105,7 +107,18 @@ __all__ = [
 ]
 
 
+class _MetaGenerator(torch.Generator):
+    """A generator whose draws land on ``meta``: shapes and dtypes, no
+    values (the counterpart of the reference's ``jax.eval_shape``)."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def _generator(seed: int, device) -> torch.Generator:
+    if torch.device(device).type == "meta":
+        return _MetaGenerator()
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return gen
@@ -186,7 +199,8 @@ def _init_encoder(gen: torch.Generator, cfg: ArchConfig, block=lambda p: p) -> d
 
 
 def init_params(seed: int, cfg: ArchConfig, device="cuda") -> dict:
-    """Latent float32 params from ``torch.Generator(device).manual_seed(seed)``."""
+    """Latent float32 params from ``torch.Generator(device).manual_seed(seed)``;
+    on ``device="meta"`` the tree's shapes and dtypes alone, at any width."""
     gen = _generator(seed, device)
     p = _init_top(gen, cfg)
     cross = _has_encoder_stack(cfg)

@@ -95,12 +95,16 @@ def cosine_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return f(cfg.lr) * warm * frac
 
 
-def global_norm(grads) -> torch.Tensor:
+def global_norm(grads, reduce=None) -> torch.Tensor:
     """``sqrt(sum_leaves(sum(g**2)))`` in float32: each leaf summed, then
     the leaf sums (the reference sums in XLA's order, so the two agree to
-    a few float32 ulps, not bit for bit)."""
-    sums = [torch.sum(torch.square(g.to(torch.float32))) for g in tree.leaves(grads)]
-    return _sqrt(torch.sum(torch.stack(sums)))
+    a few float32 ulps, not bit for bit).  ``reduce`` maps the vector of
+    leaf sums before they are added: where ``grads`` are one rank's shards,
+    a sum over the ranks (``runtime.train_loop``)."""
+    sums = torch.stack([torch.sum(torch.square(g.to(torch.float32))) for g in tree.leaves(grads)])
+    if reduce is not None:
+        sums = reduce(sums)
+    return _sqrt(torch.sum(sums))
 
 
 def decay_mask(params: dict, cfg: ArchConfig) -> dict:
@@ -128,14 +132,16 @@ def decay_mask(params: dict, cfg: ArchConfig) -> dict:
 
 
 def apply_updates(params, grads, state: OptState, cfg: AdamWConfig,
-                  mask=None) -> Tuple[Any, OptState, dict]:
+                  mask=None, gnorm=None) -> Tuple[Any, OptState, dict]:
     """One AdamW step on the trees ``params`` and ``grads``.  ``mask`` is a
     tree of decay flags (``decay_mask`` for a model's params); without one
-    every leaf of rank >= 2 is decayed.  Returns (new_params, new_state,
-    metrics ``{"grad_norm", "lr"}``); the inputs are not modified."""
+    every leaf of rank >= 2 is decayed.  ``gnorm``: the gradients' global
+    norm where ``grads`` are one rank's shards of them (else
+    ``global_norm(grads)``).  Returns (new_params, new_state, metrics
+    ``{"grad_norm", "lr"}``); the inputs are not modified."""
     if mask is None:
         mask = tree.unflatten(params, [float(p.ndim >= 2) for p in tree.leaves(params)])
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     dev = gnorm.device
 
     def f(v: float) -> torch.Tensor:

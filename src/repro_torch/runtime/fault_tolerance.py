@@ -5,9 +5,11 @@
   bit (params, optimizer state and the data cursor are all in the
   checkpoint).  The handlers chain to whatever the host process had
   installed and are put back by ``restore_signal_handlers``.
-* **Elastic rescale**: checkpoints hold whole tensors, so a job restarts on
-  another shard geometry with ``TokenPipeline.reshard`` (one device here:
-  the reference's re-sharding restore has no counterpart).
+* **Elastic rescale**: checkpoints hold whole tensors.  A sharded run
+  (``shardings=``, the ``{"params", "opt"}`` tree of ``NamedSharding``)
+  saves the global leaves, gathered to the mesh's first rank alone, which
+  writes them, and restores each rank's slice, so a job saved on one mesh
+  resumes on another (``CheckpointManager``).
 * **Stragglers**: the runner keeps every step's time and exposes its
   ``p50`` / ``p99``, so an orchestrator can evict a slow worker.
 
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core.tree import leaves
 from repro_torch.data.pipeline import TokenPipeline
 
 __all__ = ["RunnerConfig", "TrainingRunner"]
@@ -54,12 +57,14 @@ class TrainingRunner:
         manager: CheckpointManager,
         cfg: RunnerConfig,
         log_fn: Callable[[str], None] = print,
+        shardings=None,
     ):
         self.train_step = train_step
         self.pipeline = pipeline
         self.manager = manager
         self.cfg = cfg
         self.log = log_fn
+        self.shardings = shardings
         self._preempted = False
         self._prev_handlers: Dict[int, object] = {}
         self.step_times: List[float] = []
@@ -98,14 +103,26 @@ class TrainingRunner:
         step = self.manager.latest_step()
         if step is None:
             return 0, params, opt_state
-        step, tree, extras = self.manager.restore(step, like={"params": params, "opt": opt_state})
+        step, tree, extras = self.manager.restore(step, like={"params": params, "opt": opt_state},
+                                                  shardings=self.shardings)
         self.pipeline.restore(extras["pipeline"])
         self.log(f"[runner] resumed from step {step}")
         return step, tree["params"], tree["opt"]
 
     def _save(self, step: int, params, opt_state) -> None:
         extras = {"pipeline": self.pipeline.state(), "step": step}
-        path = self.manager.save(step, {"params": params, "opt": opt_state}, extras)
+        tree = {"params": params, "opt": opt_state}
+        if self.shardings is None:
+            path = self.manager.save(step, tree, extras)
+        else:
+            # the global leaves to the mesh's first rank alone, which
+            # writes; every rank waits for the commit
+            from repro_torch.runtime import collectives as C
+            from repro_torch.runtime import sharding as SH
+
+            path = self.manager.save(step, tree, extras, gather=lambda t: SH.gather_tree_to(t, self.shardings))
+            mesh = leaves(self.shardings)[0].mesh
+            C.barrier([mesh.get_group(a) for a in mesh.mesh_dim_names], leaves(params)[0].device)
         self.log(f"[runner] checkpoint step {step} -> {path}")
 
     # -- main loop -------------------------------------------------------
@@ -129,12 +146,27 @@ class TrainingRunner:
                     f"[runner] step {step} loss {m['loss']:.4f} "
                     f"({dt*1e3:.0f} ms, p50 {self.p50*1e3:.0f} ms)"
                 )
-            if step % self.cfg.checkpoint_every == 0 or self._preempted:
+            stop = self._stop()
+            if step % self.cfg.checkpoint_every == 0 or stop:
                 self._save(step, params, opt_state)
-                if self._preempted:
+                if stop:
                     self.log("[runner] exiting after preemption checkpoint")
                     break
         return params, opt_state, metrics_hist
+
+    def _stop(self) -> bool:
+        """Whether to checkpoint and exit now: this process was signalled,
+        or, in a sharded run, any rank of the mesh was (one all-reduce a
+        step, so every rank stops at the same step)."""
+        if self.shardings is None:
+            return self._preempted
+        from repro_torch.runtime import collectives as C
+
+        mesh = leaves(self.shardings)[0].mesh
+        flag = torch.tensor([float(self._preempted)])
+        for axis in mesh.mesh_dim_names:
+            flag = C.all_reduce(flag, "max", group=mesh.get_group(axis))
+        return bool(flag.item())
 
     @property
     def p50(self) -> float:

@@ -4,7 +4,10 @@
   once as CUDA graphs and replayed (the counterparts of the reference's
   ``jax.jit`` steps; one card, so no mesh);
 * ``ServeEngine`` -- continuous batching over a replayed decode step;
-* ``serve_sequential`` -- the eager one-request-at-a-time oracle.
+* ``serve_sequential`` -- the eager one-request-at-a-time oracle;
+* ``serving_params_shardings`` -- the sharding rules on the serving tree
+  (a shape-only template on ``meta``); serving runs on one card, so no
+  step takes them yet.
 
 ``ServeEngine`` keeps a fixed packed decode batch of ``batch_slots`` rows.
 An admitted request is prefilled alone at its exact prompt length (batch
@@ -59,6 +62,7 @@ from repro_torch.models import model_zoo as Z
 from repro_torch.runtime.faults import BackendFault, FaultInjector, InjectedFault, parse_fault_plan
 
 __all__ = [
+    "serving_params_shardings",
     "make_prefill",
     "make_decode_step",
     "CompiledStep",
@@ -71,6 +75,15 @@ __all__ = [
     "STATE_DEADLINE",
     "TERMINAL_STATES",
 ]
+
+
+def serving_params_shardings(cfg: ArchConfig, mesh):
+    """(shardings, template): ``runtime/sharding.py``'s rules (no FSDP) on
+    the serving params of ``cfg``, a ``meta`` tree of their shapes."""
+    from repro_torch.runtime import sharding as SH
+
+    tmpl = Z.prepare_serving_params(Z.init_params(0, cfg, device="meta"), cfg)
+    return SH.params_shardings(tmpl, mesh, cfg), tmpl
 
 
 def _leaves(tree, out: List[torch.Tensor]) -> List[torch.Tensor]:

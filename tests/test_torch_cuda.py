@@ -1162,3 +1162,99 @@ def test_scores_bench_on_card(dev):
     doc = A.run_attn_bench([(4, 12, 12, 1, 512, 64)], device=dev, reps=1)
     assert doc["platform"] == "cuda" and {"name", "power_limit"} <= set(doc["hardware"])
     assert all(0 < c["roof_us"] <= c["measured_us"] for c in A.validate_attn_bench(doc)["cells"])
+
+
+# ---------------------------------------------------------------------------
+# multi-device training on the card (chip_smoke.py [18a] / [18d] at smoke size)
+# ---------------------------------------------------------------------------
+
+MESH_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+
+
+def _mesh_batches(cfg, n: int = 3):
+    rng = np.random.default_rng(5)
+    return [{"tokens": rng.integers(0, cfg.vocab_size, size=(8, 32)).astype(np.int32)} for _ in range(n)]
+
+
+def test_two_ranks_on_one_card_train_as_one_rank(dev, tmp_path):
+    """bit-bert smoke in 2 gloo ranks sharing the card (mesh 2x1): the
+    first step's loss within 1e-5 of the 1-rank step's on the card (global
+    fake-quant ranges) and its first moments within 2**-6 of a leaf's
+    largest (each rank's bf16 gradient share; the CPU test's bound), later
+    steps within 2e-2 (chip_smoke.MD_LOSS_RTOL), params within 3 x 2 lr;
+    the collectives of CUDA tensors went through the host."""
+    from torch_dist_workers import _cfg, run_ranks
+
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop as TL
+
+    cfg = _cfg("bit-bert-base")
+    batches = _mesh_batches(cfg)
+    out = run_ranks("card_mesh_worker", 2, tmp_path, {"opt": MESH_OPT, "batches": batches})
+    params, opt = TL.init_train_state(0, cfg, device=dev)
+    step = TL.make_train_step(cfg, TL.TrainConfig(optimizer=adamw.AdamWConfig(**MESH_OPT)), device=dev)
+    losses, first_mu = [], None
+    for b in batches:
+        params, opt, met = step(params, opt, b)
+        losses.append(float(met["loss"]))
+        first_mu = tree.leaves(opt.mu) if first_mu is None else first_mu
+    gaps = [abs(x - y) / abs(y) for x, y in zip(out[0]["losses"], losses)]
+    assert out[1]["losses"] == out[0]["losses"]
+    assert gaps[0] <= 1e-5 and max(gaps) <= 2e-2, gaps
+    for got, want in zip(out[0]["first_mu"], first_mu):
+        want = want.cpu()
+        assert float((got - want).abs().max()) <= 2.0 ** -6 * float(want.abs().max()), (got, want)
+    for got, want in zip(out[0]["params"], tree.leaves(params)):
+        assert float((got - want.cpu()).abs().max()) <= 3 * 2 * MESH_OPT["lr"] * (1 + 1e-3)
+    assert {"all_gather", "reduce_scatter", "all_reduce"} <= set(out[0]["staged"])
+
+
+def test_one_rank_over_nccl_is_the_step_without_a_group(dev, tmp_path):
+    """A world of one NCCL rank: the mesh step (gathers, reduce-scatters,
+    range and loss all-reduces, the sharded global norm) bit for bit the
+    step without a process group."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop as TL
+
+    cfg = dataclasses.replace(smoke_variant(get_config("bit-bert-base")), n_layers=2)
+    tcfg = TL.TrainConfig(optimizer=adamw.AdamWConfig(**MESH_OPT))
+    batch = _mesh_batches(cfg, 1)[0]
+    p0, o0 = TL.init_train_state(0, cfg, device=dev)
+    plain = TL.make_train_step(cfg, tcfg, device=dev)(p0, o0, batch)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/init", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device="cuda")
+        ps, os_ = TL.init_train_state(0, cfg, device=dev, mesh=mesh)
+        meshed = TL.make_train_step(cfg, tcfg, device=dev, mesh=mesh)(ps, os_, batch)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(tree.leaves(meshed[:2]), tree.leaves(plain[:2])):
+        assert torch.equal(a, b)
+    assert all(torch.equal(meshed[2][k], plain[2][k]) for k in plain[2])
+
+
+def test_train_cli_spawns_ranks_that_share_the_card(dev, tmp_path):
+    """``python -m repro_torch.launch.train --devices 2 --mesh 2x1`` on the
+    card (one card: more ranks than cards, so gloo with both ranks on it;
+    NCCL where each rank has one): 2 steps, rank 0's checkpoint, then a
+    resume on 1x2."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    args = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "bit-bert-base", "--smoke", "--devices",
+            "2", "--batch", "4", "--seq", "32", "--ckpt-every", "2", "--ckpt-dir", str(tmp_path / "ck")]
+    first = subprocess.run(args + ["--mesh", "2x1", "--steps", "2"], cwd=root, env=env, capture_output=True,
+                           text=True, timeout=300)
+    assert first.returncode == 0, first.stderr[-3000:]
+    again = subprocess.run(args + ["--mesh", "1x2", "--steps", "4"], cwd=root, env=env, capture_output=True,
+                           text=True, timeout=300)
+    assert again.returncode == 0 and "resumed from step 2" in again.stdout, again.stderr[-3000:]
+    assert (tmp_path / "ck" / "step_000000004" / "_COMMITTED").exists()

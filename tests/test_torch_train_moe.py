@@ -58,7 +58,6 @@ from repro_torch.configs.smoke import smoke_variant as tsmoke
 from repro_torch.core import tree
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.models import attention as TAT
-from repro_torch.models import layers as TL
 from repro_torch.models import model_zoo as TZ
 from repro_torch.models import moe as TM
 from repro_torch.optim import adamw as TA
@@ -299,16 +298,61 @@ def test_accum_steps_average_the_balance_loss(models):
     assert float(got["aux"]) > 0
 
 
-def test_prebinarize_gather_is_refused(models):
-    """The reference's packed-gather QAT belongs to multi-device training;
-    the port's train mode refuses it at every site kind."""
+@pytest.mark.parametrize("name", NAMES, ids=IDS)
+def test_prebinarize_gather_matches_the_reference(models, name):
+    """The reference's packed-gather QAT (``quant.prebinarize_gather``) on
+    the deepseek smoke models, one device: ``prebinarize_params`` (rank-3
+    routed experts, shared experts, MLA projections, v3's MTP head; never
+    the router) bit for bit against the reference's on a 1x1 mesh, values
+    and straight-through gradients (``jax.vjp`` with each value as its own
+    cotangent)."""
+    from repro.launch.mesh import make_host_mesh
+    from repro.runtime import train_loop as JTL
+
+    m = models(name)
+    rhat = JTL.prebinarize_params(m["jparams"], m["jcfg"], make_host_mesh(1, 1))
+    want = convert.from_reference(jax.tree.map(lambda a: np.asarray(a.astype(jnp.float32)), rhat), m["tcfg"],
+                                  device="cpu")
+    leaves = [p.detach().requires_grad_(True) for p in tree.leaves(m["tparams"])]
+    hat = TTL.prebinarize_params(tree.unflatten(m["tparams"], leaves), m["tcfg"])
+    packed = [path for (path, got), src in zip(tree.leaves_with_paths(hat), leaves) if got is not src]
+    assert any("/moe/up/" in p for p in packed) and not any("router" in p for p in packed)
+    for (path, got), w in zip(tree.leaves_with_paths(hat), tree.leaves(want)):
+        assert torch.equal(got.float(), w), path
+    total = sum((x.float() * x.detach().float()).sum() for x in tree.leaves(hat))
+    grads = torch.autograd.grad(total, leaves)
+    _, vjp = jax.vjp(lambda p: JTL.prebinarize_params(p, m["jcfg"], make_host_mesh(1, 1)), m["jparams"])
+    (rgrads,) = vjp(rhat)
+    want_g = convert.from_reference(_np_tree(rgrads), m["tcfg"], device="cpu")
+    for (path, g), w in zip(tree.leaves_with_paths(tree.unflatten(m["tparams"], list(grads))),
+                            tree.leaves(want_g)):
+        assert torch.equal(g, w), path
+
+
+def test_prebinarize_gather_trains_as_the_reference(models):
+    """deepseek-v2-lite smoke trained through ``prebinarize_params``.  A
+    prebinarized weight is ``bf16(alpha) * sign(w)``, which is what the
+    fake-binarized float32 weight becomes when a train-mode site casts it
+    to the bf16 activations' dtype, and its gradient is the same ``g *
+    alpha``: so the loss and every gradient are the plain train step's, bit
+    for bit, and with it held to the reference's op-by-op loss and
+    gradients as ``test_loss_and_gradients_match_reference`` holds that
+    step.  (v3's MTP head takes float32 activations, where the bf16
+    ``alpha`` does differ from the float32 one, in the reference alike.)"""
     m = models(NAMES[0])
-    quant = dataclasses.replace(m["tcfg"].quant, prebinarize_gather=True)
-    with pytest.raises(NotImplementedError, match="7.4"):
-        TL.qlinear({"w": torch.zeros(64, 32)}, torch.zeros((2, 4, 64), dtype=torch.bfloat16), quant, mode="train")
-    with pytest.raises(NotImplementedError, match="7.4"):
-        TM.expert_qlinear({"w": torch.zeros(8, 64, 32)}, torch.zeros((8, 2, 64), dtype=torch.bfloat16), quant, 64,
-                          mode="train")
-    cfg = dataclasses.replace(m["tcfg"], quant=quant)
-    with pytest.raises(NotImplementedError, match="7.4"):
-        TZ.loss_fn(m["tparams"], {"tokens": torch.from_numpy(m["tokens"])}, cfg)
+    cfg = dataclasses.replace(m["tcfg"], quant=dataclasses.replace(m["tcfg"].quant, prebinarize_gather=True))
+    tcfg = TTL.TrainConfig(remat=False)
+    batch = {"tokens": torch.from_numpy(m["tokens"])}
+    got_m, got_g = TTL.value_and_grad(m["tparams"], batch, cfg, tcfg,
+                                      prepare=lambda p: TTL.prebinarize_params(p, cfg))
+    plain_m, plain_g = TTL.value_and_grad(m["tparams"], batch, m["tcfg"], tcfg)
+    assert all(torch.equal(got_m[k], plain_m[k]) for k in plain_m)
+    assert all(torch.equal(a, b) for a, b in zip(tree.leaves(got_g), tree.leaves(plain_g)))
+    assert abs(float(got_m["loss"]) - m["want_metrics"]["loss"]) <= LOSS_RTOL * abs(m["want_metrics"]["loss"])
+    for path, g in tree.leaves_with_paths(got_g):
+        assert _rel_gap(g, m["want_grads"][path]) <= GRAD_TOL, path
+    # the whole step on the prebinarized path
+    step = TTL.make_train_step(cfg, TTL.TrainConfig(optimizer=TA.AdamWConfig(lr=1e-3, warmup_steps=1)),
+                               device="cpu")
+    p2, _, met = step(m["tparams"], TA.init_state(m["tparams"]), batch)
+    assert torch.equal(met["loss"], plain_m["loss"]) and bool(torch.isfinite(met["grad_norm"]))

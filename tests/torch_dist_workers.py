@@ -1,0 +1,279 @@
+"""Ranks for the port's multi-device CPU tests: ``run_ranks`` spawns
+``world`` processes that join one gloo process group (``init_method``
+``file://`` under the test's temporary directory, so concurrent test
+workers never share a port) and run one of this module's workers; each
+rank's result comes back through a file.  The workers import the port and
+torch only, never JAX, so a rank starts in a few seconds."""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+import traceback
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+RANK_TIMEOUT_S = 300
+
+
+def _entry(rank: int, world: int, tmp: str, worker: str, payload) -> None:
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
+    out = Path(tmp) / f"rank{rank}.pt"
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/init", rank=rank, world_size=world)
+        result = globals()[worker](rank, world, payload)
+        torch.save(result, out)
+        dist.destroy_process_group()
+    except BaseException:
+        (Path(tmp) / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def run_ranks(worker: str, world: int, tmp_path, payload=None) -> list:
+    """Each rank's return value of ``worker(rank, world, payload)``."""
+    import torch.multiprocessing as mp
+
+    tmp = Path(tmp_path) / f"ranks-{worker}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_entry, args=(r, world, str(tmp), worker, payload)) for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(RANK_TIMEOUT_S)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errors = [f.read_text() for f in sorted(tmp.glob("rank*.err"))]
+    if errors or any(p.exitcode != 0 for p in procs):
+        raise RuntimeError(f"ranks failed (exit codes {[p.exitcode for p in procs]}):\n" + "\n".join(errors))
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# optim/compression.py
+# ---------------------------------------------------------------------------
+
+
+def psum_worker(rank: int, world: int, payload):
+    """``compressed_psum`` of this rank's gradients and error state, on and
+    off, over the whole group."""
+    from repro_torch.optim import compression
+    from repro_torch.runtime import collectives as C
+
+    grads = {k: torch.from_numpy(v[rank]) for k, v in payload["grads"].items()}
+    errs = {k: torch.from_numpy(v[rank]) for k, v in payload["errs"].items()}
+    carried = {}
+    C.BYTES.clear()
+    on = compression.compressed_psum(grads, errs, None, enabled=True)
+    carried["on"] = dict(C.BYTES)
+    C.BYTES.clear()
+    off = compression.compressed_psum(grads, errs, None, enabled=False)
+    carried["off"] = dict(C.BYTES)
+    gathered = C.all_gather(torch.tensor([rank, 10 * rank], dtype=torch.int32))
+    return {"on": on, "off": off, "gathered": gathered, "carried": carried}
+
+
+# ---------------------------------------------------------------------------
+# runtime/train_loop.py over meshes
+# ---------------------------------------------------------------------------
+
+
+def _cfg(name: str, **quant):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.smoke import smoke_variant
+
+    cfg = smoke_variant(get_config(name))
+    cfg = dataclasses.replace(cfg, n_layers=2) if name == "bit-bert-base" else cfg
+    if quant:
+        cfg = dataclasses.replace(cfg, quant=dataclasses.replace(cfg.quant, **quant))
+    return cfg
+
+
+def _mesh(shape, ranks):
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh("cpu", torch.tensor(ranks).view(*shape), mesh_dim_names=("data", "model"))
+
+
+def _global(tree_, shardings):
+    from repro_torch.runtime import sharding as SH
+
+    return SH.gather_tree(tree_, shardings)
+
+
+def train_worker(rank: int, world: int, payload):
+    """Every scenario of ``tests/test_torch_multidevice_train.py`` in one
+    group of 4 ranks: the meshes' first steps (2x1 on ranks 0-1 beside 1x2
+    on ranks 2-3, then 2x2), the fake-quant ranges, the prebinarized step,
+    the compressed step, a sharded checkpoint restored onto other meshes,
+    and the MoE refusal."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import quantization as Q
+    from repro_torch.core import tree
+    from repro_torch.optim import adamw, compression
+    from repro_torch.runtime import collectives as C
+    from repro_torch.runtime import sharding as SH
+    from repro_torch.runtime import train_loop as TL
+
+    tcfg = TL.TrainConfig(optimizer=adamw.AdamWConfig(**payload["opt"]))
+    batch = payload["batch"]
+    out = {}
+    # DeviceMesh creation is collective over the group: every rank makes
+    # every mesh, in one order
+    pairs = {(2, 1): _mesh((2, 1), [0, 1]), (1, 2): _mesh((1, 2), [2, 3])}
+    full = _mesh((2, 2), [0, 1, 2, 3])
+    on_pair = (2, 1) if rank < 2 else (1, 2)
+
+    def first_step(name, mesh, spy=None, **quant):
+        cfg = _cfg(name, **quant)
+        params, opt = TL.init_train_state(0, cfg, device="cpu", mesh=mesh)
+        step = TL.make_train_step(cfg, tcfg, device="cpu", mesh=mesh)
+        TL.GATHERED.update(packed=0, latent=0, latent_equiv=0)
+        p2, o2, met = step(params, opt, batch[name])
+        p_sh, o_sh = TL.train_shardings(cfg, mesh)
+        res = {"metrics": met, "params": _global(p2, p_sh), "mu": _global(o2.mu, p_sh),
+               "nu": _global(o2.nu, p_sh), "gathered": dict(TL.GATHERED)}
+        return res, (p2, o2, p_sh, o_sh)
+
+    for name in ("granite-8b", "bit-bert-base"):
+        mesh = pairs[on_pair]
+        out[(name, on_pair)], _ = first_step(name, mesh)
+        out[(name, (2, 2))], state = first_step(name, full)
+        if name == "granite-8b":
+            granite_state = state
+
+    # the fake-quant ranges of the 2x1 step: each site's own and the reduced
+    seen = []
+    calibrate = Q._calibrate
+
+    def spy(xd):
+        own = (xd.amin().clone(), xd.amax().clone())
+        lo, hi = calibrate(xd)
+        seen.append((own, (lo.clone(), hi.clone())))
+        return lo, hi
+
+    Q._calibrate = spy
+    try:
+        if rank < 2:
+            cfg = _cfg("granite-8b")
+            params, opt = TL.init_train_state(0, cfg, device="cpu", mesh=pairs[(2, 1)])
+            TL.make_train_step(cfg, tcfg, device="cpu", mesh=pairs[(2, 1)])(params, opt, batch["granite-8b"])
+    finally:
+        Q._calibrate = calibrate
+    out["ranges"] = seen
+
+    # packed-weight gather on 2x2 (K split over data at column-parallel
+    # sites, over model at row-parallel ones)
+    out["prebinarized"], _ = first_step("granite-8b", full, prebinarize_gather=True)
+
+    # compressed DP on 2x1 (ranks 0-1) beside 1x2 (ranks 2-3): each rank's
+    # own gradients, as compressed_psum receives them
+    cfg = _cfg("bit-bert-base")
+    params, opt = TL.init_train_state(0, cfg, device="cpu")
+    local = []
+    psum = compression.compressed_psum
+
+    def grab(grads, err, group, enabled=True):
+        local.append(grads)
+        return psum(grads, err, group, enabled)
+
+    compression.compressed_psum = grab
+    try:
+        step = TL.make_compressed_dp_step(cfg, tcfg, pairs[on_pair], compress=True, device="cpu")
+        err = compression.init_error_state(params)
+        p2, o2, err2, met = step(params, opt, err, batch["bit-bert-base"])
+        off = TL.make_compressed_dp_step(cfg, tcfg, pairs[on_pair], compress=False, device="cpu")
+        p3, _, _, met3 = off(params, opt, compression.init_error_state(params), batch["bit-bert-base"])
+    finally:
+        compression.compressed_psum = psum
+    out["compressed"] = {"local": local[0], "params": p2, "err": err2, "metrics": met,
+                         "plain_params": p3, "plain_metrics": met3}
+
+    # a sharded save on 2x2, restored onto 2x1 / 1x2 and onto 2x2
+    p2, o2, p_sh, o_sh = granite_state
+    ckdir = payload["ckpt_dir"]
+    manager = CheckpointManager(ckdir, keep=2, writer=rank == 0)
+    shardings = {"params": p_sh, "opt": o_sh}
+    got = []
+
+    def gather(t):
+        got.append(SH.gather_tree_to(t, shardings, bucket=1 << 12))  # several buckets a dtype
+        return got[-1]
+
+    manager.save(7, {"params": p2, "opt": o2}, {"note": "2x2"}, gather=gather)
+    C.barrier([full.get_group(a) for a in full.mesh_dim_names])
+    out["gathered_to"] = got[0]
+    restored = {}
+    for label, mesh in (("pair", pairs[on_pair]), ("full", full)):
+        cfg = _cfg("granite-8b")
+        like_p, like_o = TL.init_train_state(1, cfg, device="cpu", mesh=mesh)
+        q_sh, r_sh = TL.train_shardings(cfg, mesh)
+        step_no, tree_, extras = CheckpointManager(ckdir, writer=False).restore(
+            like={"params": like_p, "opt": like_o}, shardings={"params": q_sh, "opt": r_sh})
+        restored[label] = {"step": step_no, "extras": extras, "params": tree_["params"],
+                           "opt": tree_["opt"], "coords": SH.coordinates(mesh),
+                           "specs": [s.spec for s in tree.leaves(q_sh)]}
+    out["restored"] = restored
+
+    # an MoE model over two data ranks is refused (ROADMAP 7.4b)
+    try:
+        TL.make_train_step(_cfg("deepseek-v2-lite-16b"), tcfg, device="cpu", mesh=pairs[on_pair])
+        out["moe"] = None
+    except NotImplementedError as e:
+        out["moe"] = str(e)
+    return out
+
+
+def card_mesh_worker(rank: int, world: int, payload):
+    """Two ranks on one card (gloo, CUDA tensors staged through the host):
+    bit-bert smoke over a 2x1 mesh, one step a batch of ``payload``; the
+    losses, the gathered params, the first step's first moments and the
+    staged ops."""
+    from repro_torch.core import tree
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import collectives as C
+    from repro_torch.runtime import train_loop as TL
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cfg = _cfg("bit-bert-base")
+    mesh = _mesh((2, 1), [0, 1])
+    tcfg = TL.TrainConfig(optimizer=adamw.AdamWConfig(**payload["opt"]))
+    params, opt = TL.init_train_state(0, cfg, device=dev, mesh=mesh)
+    step = TL.make_train_step(cfg, tcfg, device=dev, mesh=mesh)
+    p_sh, _ = TL.train_shardings(cfg, mesh)
+    C.STAGED.clear()
+    losses, first_mu = [], None
+    for batch in payload["batches"]:
+        params, opt, met = step(params, opt, batch)
+        losses.append(float(met["loss"]))
+        if first_mu is None:
+            first_mu = [t.cpu() for t in tree.leaves(_global(opt.mu, p_sh))]
+    full = _global(params, p_sh)
+    return {"losses": losses, "params": [t.cpu() for t in tree.leaves(full)], "first_mu": first_mu,
+            "staged": dict(C.STAGED)}
+
+
+def staged_worker(rank: int, world: int, payload):
+    """The collectives' host-staged path (a CUDA tensor under gloo: pieces
+    of ``_CHUNK`` elements through page-locked memory), run on CPU tensors
+    with 7-element pieces and ordinary host buffers, beside the direct
+    path."""
+    from unittest import mock
+
+    from repro_torch.runtime import collectives as C
+
+    t = torch.arange(30, dtype=torch.float32).view(6, 5) * (rank + 1) - 40
+    direct = [C.all_reduce(t), C.all_reduce(t, "max"), C.all_gather(t), C.reduce_scatter(t), C.gather_to(t)]
+    with mock.patch.object(C, "_CHUNK", 7), mock.patch.object(C, "_host", lambda x, g, op: True), \
+            mock.patch.object(C, "_pinned", lambda x: x.clone()), \
+            mock.patch.object(C, "_host_empty", lambda n, dtype: torch.empty((n,), dtype=dtype)):
+        staged = [C.all_reduce(t), C.all_reduce(t, "max"), C.all_gather(t), C.reduce_scatter(t), C.gather_to(t)]
+    return {"direct": direct, "staged": staged, "input": t}
