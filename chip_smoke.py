@@ -272,6 +272,22 @@ Phases (each prints its own lines):
    group.  [18e] [18a]'s checkpoint packed and one 128-token ``Z.prefill``
    at W1A1 through K3 (72 launches, K3's ``multidevice`` entry), bitwise
    to K3's plain version.
+19. the static-analysis and dry-run modules on the card.  [19a] the
+   invariant verifier (``analysis/verifier.py``) over every QMM backend
+   at W1A8 / W1A1 / A8xA8 with CUDA operands, at (8, 64, 16) and at
+   granite-8b's up site (4, 4096, 14336); [19b] over granite-8b at full
+   width and depth (a 128-token prefill and a decode step, ``pallas`` then
+   ``fused``: 252 named ``qlinear`` records a forward, the cache contract)
+   and bit-bert-base W1A1 with ``attn.qk -> binary``.  Each run must find
+   nothing, and cross each kernel wrapper's boundary exactly as many times
+   as the wrapper launched (each kernel's ``verified`` count).  [19c] the
+   self-test with CUDA tensors.  [19d] the dry-run's granite-8b
+   ``train_4k`` cells on (16, 16) and (2, 16, 16) and the smoke cell; its
+   argument bytes for granite-8b on [18b]'s 4 layers at 1x1 against the
+   growth of ``torch.cuda.memory_allocated`` when those params and their
+   AdamW state are built on the card (within 512 B, the allocator's
+   rounding, a tensor), and its 2x1 plan's gathered bytes against [18b]'s
+   counters, exactly.
 11. (printed last) one JSON line of per-kernel numbers, the ``nvidia-smi``
    line, and last ``{"ok": true, "device": {...}}``.  Each kernel's
    ``launches`` is its wrapper's count over its main path's run alone
@@ -283,7 +299,9 @@ Phases (each prints its own lines):
    ``replay_launches`` the kernel's launches counted on the device in one
    profiled replay of that path's decode graph (K3 and the scores kernel add
    ``prefill_replay_launches``, of the 128-token prefill graph; each path
-   adds ``replay_busy_ms``, that replay's device busy time; K1 adds
+   adds ``replay_busy_ms``, that replay's device busy time; each adds
+   ``verified``, the boundaries [19a]-[19b]'s walks crossed (equal to its
+   launches there); K1 adds
    ``gemma3``, ``deepseek``, ``recurrentgemma``, ``mamba2``, ``internvl2``
    and ``whisper``, the same numbers for phases 7 to 10, and ``robust``,
    phase [13a]'s faulted run with its snapshot and restore numbers; K2
@@ -3941,8 +3959,9 @@ def torch_leaves(tree):
 
 
 def train_multidevice(Z, bert_cfg, granite_cfg, device, ops, ref, kernels, smi, workdir: Path) -> dict:
-    """Phase 18.  Returns K3's ``multidevice`` entry: its launches in
-    [18e]'s ``Z.prefill`` of the 2-rank-trained model."""
+    """Phase 18.  Returns K3's ``multidevice`` entry (its launches in
+    [18e]'s ``Z.prefill`` of the 2-rank-trained model) and the phase's
+    numbers, with [18b]'s granite-8b ``layers``."""
     import torch.distributed as dist
     import torch.multiprocessing as mp
 
@@ -4145,7 +4164,155 @@ def train_multidevice(Z, bert_cfg, granite_cfg, device, ops, ref, kernels, smi, 
     del saved, sp
     torch.cuda.empty_cache()
     log(f"[18] phase 18 took {time.perf_counter() - t_phase:.1f} s")
-    return dict(launches=launched[2])
+    return dict(launches=launched[2]), dict(numbers, layers=layers)
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the static-analysis and dry-run modules on the card -- the
+# invariant verifier over the real launches (the five kernel wrappers as its
+# trusted boundaries), the self-test, and the dry-run's accounts held to
+# what the card allocates and what phase [18b]'s gathers moved
+# ---------------------------------------------------------------------------
+
+VERIFY_SHAPES = [(8, 64, 16), (4, 4096, 14336)]  # [19a]: the verifier's own (M, K, N), granite's up site
+VERIFY_PROMPT = 128  # [19b]: one 128-token prefill, then one decode step
+VERIFY_MAX_LEN = 256
+ALLOC_ROUND = 512  # the caching allocator rounds every block up to 512 bytes
+
+
+def _qlinear_records(records) -> int:
+    return sum(1 for r in records if r["kind"] == "qlinear" and r["site"])
+
+
+def verify_and_dry_run(Z, granite_cfg, bert_cfg, device, kernels, smi, md_numbers: dict) -> dict:
+    """Phase 19.  Returns each kernel wrapper's ``verified`` count: the
+    boundaries [19a] and [19b] crossed, each equal to its launches there."""
+    from repro_torch.analysis import selftest, verifier
+    from repro_torch.analysis.findings import render_text
+    from repro_torch.configs.base import SHAPES_BY_NAME
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.runtime import train_loop as TL
+
+    t_phase = time.perf_counter()
+    names = [k.__name__ for k in kernels]
+    verified = Counter()
+
+    def walked(tag: str, run) -> dict:
+        """``run()``'s findings (required: none) and the kernel boundaries
+        it crossed, each required equal to its wrapper's launches."""
+        torch.cuda.synchronize()
+        _zero(kernels)
+        verifier.CROSSED.clear()
+        t = time.perf_counter()
+        found = run()
+        torch.cuda.synchronize()
+        launched = dict(zip(names, _counts(kernels)))
+        crossed = {n: verifier.CROSSED.get(n, 0) for n in names}
+        if found:
+            raise AssertionError(f"[19] {tag}: {len(found)} finding(s)\n" + render_text(found))
+        if crossed != launched:
+            raise AssertionError(f"[19] {tag}: kernel boundaries crossed {crossed}, launches {launched}")
+        verified.update(crossed)
+        log(f"[19] {tag}: 0 findings; boundaries crossed = launches "
+            + ", ".join(f"{n} {c}" for n, c in crossed.items() if c) + f" ({time.perf_counter() - t:.1f} s)")
+        return crossed
+
+    # [19a] every QMM backend of the registry, W1A8 / W1A1 / A8xA8, on the card
+    for m, k, n in VERIFY_SHAPES:
+        crossed = walked(f"[19a] verify_backends at ({m}, {k}, {n})",
+                         lambda: verifier.verify_backends(device=device, shape=(m, k, n)))
+        if [crossed[x] for x in names[:4]] != [1, 3, 1, 1]:
+            raise AssertionError(f"[19a] expected K1 1 (pallas W1A8), K2 3 (fused), K3 1, K4 1: {crossed}")
+
+    # [19b] granite-8b at full width and depth on pallas and fused; bit-bert-base W1A1 with
+    # attn.qk -> binary; each a 128-token prefill and one decode step
+    per_forward = SITES_PER_LAYER * granite_cfg.n_layers
+    params = Z.init_serving_params(0, with_backend(granite_cfg, "pallas"), device=device)
+    for backend, kernel in (("pallas", names[0]), ("fused", names[1])):
+        cfg = with_backend(granite_cfg, backend)
+        crossed = walked(f"[19b] verify_arch {cfg.name} ({cfg.n_layers} layers) on {backend}",
+                         lambda: verifier.verify_arch(cfg.name, device=device, cfg=cfg, params=params, batch=1,
+                                                      max_len=VERIFY_MAX_LEN, prompt_len=VERIFY_PROMPT))
+        named = [_qlinear_records(verifier.RECORDS[f"arch:{cfg.name}:{step}"]) for step in ("prefill", "decode")]
+        if named != [per_forward] * 2 or crossed[kernel] != 2 * per_forward:
+            raise AssertionError(f"[19b] {backend}: named qlinear records {named}, {kernel} crossed "
+                                 f"{crossed[kernel]}; expected {per_forward} a forward")
+    log(f"[19b] {granite_cfg.name}: {per_forward} named qlinear site records a forward on each backend, the "
+        f"cache contract held through the prefill and the decode step | {smi}")
+    del params
+    torch.cuda.empty_cache()
+    bcfg = _with_qk(with_backend(bert_cfg, "pallas"), "binary")
+    bparams = Z.init_serving_params(0, bcfg, device=device)
+    bert_forward = BERT_SITES_PER_LAYER * bcfg.n_layers
+    with mock.patch.dict(os.environ, {"REPRO_QMM_AUTOTUNE": "0"}):  # the scores core is the kernel
+        crossed = walked(f"[19b] verify_binary_attention {bcfg.name} W1A1, attn.qk -> binary",
+                         lambda: verifier.verify_binary_attention(device=device, cfg=bcfg, params=bparams, batch=1,
+                                                                  max_len=VERIFY_MAX_LEN,
+                                                                  prompt_len=VERIFY_PROMPT))
+    named = [_qlinear_records(verifier.RECORDS[f"binary-attn:{step}"]) for step in ("prefill", "decode")]
+    if (named != [bert_forward] * 2 or crossed[names[2]] != 2 * bert_forward
+            or crossed[names[4]] != 1 + 2 * bcfg.n_layers):
+        raise AssertionError(f"[19b] {bcfg.name}: named records {named}, crossed {crossed}; expected "
+                             f"K3 {bert_forward} and the scores kernel {bcfg.n_layers} a forward (+1, the core sweep)")
+    log(f"[19b] {bcfg.name}: K3 {bert_forward} and the scores kernel {bcfg.n_layers} a forward, "
+        f"{bert_forward} named qlinear records a forward | {smi}")
+    del bparams
+    torch.cuda.empty_cache()
+
+    # [19c] the self-test with CUDA tensors: every seeded fixture flagged
+    t = time.perf_counter()
+    failures = selftest.run(str(ROOT), device=device)
+    if failures:
+        raise AssertionError("[19c] self-test: " + "; ".join(failures))
+    log(f"[19c] self-test on the card: every seeded lint rule and trace invariant flagged, the fused and "
+        f"scores cores clean ({time.perf_counter() - t:.1f} s)")
+
+    # [19d] the dry-run's cells, then its accounts against the card
+    t = time.perf_counter()
+    cells = {(arch, shape, mesh): dryrun.run_cell(arch, shape, mesh)
+             for arch, shape, mesh in (("granite-8b", "train_4k", "single"), ("granite-8b", "train_4k", "multi"),
+                                       ("smoke", "smoke", "single"))}
+    for key, rec in cells.items():
+        rec.pop("traceback", None)
+        log(f"[19d] dry-run {' '.join(key)}: " + json.dumps(rec))
+    single, multi, smoke = cells.values()
+    if (single["status"] != "ok" or not single["flops"] > 0 or "'pod' axis" not in multi.get("error", "")
+            or smoke["memory"]["argument_size_in_bytes"] != 3524):
+        raise AssertionError(f"[19d] dry-run cells: {[(r['status'], r.get('error')) for r in cells.values()]}")
+    layers = md_numbers["layers"]
+    gcfg = dataclasses.replace(granite_cfg, n_layers=layers)
+    args = dryrun.argument_bytes(gcfg, SHAPES_BY_NAME["train_4k"], abstract_mesh((1, 1), ("data", "model")))
+    predicted = args["params"] + args["opt_state"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    state = TL.init_train_state(0, gcfg, device=device)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    n_tensors = len(torch_leaves(state))
+    rounded = sum(-(-x.numel() * x.element_size() // ALLOC_ROUND) * ALLOC_ROUND for x in torch_leaves(state))
+    del state
+    torch.cuda.empty_cache()
+    if not 0 <= grown - predicted <= ALLOC_ROUND * n_tensors:
+        raise AssertionError(f"[19d] predicted {predicted} B of params and AdamW state, the card allocated {grown} B "
+                             f"for {n_tensors} tensors")
+    pcfg = dataclasses.replace(gcfg, quant=dataclasses.replace(gcfg.quant, prebinarize_gather=True))
+    plan = dryrun.collective_bytes(pcfg, abstract_mesh((2, 1), ("data", "model")))
+    seen = {"packed": md_numbers["b_packed_bytes"], "latent": md_numbers["b_float_bytes"],
+            "latent_equiv": md_numbers["b_latent_equiv_bytes"]}
+    if plan["gathered"] != seen:
+        raise AssertionError(f"[19d] the dry-run's 2x1 gathers {plan['gathered']} != [18b]'s counters {seen}")
+    log(f"[19d] {gcfg.name} on {layers} of {granite_cfg.n_layers} layers, mesh 1x1: the dry-run predicts "
+        f"{predicted} B of params ({args['params']}) and AdamW state ({args['opt_state']}); building them on "
+        f"the card grew torch.cuda.memory_allocated by {grown} B ({grown - predicted} B over, {n_tensors} tensors "
+        f"each rounded up to {ALLOC_ROUND} B: {rounded} B); mesh 2x1 with the packed gather: the dry-run's plan "
+        f"gathers {plan['gathered']['packed']} B of sign words, {plan['gathered']['latent']} B of float leaves "
+        f"({plan['gathered']['latent_equiv']} B as float32 latents) into a rank a step, equal to [18b]'s counters; "
+        f"its all-gathers {plan['all-gather']} and reduce-scatter {plan['reduce-scatter']} a step "
+        f"({time.perf_counter() - t:.1f} s) | {smi}")
+    log(f"[19] phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return {n: verified[n] for n in names}
 
 
 # The serving paths of phases 7-9 at full width, cut in depth so that the
@@ -4392,11 +4559,17 @@ def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg, rec
 
     # ---- phase 18: multi-device QAT training (2 ranks on the card, NCCL), served through K3
     with tempfile.TemporaryDirectory(prefix="chip_smoke_18_") as workdir:
-        k3["multidevice"] = train_multidevice(Z, bert_cfg, model_cfg, device, ops, ref, all_kernels, smi,
-                                              Path(workdir))
+        k3["multidevice"], md_numbers = train_multidevice(Z, bert_cfg, model_cfg, device, ops, ref, all_kernels,
+                                                          smi, Path(workdir))
+
+    # ---- phase 19: the invariant verifier over the real launches, the self-test, the dry-run
+    verified = verify_and_dry_run(Z, model_cfg, bert_cfg, device, all_kernels + (K5.binary_attn_scores_planes,),
+                                  smi, md_numbers)
 
     main_path = {"binary_qmm": k1, "fused_qmm": k2, "popcount_qmm": k3, "bitserial_qmm": k4,
                  "binary_attn_scores_planes": k5}
+    for name, path in main_path.items():
+        path["verified"] = verified[name]
     sources = {
         "binary_qmm": ("src/repro_torch/csrc/binary_qmm.cu", "src/repro/kernels/binary_qmm.py:95"),
         "fused_qmm": ("src/repro_torch/csrc/fused_qmm.cu", "src/repro/kernels/fused_qmm.py:180"),

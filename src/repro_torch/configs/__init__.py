@@ -24,5 +24,20 @@ from repro_torch.configs.base import (
     list_configs,
 )
 
-__all__ = ["ArchConfig", "EncoderConfig", "MLAConfig", "MoEConfig", "QuantConfig", "SSMConfig", "get_config",
+#: The ten assigned architectures (the reference's ``ASSIGNED``: the
+#: dry-run's and the verifier's arch rows).
+ASSIGNED = (
+    "recurrentgemma-2b",
+    "internvl2-2b",
+    "deepseek-v3-671b",
+    "deepseek-v2-lite-16b",
+    "whisper-tiny",
+    "mistral-nemo-12b",
+    "granite-8b",
+    "gemma3-27b",
+    "qwen3-32b",
+    "mamba2-130m",
+)
+
+__all__ = ["ASSIGNED", "ArchConfig", "EncoderConfig", "MLAConfig", "MoEConfig", "QuantConfig", "SSMConfig", "get_config",
            "list_configs"]

@@ -9,11 +9,18 @@ word is held as a ``torch.int32`` carrying the same 32 bits: the words are
 bit-identical to the reference's ``uint32`` arrays, and
 ``numpy_array.view(np.int32)`` / ``.view(np.uint32)`` converts between the
 two.  Shifts run on int64 copies, where every 32-bit pattern is positive.
+
+The packers, ``unpack_bits`` and ``popcount32`` carry boundary marks
+(``core/marks.py``): the invariant verifier reads packed words, logical
+mantissas and popcounts off them, as the reference's reads its named jitted
+helpers.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core import marks
 
 __all__ = [
     "WORD_BITS",
@@ -46,6 +53,7 @@ def words_to_int32(words: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
+@marks.boundary(marks.PACKED)
 def pack_bits(x: torch.Tensor, bits: int, axis: int = -1) -> torch.Tensor:
     """Pack unsigned ``bits``-wide mantissas along ``axis`` into 32-bit words.
 
@@ -65,6 +73,7 @@ def pack_bits(x: torch.Tensor, bits: int, axis: int = -1) -> torch.Tensor:
     return torch.movedim(words_to_int32(words), -1, axis).contiguous()
 
 
+@marks.boundary(marks.UNPACKED)
 def unpack_bits(
     packed: torch.Tensor,
     bits: int,
@@ -81,6 +90,7 @@ def unpack_bits(
     return torch.movedim(vals.to(dtype), -1, axis)
 
 
+@marks.boundary(marks.COUNTS)
 def popcount32(words: torch.Tensor) -> torch.Tensor:
     """Set bits of each 32-bit word (int32 words carrying uint32 bits) ->
     int32, by the SWAR reduction: torch has no popcount."""
@@ -91,6 +101,7 @@ def popcount32(words: torch.Tensor) -> torch.Tensor:
     return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
 
 
+@marks.boundary(marks.PACKED)
 def to_bitplanes(x: torch.Tensor, bits: int) -> torch.Tensor:
     """``x = sum_i 2**i * plane[i]``: uint8 planes of shape ``(bits,) + x.shape``."""
     x = x.to(torch.int64)
@@ -99,6 +110,7 @@ def to_bitplanes(x: torch.Tensor, bits: int) -> torch.Tensor:
     return ((x[None] >> shifts) & 1).to(torch.uint8)
 
 
+@marks.boundary(marks.PACKED)
 def pack_bitplanes(x: torch.Tensor, bits: int, axis: int = -1) -> torch.Tensor:
     """Bit-plane decompose, then 1-bit-pack each plane along ``axis``.
 

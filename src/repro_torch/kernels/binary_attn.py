@@ -7,6 +7,9 @@ entry of the scores backend family; no Pallas kernel).  For CUDA tensors it
 launches the kernel (or raises); for CPU tensors it runs the plain version
 ``ref.binary_attn_scores_ref``.  ``binary_attn_scores_planes.launches``
 counts kernel launches and nothing else.
+On ``meta`` tensors (shape-only, the dry-run's) the plain version gives
+the output's shape and dtype.  The wrapper is a trusted kernel boundary
+of the invariant verifier (``core/marks.py``).
 
 The kernel reads both operands through their strides, so the K operand may
 be the packed K cache ``(B, T, kvH, dw)`` seen as ``(B, kvH, T, dw)``
@@ -21,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core import packing
+from repro_torch.core import marks, packing
 from repro_torch.kernels import build, ref
 
 __all__ = ["binary_attn_scores_planes", "plan"]
@@ -47,6 +50,7 @@ def plan(b: int, h: int, g: int, s: int, t: int) -> dict:
     return dict(rows=out[0], keys=out[1], grid=(out[2], out[3], out[4]))
 
 
+@marks.boundary(marks.KERNEL)
 def binary_attn_scores_planes(q_planes: torch.Tensor, k_planes: torch.Tensor, *, dh: int) -> torch.Tensor:
     """``out[b, h, s, t] = sum_w popcount(q[b, h, s, w] & k[b, h // (H/G), t,
     w])`` -> int32 ``(B, H, S, T)``, contiguous.
@@ -76,7 +80,7 @@ def binary_attn_scores_planes(q_planes: torch.Tensor, k_planes: torch.Tensor, *,
     dev = q_planes.device
     if k_planes.device != dev:
         raise ValueError(f"binary_attn_scores_planes: operands on {dev} and {k_planes.device}")
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return ref.binary_attn_scores_ref(q_planes, k_planes, dh)
     if dev.type != "cuda":
         raise ValueError(f"binary_attn_scores_planes: unsupported device {dev}")

@@ -5,6 +5,9 @@ replaces the Pallas TPU kernel ``repro/kernels/binary_qmm.py::binary_qmm``.
 For CUDA tensors it launches the kernel (or raises); for CPU tensors it
 runs the plain version ``ref.binary_qmm_ref``.  ``binary_qmm.launches``
 counts kernel launches and nothing else.
+On ``meta`` tensors (shape-only, the dry-run's) the plain version gives
+the output's shape and dtype.  The wrapper is a trusted kernel boundary
+of the invariant verifier (``core/marks.py``).
 
 The kernel multiplies on the int8 tensor cores (``mma.sync`` s8 x u8: the
 activations as they are, the weight bits spread to bytes in shared
@@ -21,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import packing
+from repro_torch.core import marks, packing
 from repro_torch.kernels import build, ref
 
 __all__ = ["binary_qmm", "plan"]
@@ -51,6 +54,7 @@ def plan(m: int, k: int, n: int, device: torch.device) -> tuple:
     return tuple(out)
 
 
+@marks.boundary(marks.KERNEL)
 def binary_qmm(
     a: torch.Tensor, w_packed: torch.Tensor, k: int, out: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
@@ -76,7 +80,7 @@ def binary_qmm(
                             or out.device != a.device or not out.is_contiguous()):
         raise ValueError(f"binary_qmm: out must be contiguous int32 ({m}, {n}) on {a.device}, "
                          f"got {out.dtype} {tuple(out.shape)} on {out.device}")
-    if a.device.type == "cpu":
+    if a.device.type in ("cpu", "meta"):
         return ref.binary_qmm_ref(a, w_packed, k, out)
     if a.device.type != "cuda":
         raise ValueError(f"binary_qmm: unsupported device {a.device}")

@@ -5,6 +5,9 @@ replaces the Pallas TPU kernel ``repro/kernels/bitserial_qmm.py::bitserial_qmm``
 For CUDA tensors it launches the kernel (or raises); for CPU tensors it
 runs the plain version ``ref.bitserial_qmm_ref``.  ``bitserial_qmm.launches``
 counts kernel launches and nothing else.
+On ``meta`` tensors (shape-only, the dry-run's) the plain version gives
+the output's shape and dtype.  The wrapper is a trusted kernel boundary
+of the invariant verifier (``core/marks.py``).
 
 The kernel rebuilds the unsigned mantissas as bytes in shared memory from
 ``cp.async``-staged bit-planes (``sum_ij 2**(i+j) A_i @ B_j`` is ``X @ W``)
@@ -18,6 +21,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import marks
 from repro_torch.kernels import build, ref
 
 __all__ = ["bitserial_qmm"]
@@ -35,6 +39,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@marks.boundary(marks.KERNEL)
 def bitserial_qmm(a_planes: torch.Tensor, b_planes: torch.Tensor) -> torch.Tensor:
     """``sum_ij 2**(i+j) popcount-MM(A_i, B_j)`` -> int32 ``(M, N)``.
 
@@ -57,7 +62,7 @@ def bitserial_qmm(a_planes: torch.Tensor, b_planes: torch.Tensor) -> torch.Tenso
     dev = a_planes.device
     if b_planes.device != dev:
         raise ValueError(f"bitserial_qmm: operands on {dev} and {b_planes.device}")
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return ref.bitserial_qmm_ref(a_planes, b_planes, 32 * kw)
     if dev.type != "cuda":
         raise ValueError(f"bitserial_qmm: unsupported device {dev}")

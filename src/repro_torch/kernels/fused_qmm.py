@@ -5,6 +5,9 @@ replaces the Pallas TPU kernel ``repro/kernels/fused_qmm.py::fused_qmm``.
 For CUDA tensors it launches the kernel (or raises); for CPU tensors it
 runs the plain version ``ref.fused_qmm_ref``.  ``fused_qmm.launches``
 counts kernel launches and nothing else.
+On ``meta`` tensors (shape-only, the dry-run's) the plain version gives
+the output's shape and dtype.  The wrapper is a trusted kernel boundary
+of the invariant verifier (``core/marks.py``).
 
 The kernel runs the integer core on the int8 tensor cores: it stages the
 plane words in shared memory with ``cp.async``, rebuilds the unsigned
@@ -24,7 +27,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core import packing
+from repro_torch.core import marks, packing
 from repro_torch.kernels import build, ref
 
 __all__ = ["fused_qmm"]
@@ -42,6 +45,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@marks.boundary(marks.KERNEL)
 def fused_qmm(
     a_planes: torch.Tensor,
     b_planes: torch.Tensor,
@@ -79,7 +83,7 @@ def fused_qmm(
     dev = a_planes.device
     if any(t.device != dev for t in tensors):
         raise ValueError("fused_qmm: operands on different devices")
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return ref.fused_qmm_ref(*tensors, k)
     if dev.type != "cuda":
         raise ValueError(f"fused_qmm: unsupported device {dev}")

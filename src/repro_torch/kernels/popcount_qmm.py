@@ -5,6 +5,9 @@ replaces the Pallas TPU kernel ``repro/kernels/popcount_qmm.py::popcount_qmm``.
 For CUDA tensors it launches the kernel (or raises); for CPU tensors it
 runs the plain version ``ref.popcount_qmm_ref``.  ``popcount_qmm.launches``
 counts kernel launches and nothing else.
+On ``meta`` tensors (shape-only, the dry-run's) the plain version gives
+the output's shape and dtype.  The wrapper is a trusted kernel boundary
+of the invariant verifier (``core/marks.py``).
 
 The kernel multiplies the packed words themselves on the binary tensor
 cores (``mma.sync`` m16n8k256 ``.b1 .and.popc``).  Its tile and its split
@@ -21,6 +24,7 @@ import functools
 
 import torch
 
+from repro_torch.core import marks
 from repro_torch.kernels import build, ref
 
 __all__ = ["popcount_qmm", "plan"]
@@ -51,6 +55,7 @@ def plan(m: int, k: int, n: int, device: torch.device) -> tuple:
     return tuple(out)
 
 
+@marks.boundary(marks.KERNEL)
 def popcount_qmm(a_packed: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
     """``out[m, n] = sum_w popcount(a_packed[m, w] & b_packed[w, n])`` -> int32.
 
@@ -71,7 +76,7 @@ def popcount_qmm(a_packed: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor
     dev = a_packed.device
     if b_packed.device != dev:
         raise ValueError(f"popcount_qmm: operands on {dev} and {b_packed.device}")
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return ref.popcount_qmm_ref(a_packed, b_packed, 32 * kw)
     if dev.type != "cuda":
         raise ValueError(f"popcount_qmm: unsupported device {dev}")

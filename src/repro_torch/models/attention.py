@@ -78,7 +78,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig, QuantConfig
-from repro_torch.core import backend_registry, packing
+from repro_torch.core import backend_registry, packing, site_log
 from repro_torch.core import flow_abstraction as FA
 from repro_torch.core import quantization as Q
 from repro_torch.core.constants import scalar
@@ -215,12 +215,13 @@ def _int_einsum(spec: str, a: torch.Tensor, b: torch.Tensor, k: int) -> torch.Te
     return out.to(torch.int32)
 
 
-def _scores_int(q, k_mantissa, k_scale, k_offset, attn_bits: int):
+def _scores_int(q, k_mantissa, k_scale, k_offset, attn_bits: int, backend: str = "auto"):
     """Integer QK^T, grouped over kv heads.
 
     q: (B,S,H,dh) float, quantized per row to ``attn_bits`` (at 1 bit the
     {0, 1} mantissa passes re-centering unchanged).  k_mantissa:
-    (B,T,kvH,dh) int8 re-centered cache mantissas.  Returns float32
+    (B,T,kvH,dh) int8 re-centered cache mantissas.  ``backend`` is the
+    site's configured name (the site log's record only).  Returns float32
     (B,H,S,T).
     """
     b, s, h, dh = q.shape
@@ -228,6 +229,9 @@ def _scores_int(q, k_mantissa, k_scale, k_offset, attn_bits: int):
     g = h // kvh
     qq = Q.quantize_activation(q.to(torch.float32), attn_bits, per_channel_axis=0)
     qr = Q.recenter(qq)
+    if site_log.is_recording():
+        site_log.record(kind="attn", site="attn.qk", bits=attn_bits,
+                        mantissa_dtype=site_log.dtype_name(qr.mantissa.dtype), backend=backend)
     x1 = qr.mantissa.reshape(b, s, kvh, g, dh)
     x2 = k_mantissa
     xy = _int_einsum("bskgd,btkd->bkgst", x1, x2, dh).to(torch.float32)
@@ -335,6 +339,9 @@ def _scores_binary(q, k_planes_t, k_scale, k_offset, dh: int, backend: str):
     b, s, h, _ = q.shape
     g = h // k_planes_t.shape[1]
     qq = _binarize_rows(q)
+    if site_log.is_recording():
+        site_log.record(kind="attn", site="attn.qk", bits=1,
+                        mantissa_dtype=site_log.dtype_name(qq.mantissa.dtype), backend=backend)
     q_planes = _pack_q_heads(qq.mantissa)  # (B,H,S,dw)
     counts = K_ops.binary_attn_scores(
         q_planes, k_planes_t, dh=dh, backend=_scores_core(backend)
@@ -357,6 +364,9 @@ def _scores_binary_latent(q_abs, ckv_m, ckv_scale, ckv_offset, backend: str):
     returns float32 (B,H,S,T)."""
     b, s, h, r = q_abs.shape
     qq = _binarize_rows(q_abs)
+    if site_log.is_recording():
+        site_log.record(kind="attn", site="attn.qk_latent", bits=1,
+                        mantissa_dtype=site_log.dtype_name(qq.mantissa.dtype), backend=backend)
     q_planes = _pack_q_heads(qq.mantissa)  # (B,H,S,rw)
     k_planes = packing.pack_bits(ckv_m >= 0, 1, axis=-1)[:, None]  # (B,1,T,rw)
     counts = K_ops.binary_attn_scores(
@@ -527,6 +537,7 @@ def attention(
     # bitwise scores where "attn.qk" names a scores-only backend (and the
     # cache, if any, holds packed K rows)
     qk_backend = _binary_scores_site(quant, "attn.qk")
+    qk_name = quant.backend_for("attn.qk")  # the site log's record
     use_binary = use_int and qk_backend is not None and (cache is None or _cache_binary(cache, dh))
     # a local layer's cache is a ring when it holds exactly the window
     windowed = cache is not None and kind == "l" and 0 < cfg.window_size == cache["k"].shape[1]
@@ -561,7 +572,7 @@ def attention(
         else:
             k_sc, k_off = _calibrate_rows(k)
             k_m = _quantize_to_cache(k, k_sc, k_off)
-            scores = _scores_int(q, k_m, k_sc, k_off, bits)
+            scores = _scores_int(q, k_m, k_sc, k_off, bits, qk_name)
         probs = _full_probs(scores, _mask(s, s, causal, window, x.device), dh, sdt)
         ctx = _pv_int(probs.to(torch.float32), v_m, v_sc, v_off)
         if cache is not None:
@@ -587,7 +598,7 @@ def attention(
             k_t = cache["k"].permute(0, 2, 1, 3)  # (B,kvH,T,dw), read in place
             scores = _scores_binary(q, k_t, k_sc, k_off, dh, qk_backend) / sqrt_dh
         elif use_int:
-            scores = _scores_int(q, cache["k"], k_sc, k_off, bits) / sqrt_dh
+            scores = _scores_int(q, cache["k"], k_sc, k_off, bits, qk_name) / sqrt_dh
         else:
             src_k, src_v = cache["k"], cache["v"]
             if quantized:
@@ -683,15 +694,19 @@ def _serving_dense(p: dict, k: int, quant: QuantConfig) -> torch.Tensor:
     return m * wq.scale.to(torch.float32) + wq.offset.to(torch.float32)
 
 
-def _scores_int_latent(q_abs, ckv_m, ckv_scale, ckv_offset, attn_bits: int):
+def _scores_int_latent(q_abs, ckv_m, ckv_scale, ckv_offset, attn_bits: int, backend: str = "auto"):
     """Absorbed scores as one act x act integer product against the
     head-shared latent cache, heads folded into M: ``(b, s*h, r) x (b, r,
-    t)``.  q_abs (B,S,H,R) float, quantized per row; returns float32
+    t)``.  q_abs (B,S,H,R) float, quantized per row; ``backend`` is the
+    site's configured name (the site log's record only); returns float32
     (B,H,S,T)."""
     b, s, h, r = q_abs.shape
     t = ckv_m.shape[1]
     qq = Q.quantize_activation(q_abs.to(torch.float32), attn_bits, per_channel_axis=0)
     qr = Q.recenter(qq)
+    if site_log.is_recording():
+        site_log.record(kind="attn", site="attn.qk_latent", bits=attn_bits,
+                        mantissa_dtype=site_log.dtype_name(qr.mantissa.dtype), backend=backend)
     x1 = qr.mantissa.reshape(b, s * h, r)
     x2 = ckv_m.transpose(-1, -2)  # (b, r, t)
     xy = FA.default_int_matmul(x1, x2, attn_bits, 8).to(torch.float32)
@@ -841,7 +856,8 @@ def mla_attention(
         if use_int and lat_backend is not None:
             scores_lat = _scores_binary_latent(q_abs, cache["ckv"], sc, off, lat_backend)
         elif use_int:
-            scores_lat = _scores_int_latent(q_abs, cache["ckv"], sc, off, quant.attn_act_bits)
+            scores_lat = _scores_int_latent(q_abs, cache["ckv"], sc, off, quant.attn_act_bits,
+                                            quant.backend_for("attn.qk_latent"))
         else:
             ckv_all = cache["ckv"]
             if quantized:

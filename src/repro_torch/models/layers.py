@@ -25,6 +25,7 @@ from repro_torch.core import flow_abstraction as FA
 from repro_torch.core.constants import scalar
 from repro_torch.core import qmm as QE
 from repro_torch.core import quantization as Q
+from repro_torch.core import site_log
 
 __all__ = [
     "init_linear",
@@ -112,6 +113,10 @@ def qlinear(
     )
     lead = x.shape[:-1]
     xq = Q.quantize_activation(x.to(torch.float32).reshape(-1, k), bits, per_channel_axis=0)
+    if site_log.is_recording():
+        site_log.record(kind="qlinear", site=name, bits=bits, cfg_bits=quant.act_bits,
+                        mantissa_dtype=site_log.dtype_name(xq.mantissa.dtype),
+                        backend=quant.backend_for(name))
     out = QE.qmm(xq, wq, backend=quant.backend_for(name), w_colsum=p.get("w_colsum"))
     return out.reshape(*lead, -1).to(x.dtype)
 

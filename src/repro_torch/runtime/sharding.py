@@ -66,6 +66,7 @@ __all__ = [
     "shard_slices",
     "coordinates",
     "local_shard",
+    "piece_coords",
     "gather_pieces",
     "distinct_pieces",
     "shard_tree",
@@ -392,21 +393,29 @@ def local_shard(t: torch.Tensor, spec: Spec, mesh, coords: Optional[dict] = None
     return t[shard_slices(spec, tuple(t.shape), mesh, coords)].contiguous()
 
 
+def piece_coords(mesh) -> list:
+    """The mesh coordinates of each rank's piece, in the order a gather over
+    each mesh axis of more than one rank in turn stacks them
+    (``gather_pieces``): the last axis gathered is the outermost.  Any mesh,
+    abstract or not."""
+    sizes = mesh_axes(mesh)
+    coords = [{}]
+    for a in (a for a, n in sizes.items() if n > 1):
+        coords = [dict(c, **{a: i}) for i in range(sizes[a]) for c in coords]
+    return [dict(dict.fromkeys(sizes, 0), **c) for c in coords]
+
+
 def gather_pieces(buf: torch.Tensor, mesh) -> Tuple[torch.Tensor, list]:
     """Every rank's 1-D ``buf`` (one length on all ranks): an all-gather
     over each mesh axis of more than one rank in turn.  Returns (pieces
     ``(ranks, length)``, the mesh coordinates of each piece)."""
     from repro_torch.runtime import collectives as C
 
-    sizes = mesh_axes(mesh)
-    axes = [a for a in mesh.mesh_dim_names if sizes[a] > 1]
-    for a in axes:
-        buf = C.all_gather(buf, mesh.get_group(a))
-    coords = [{}]
-    for a in axes:  # the last axis gathered is the outermost
-        coords = [dict(c, **{a: i}) for i in range(sizes[a]) for c in coords]
-    full = {a: 0 for a in mesh.mesh_dim_names}
-    return buf.reshape(len(coords), -1), [dict(full, **c) for c in coords]
+    for a, n in mesh_axes(mesh).items():
+        if n > 1:
+            buf = C.all_gather(buf, mesh.get_group(a))
+    coords = piece_coords(mesh)
+    return buf.reshape(len(coords), -1), coords
 
 
 def distinct_pieces(spec: Spec, coords: list) -> list:
@@ -458,10 +467,7 @@ def gather_tree_to(tree_, shardings, bucket: int = 1 << 26, device="cpu"):
     sizes = mesh_axes(mesh)
     axes = [a for a in mesh.mesh_dim_names if sizes[a] > 1]
     me = coordinates(mesh)
-    coords = [{}]
-    for a in axes:  # the order of gather_pieces
-        coords = [dict(c, **{a: i}) for i in range(sizes[a]) for c in coords]
-    coords = [dict({a: 0 for a in mesh.mesh_dim_names}, **c) for c in coords]
+    coords = piece_coords(mesh)
     first = all(v == 0 for v in me.values())
     out = [None] * len(leaves)
     for dtype in dict.fromkeys(t.dtype for t in leaves):

@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
@@ -62,6 +63,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import packing, tree
 from repro_torch.core import quantization as Q
 from repro_torch.core.constants import scalar
+from repro_torch.launch.mesh import mesh_axes
 from repro_torch.models import model_zoo as Z
 from repro_torch.optim import adamw, compression
 from repro_torch.runtime import collectives as C
@@ -75,6 +77,7 @@ __all__ = [
     "prebinarize_params",
     "make_train_step",
     "make_compressed_dp_step",
+    "mesh_step_refusal",
     "GATHERED",
 ]
 
@@ -173,23 +176,58 @@ class _TreePlan:
     alpha``), sliced into the data ranks' pieces and summed to each rank's
     own in one reduce-scatter over ``data``.  A few large collectives
     instead of one per leaf: under gloo each collective of a CUDA tensor
-    waits for the device and crosses the host."""
+    waits for the device and crosses the host.
+    ``traffic``: what one gather and scatter move for this rank, from the
+    specs alone; a plan over an abstract mesh of shape-only shards serves
+    the dry-run (``launch/dryrun.py``)."""
 
     def __init__(self, marks, mesh):
         self.mesh = mesh
-        self.sizes = {a: mesh.size(i) for i, a in enumerate(mesh.mesh_dim_names)}
-        self.coords = SH.coordinates(mesh)
+        self.sizes = mesh_axes(mesh)
+        self.order = SH.piece_coords(mesh)
         self.device = marks[0][0].device
         self.leaves = []
         for leaf, sh, is_qmm in marks:
             spec = tuple(sh.spec) + (None,) * (leaf.ndim - len(sh.spec))
             shape = tuple(s * SH.shard_count(e, mesh) for s, e in zip(leaf.shape, spec))
-            self.leaves.append(("qmm" if is_qmm else "float", spec, shape, tuple(leaf.shape)))
+            self.leaves.append(("qmm" if is_qmm else "float", spec, shape, tuple(leaf.shape),
+                                leaf.element_size()))
+
+    def traffic(self) -> dict:
+        """One gather and one scatter of this plan, for this rank: each
+        collective's result bytes and count by op (over the mesh axes of
+        more than one rank), and the bytes the gather brings in beyond the
+        rank's own shards by kind (``GATHERED``'s keys)."""
+        gathered = dict.fromkeys(GATHERED, 0)
+        buckets = [0, 0]  # bytes of the float32 bucket (shards, row sums) and of the sign words
+        scattered = 0
+        for kind, spec, shape, local, size in self.leaves:
+            others = len(SH.distinct_pieces(spec, self.order)) - 1
+            n = math.prod(local)
+            scattered += 4 * n  # float32 gradients
+            if kind == "float":
+                buckets[0] += size * n
+                gathered["latent"] += others * n * size
+                continue
+            n_words = math.prod(local[:-2] + (-(-local[-2] // 32), local[-1]))
+            buckets[0] += size * math.prod(local[:-2] + (1, local[-1]))
+            buckets[1] += 4 * n_words
+            gathered["packed"] += others * n_words * 4
+            gathered["latent_equiv"] += others * n * 4
+        ops = {"all-gather": {"bytes": 0, "count": 0}, "reduce-scatter": {"bytes": 0, "count": 0}}
+        for nbytes in (b for b in buckets if b):
+            for n in (n for n in self.sizes.values() if n > 1):
+                nbytes *= n
+                ops["all-gather"]["bytes"] += nbytes
+                ops["all-gather"]["count"] += 1
+        if self.sizes.get("data", 1) > 1:
+            ops["reduce-scatter"] = {"bytes": scattered, "count": 1}
+        return dict(ops, gathered=gathered)
 
     def gather(self, shards):
         dev = self.device
         floats, partials, words = [], [], []
-        for (kind, spec, shape, local), s in zip(self.leaves, shards):
+        for (kind, spec, shape, local, _), s in zip(self.leaves, shards):
             if kind == "qmm":
                 partials.append(Q._tree_sum_rows(s.abs()).reshape(-1))
                 words.append(packing.pack_bits((s >= 0).to(torch.int32), 1, axis=-2).reshape(-1))
@@ -199,7 +237,7 @@ class _TreePlan:
         wg = SH.gather_pieces(torch.cat(words), self.mesh)[0] if words else None
         outs, alphas = [], []
         fo, po, wo = 0, sum(x.numel() for x in floats), 0
-        for kind, spec, shape, local in self.leaves:
+        for kind, spec, shape, local, _ in self.leaves:
             pieces = SH.distinct_pieces(spec, order)
             if kind == "float":
                 n = math.prod(local)
@@ -236,16 +274,17 @@ class _TreePlan:
 
     def scatter(self, grads, alphas):
         n_data = self.sizes.get("data", 1)
+        coords = SH.coordinates(self.mesh)
         chunks = [[] for _ in range(n_data)]
-        for (kind, spec, shape, local), g, alpha in zip(self.leaves, grads, alphas):
+        for (kind, spec, shape, local, _), g, alpha in zip(self.leaves, grads, alphas):
             if g is None:
                 g = torch.zeros(shape, dtype=torch.float32, device=self.device)
             g = g.to(torch.float32) * alpha if kind == "qmm" else g  # STE through sign
             for d in range(n_data):
-                chunks[d].append(SH.local_shard(g, spec, self.mesh, dict(self.coords, data=d)).reshape(-1))
+                chunks[d].append(SH.local_shard(g, spec, self.mesh, dict(coords, data=d)).reshape(-1))
         mine = C.reduce_scatter(torch.cat([torch.cat(c) for c in chunks]), self.mesh.get_group("data"))
         out, o = [], 0
-        for kind, spec, shape, local in self.leaves:
+        for kind, spec, shape, local, _ in self.leaves:
             n = math.prod(local)
             out.append(mine[o:o + n].view(local))
             o += n
@@ -425,14 +464,28 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, device="cuda", mesh=None
     return step
 
 
+def mesh_step_refusal(cfg: ArchConfig, mesh) -> Optional[str]:
+    """Why the mesh step cannot train ``cfg`` over ``mesh`` (any mesh,
+    abstract or not), or None."""
+    sizes = mesh_axes(mesh)
+    if sizes.get("pod", 1) > 1:
+        return (f"the mesh step takes a (data, model) mesh: its fake-quant ranges and gradient "
+                f"reduce-scatter reduce over 'data' alone, so a 'pod' axis of {sizes['pod']} ranks "
+                "has no step")
+    n = math.prod(sizes[a] for a in SH.data_axes(mesh))
+    if n > 1 and _is_moe(cfg):
+        return (f"{cfg.name}: an MoE layer over {n} data ranks needs global routing (capacity "
+                "positions, the expert buffer and the balance loss over the global batch; ROADMAP "
+                "section 1, item 7.4b); make_compressed_dp_step trains it with each rank's routing local")
+    return None
+
+
 def _make_mesh_step(cfg: ArchConfig, tcfg: TrainConfig, device, mesh):
     accum = tcfg.accum_steps
+    reason = mesh_step_refusal(cfg, mesh)
+    if reason is not None:
+        raise NotImplementedError(reason)
     r, n = _data_index(mesh)
-    if n > 1 and _is_moe(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: an MoE layer over {n} data ranks needs global routing (capacity positions, "
-            "the expert buffer and the balance loss over the global batch; ROADMAP section 1, item "
-            "7.4b); make_compressed_dp_step trains it with each rank's routing local")
     p_sh, _ = train_shardings(cfg, mesh)
     group = mesh.get_group("data")
     ranges = _range_reduce(group)

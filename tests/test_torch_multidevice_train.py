@@ -244,6 +244,25 @@ def test_prebinarized_mesh_step_gathers_packed_words(ranks):
     assert plain["packed"] == 0 and plain["latent"] > 16 * g["packed"]
 
 
+def test_dryrun_plan_equals_the_live_gathers(ranks):
+    """The dry-run's account of a mesh step's gathers (``launch/dryrun.py``:
+    the step's plan over shape-only shards of an abstract mesh) equals what
+    the live 4-rank gathers counted, byte for byte, with and without the
+    packed gather; the plan's reduce-scatter carries each rank's float32
+    shards."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh
+
+    mesh = abstract_mesh((2, 2), ("data", "model"))
+    for got, quant in ((ranks[0]["prebinarized"], dict(prebinarize_gather=True)),
+                       (ranks[0][("granite-8b", (2, 2))], {})):
+        plan = dryrun.collective_bytes(_cfg("granite-8b", **quant), mesh)
+        assert plan["gathered"] == got["gathered"]
+        assert plan["all-gather"]["count"] == (4 if quant else 2)
+    shards = dryrun.argument_bytes(_cfg("granite-8b"), dryrun.SMOKE_SHAPE, mesh)["params"]
+    assert plan["reduce-scatter"] == {"bytes": shards, "count": 1}
+
+
 def test_compressed_dp_step_local_gradients_and_average(ranks):
     """Each rank's gradients, as ``compressed_psum`` receives them, are the
     single-device step's on its rows (local ranges), bit for bit; the
