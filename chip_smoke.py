@@ -156,8 +156,10 @@ Phases (each prints its own lines):
 12. bitwise attention.  [12a] the AND-popcount scores kernel
    ``binary_attn_scores_planes`` (``csrc/binary_attn.cu``) bitwise against
    its plain version at bit-bert-base's 128-token prefill and 4-slot decode
-   over 512 keys, a GQA decode, MLA's latent decode (dh 512, 2,048 keys)
-   and ragged dh / T, on the layouts the model hands it (Q a transposed
+   over 512 keys, a GQA decode, MLA's latent decode (dh 512, 2,048 keys),
+   ragged dh / T, bit-bert-base's 512-token and granite-8b's 1,024-token
+   prefills, a K operand with set bits past dh and MLA's latent decode
+   over 32,768 rows, on the layouts the model hands it (Q a transposed
    view, K the packed cache permuted), timed as phase 2 with its plan,
    bound and ``torch.bmm`` in float32 on the planes unpacked beforehand.
    [12b] bit-bert-base W1A1 at full width with ``attn.qk -> binary`` and
@@ -1998,16 +2000,25 @@ def serve_whisper(Z, model_cfg, device, ServeEngine, make_decode_step, make_pref
 # with attn.qk -> binary, and measured dispatch
 # ---------------------------------------------------------------------------
 
-# (tag, (B, H, S), (B, G, T), dh): bit-bert-base's 128-token prefill and
-# its 4-slot decode over max_len 512, a GQA decode (32 query heads over 8
-# kv heads of 128), MLA's latent decode (16 heads over the kv_lora 512
-# latent, 2,048 rows), and ragged dh and T.  The first is the headline row.
+# (tag, (B, H, S), (B, G, T), dh, dirty K tail): bit-bert-base's 128-token
+# prefill and its 4-slot decode over max_len 512, a GQA decode (32 query
+# heads over 8 kv heads of 128), MLA's latent decode (16 heads over the
+# kv_lora 512 latent, 2,048 rows), ragged dh and T, bit-bert-base's longest
+# prompt (512 tokens), granite-8b's head layout at a 1,024-token prefill,
+# a K operand whose last word carries set bits past dh, which Q's zero tail
+# must mask, and MLA's latent decode over 32,768 rows (its blocks walk 4
+# key tiles through the kernel's 3-stage ring).  The first is the headline
+# row.
 BINARY_ATTN_CASES = [
-    ("bit-bert prefill", (1, 12, 128), (1, 12, 128), 64),
-    ("bit-bert decode", (4, 12, 1), (4, 12, 512), 64),
-    ("GQA decode", (4, 32, 1), (4, 8, 512), 128),
-    ("MLA latent decode", (4, 16, 1), (4, 1, 2048), 512),
-    ("ragged", (2, 6, 5), (2, 3, 333), 100),
+    ("bit-bert prefill", (1, 12, 128), (1, 12, 128), 64, False),
+    ("bit-bert decode", (4, 12, 1), (4, 12, 512), 64, False),
+    ("GQA decode", (4, 32, 1), (4, 8, 512), 128, False),
+    ("MLA latent decode", (4, 16, 1), (4, 1, 2048), 512, False),
+    ("ragged", (2, 6, 5), (2, 3, 333), 100, False),
+    ("bit-bert prefill 512", (1, 12, 512), (1, 12, 512), 64, False),
+    ("GQA prefill 1024", (1, 32, 1024), (1, 8, 1024), 128, False),
+    ("dirty K tail", (2, 8, 9), (2, 2, 300), 100, True),
+    ("MLA latent decode 32k", (4, 16, 1), (4, 1, 32768), 512, False),
 ]
 BINARY_ATTN_LAYERS = 12  # bit-bert-base: one scores launch a layer
 AUTOTUNE_REQUESTS = 4
@@ -2027,15 +2038,19 @@ def check_binary_attn(gen: torch.Generator) -> list:
 
     dev = gen.device
     rows = []
-    for tag, (b, h, s), (_, g, t), dh in BINARY_ATTN_CASES:
+    for tag, (b, h, s), (_, g, t), dh, dirty in BINARY_ATTN_CASES:
         dw = packing.packed_len(dh, 1)
 
-        def planes(shape):
+        def planes(shape, tail=False):
             bits = torch.randint(0, 2, shape + (dh,), generator=gen, device=dev, dtype=torch.int8)
-            return packing.pack_bits(bits, 1, axis=-1)
+            words = packing.pack_bits(bits, 1, axis=-1)
+            if tail and dh % 32:  # set bits past dh in the last word
+                junk = torch.randint(-2**31, 2**31, shape, generator=gen, device=dev, dtype=torch.int32)
+                words[..., -1] |= junk & -(1 << (dh % 32))
+            return words
 
         q = planes((b, s, h)).transpose(1, 2)
-        ks = [planes((b, t, g)).permute(0, 2, 1, 3) for _ in range(_copies(4 * b * g * t * dw))]
+        ks = [planes((b, t, g), dirty).permute(0, 2, 1, 3) for _ in range(_copies(4 * b * g * t * dw))]
         got, want = kernel(q, ks[0], dh=dh), ref.binary_attn_scores_ref(q, ks[0], dh)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
@@ -2049,7 +2064,7 @@ def check_binary_attn(gen: torch.Generator) -> list:
         nb, bb = bound(4 * (b * h * s * dw + b * g * t * dw) + 4 * n_out, 2 * n_out * dh, PEAK_B1_OPS_PER_S)
         calls = [lambda k=k: kernel(q, k, dh=dh) for k in ks]
         rows.append(dict(
-            case=tag, shape=[[b, h, s, dw], [b, g, t, dw]], dh=dh, plan=plan(b, h, g, s, t),
+            case=tag, shape=[[b, h, s, dw], [b, g, t, dw]], dh=dh, plan=plan(b, h, g, s, t, dw),
             max_abs_err=int((got - want).abs().max()),
             ms=device_ms(calls, 20 * len(calls)), eager_ms=time_ms(calls, 20 * len(calls)),
             plain_ms=time_ms([lambda: ref.binary_attn_scores_ref(q, ks[0], dh)], 3),
@@ -2058,9 +2073,8 @@ def check_binary_attn(gen: torch.Generator) -> list:
             library_ms=device_ms([lambda: torch.bmm(qf, kf)], 20),
         ))
         r = rows[-1]
-        log(f"  binary_attn   {tag:18s} q {tuple(q.shape)} k {tuple(ks[0].shape)} dh {dh}: plan "
-            f"{r['plan']['rows']} rows x {r['plan']['keys']} keys a block, grid {r['plan']['grid']}; "
-            f"equal ms={r['ms']:.4f} eager_ms={r['eager_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+        log(f"  binary_attn   {tag:20s} q {tuple(q.shape)} k {tuple(ks[0].shape)} dh {dh}: plan "
+            f"{r['plan']}; equal ms={r['ms']:.4f} eager_ms={r['eager_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
             f"({bb}) plain_ms={r['plain_ms']:.3f} library_ms={r['library_ms']:.4f} [{r['library']}]")
         del ks
     torch.cuda.empty_cache()

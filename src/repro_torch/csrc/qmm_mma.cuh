@@ -1,5 +1,6 @@
 // The tensor-core QMM mainloop's device helpers, shared by K1
-// binary_qmm.cu, K3 popcount_qmm.cu and K4 bitserial_qmm.cu.  The int8
+// binary_qmm.cu, K3 popcount_qmm.cu, K4 bitserial_qmm.cu and the scores
+// kernel binary_attn.cu.  The int8
 // design is K2 fused_qmm.cu's, which keeps its own copies of the staging and
 // expansion helpers:
 //  * cp.async copies of packed words (or int8 bytes) into shared memory,
@@ -9,7 +10,8 @@
 //    (a row per output row or column, rows padded by 16 bytes so ldmatrix
 //    and the stores hit every bank);
 //  * ldmatrix fragments multiplied by mma.sync m16n8k32 into int32.
-// K3 multiplies the packed words themselves (mma_b1: AND, then popcount).
+// K3 and the scores kernel multiply the packed words themselves (mma_b1:
+// AND, then popcount).
 #pragma once
 
 #include <cstdint>

@@ -520,32 +520,86 @@ def test_recurrent_engine_on_card_equals_serve_sequential(dev, name):
 # ---- bitwise attention: the scores kernel and the binary-attention path
 
 # ((B, H, S), (B, G, T), dh): bit-bert-base's prefill and 4-slot decode, a
-# GQA decode, MLA's latent decode, ragged dh / T / S, and the row-block
-# classes (1, 4, 16, 64 folded rows; more rows than one block holds)
+# GQA decode, MLA's latent decode, ragged dh / T / S, folded rows and keys
+# at the ends of a tile, bit-bert-base's 512-token and granite-8b's
+# 1,024-token prefills, a 512-token GQA prefill, long decodes whose blocks
+# walk 4 key tiles through a 3-stage ring (MLA's latent over 32,768 rows;
+# 8,292 keys, the last group one tile); T one under and one over a key tile
+# of 32 / 128, 15 / 16 / 17 folded rows, dw 9 (dh 288: one k-step and one
+# word)
 BINARY_ATTN_SHAPES = [
     ((1, 12, 128), (1, 12, 128), 64), ((4, 12, 1), (4, 12, 512), 64),
     ((4, 32, 1), (4, 8, 512), 128), ((4, 16, 1), (4, 1, 2048), 512),
     ((2, 6, 5), (2, 3, 333), 100), ((3, 4, 3), (3, 1, 129), 33),
     ((1, 2, 70), (1, 1, 1), 2048), ((2, 1, 1), (2, 1, 127), 32),
+    ((1, 12, 512), (1, 12, 512), 64), ((1, 32, 1024), (1, 8, 1024), 128),
+    ((1, 32, 512), (1, 8, 512), 128), ((4, 16, 1), (4, 1, 32768), 512), ((4, 12, 1), (4, 12, 8292), 64),
+    ((1, 4, 2), (1, 1, 31), 64), ((1, 4, 2), (1, 1, 33), 64),
+    ((2, 8, 8), (2, 1, 127), 64), ((2, 8, 8), (2, 1, 129), 64),
+    ((3, 5, 3), (3, 1, 200), 128), ((2, 4, 4), (2, 1, 200), 128), ((1, 17, 1), (1, 1, 200), 128),
+    ((2, 4, 3), (2, 2, 65), 288),
 ]
+
+
+def _attn_planes(dev, q_shape, k_shape, dh, dirty=False):
+    """Q a transposed view of ``(B, S, H, dw)`` words, K the packed cache
+    ``(B, T, G, dw)`` permuted -- the model's layouts, neither contiguous;
+    with ``dirty`` K's last word carries set bits past dh."""
+    g = torch.Generator(device=dev).manual_seed(sum(q_shape) + sum(k_shape) + dh)
+    (b, h, s), (_, kvh, t) = q_shape, k_shape
+    q = packing.pack_bits(torch.randint(0, 2, (b, s, h, dh), generator=g, device=dev), 1).transpose(1, 2)
+    k = packing.pack_bits(torch.randint(0, 2, (b, t, kvh, dh), generator=g, device=dev), 1)
+    if dirty:
+        junk = torch.randint(-2**31, 2**31, k.shape[:-1], generator=g, device=dev, dtype=torch.int32)
+        k[..., -1] |= junk & -(1 << (dh % 32))
+        assert bool((k[..., -1] & -(1 << (dh % 32))).any())
+    return q, k.permute(0, 2, 1, 3)
 
 
 @pytest.mark.parametrize("q_shape,k_shape,dh", BINARY_ATTN_SHAPES)
 def test_binary_attn_equals_plain(dev, q_shape, k_shape, dh):
-    """The kernel on the model's layouts -- Q a transposed view, K the
-    packed cache ``(B, T, G, dw)`` permuted, neither contiguous -- equals
-    its plain version bit for bit."""
+    """The kernel on the model's layouts equals its plain version bit for
+    bit, on the card and on the CPU."""
     from repro_torch.kernels import binary_attn as K5
 
-    g = torch.Generator(device=dev).manual_seed(sum(q_shape) + dh)
-    (b, h, s), (_, kvh, t) = q_shape, k_shape
-    q = packing.pack_bits(torch.randint(0, 2, (b, s, h, dh), generator=g, device=dev), 1).transpose(1, 2)
-    k = packing.pack_bits(torch.randint(0, 2, (b, t, kvh, dh), generator=g, device=dev), 1).permute(0, 2, 1, 3)
+    q, k = _attn_planes(dev, q_shape, k_shape, dh)
     before = K5.binary_attn_scores_planes.launches
     got = K5.binary_attn_scores_planes(q, k, dh=dh)
     assert K5.binary_attn_scores_planes.launches == before + 1
     assert torch.equal(got, ref.binary_attn_scores_ref(q, k, dh))
     assert torch.equal(got.cpu(), ref.binary_attn_scores_ref(q.cpu(), k.cpu(), dh))
+
+
+@pytest.mark.parametrize("q_shape,k_shape,dh", [((2, 8, 9), (2, 2, 300), 100), ((1, 4, 3), (1, 4, 70), 33),
+                                                ((1, 32, 64), (1, 8, 700), 200)])
+def test_binary_attn_masks_a_dirty_k_tail(dev, q_shape, k_shape, dh):
+    """Set bits past dh in K's last word: Q's zero tail masks them."""
+    from repro_torch.kernels import binary_attn as K5
+
+    q, k = _attn_planes(dev, q_shape, k_shape, dh, dirty=True)
+    got = K5.binary_attn_scores_planes(q, k, dh=dh)
+    assert torch.equal(got, ref.binary_attn_scores_ref(q, k, dh))
+    clean = k & torch.where(torch.arange(k.shape[-1], device=dev) == k.shape[-1] - 1,
+                            (1 << (dh % 32)) - 1, -1).to(torch.int32)
+    assert torch.equal(got, ref.binary_attn_scores_ref(q, clean, dh))
+
+
+@pytest.mark.parametrize("per", [1, 2, 5])
+@pytest.mark.parametrize("stages", [1, 2, 3])
+@pytest.mark.parametrize("rows,keys", [(r, k) for r in (64, 32, 16, 8) for k in (128, 64, 32)])
+def test_binary_attn_every_tile_and_ring_equals_plain(dev, monkeypatch, rows, keys, stages, per):
+    """Every tile the kernel is built for, each block walking 1, 2 or 5 key
+    tiles (the last block fewer) through a ring of 1-3 K tiles, at ragged
+    rows, keys and words."""
+    from repro_torch.kernels import binary_attn as K5
+
+    q, k = _attn_planes(dev, (2, 6, 23), (2, 3, 301), 100)
+    monkeypatch.setattr(K5, "plan", lambda *a: dict(rows=rows, keys=keys, tiles_per_block=per, stages=stages))
+    if stages == 1 and per > 1:
+        with pytest.raises(RuntimeError, match="cudaError"):  # a ring needs 2 stages
+            K5.binary_attn_scores_planes(q, k, dh=100)
+        return
+    assert torch.equal(K5.binary_attn_scores_planes(q, k, dh=100), ref.binary_attn_scores_ref(q, k, 100))
 
 
 def _binary_attn_cfg(name, site="attn.qk", backend="pallas"):
