@@ -273,7 +273,23 @@ Phases (each prints its own lines):
    rank over NCCL: the mesh step bit for bit the step without a process
    group.  [18e] [18a]'s checkpoint packed and one 128-token ``Z.prefill``
    at W1A1 through K3 (72 launches, K3's ``multidevice`` entry), bitwise
-   to K3's plain version.
+   to K3's plain version.  [18f] deepseek-v2-lite-16b at full width on 3
+   of its 27 layers (``MD_MOE``: the dense prefix and two MoE layers),
+   W1A8 with ``prebinarize_gather``, 2 steps of 4 x 512 in the two ranks,
+   each MoE layer routing the global microbatch (capacity 240 an expert):
+   against a 1-rank prebinarized run of the same steps taken after the
+   ranks have freed the card, the first step's loss and aux within
+   ``MD_STEP_LOSS_RTOL``, the second's within ``MD_LOSS_RTOL``; the live
+   routes that differ from the 1-rank run's counted, each at a top-k
+   margin within twice its scores' gap between the runs; given the 1-rank
+   run's MoE inputs and router logits, outside the step, the ranks'
+   global dispatch (routes, ``keep``, ``dest`` and the expert buffer)
+   equal to the 1-rank dispatch bit for bit, beside the share of routes
+   local routing (capacity 120) would keep otherwise; the routing
+   collectives' bytes a step equal to the dry-run plan's.  The trained
+   latents gathered to rank 0 and packed there; a 128-token prefill and 4
+   decode steps through K1 (K1's ``multidevice`` entry: 64 experts x 3
+   sites a MoE layer plus the other sites), bitwise to K1's plain version.
 19. the static-analysis and dry-run modules on the card.  [19a] the
    invariant verifier (``analysis/verifier.py``) over every QMM backend
    at W1A8 / W1A1 / A8xA8 with CUDA operands, at (8, 64, 16) and at
@@ -322,6 +338,7 @@ Phases (each prints its own lines):
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -2958,14 +2975,14 @@ def _train_run(Z, TL, adamw, cfg, device, batch: int, seq: int, steps: int, stre
 
 
 def _serve_trained(Z, cfg, params, device, ops, ref, kernels, per_prefill: int, per_decode: int, tag: str,
-                   tokens: np.ndarray):
-    """Pack trained latents and serve a prefill of ``tokens`` and
-    SERVE15_STEPS greedy decode steps on ``pallas``: K1's launches against
-    the forward's sites, and logits and every cache leaf bitwise to the same
-    run with K1 swapped for its plain version.  Returns (K1's launches, the
-    serving params)."""
+                   tokens: np.ndarray, served=None, phase: str = "15d"):
+    """Pack trained latents (or take ``served``, packed already) and serve
+    a prefill of ``tokens`` and SERVE15_STEPS greedy decode steps on
+    ``pallas``: K1's launches against the forward's sites, and logits and
+    every cache leaf bitwise to the same run with K1 swapped for its plain
+    version.  Returns (K1's launches, the serving params)."""
     scfg = with_backend(cfg, "pallas")
-    served = Z.prepare_serving_params(params, scfg)
+    served = Z.prepare_serving_params(params, scfg) if served is None else served
     prompt = torch.as_tensor(tokens, device=device)
 
     def run():
@@ -2984,14 +3001,14 @@ def _serve_trained(Z, cfg, params, device, ops, ref, kernels, per_prefill: int, 
     launched = _counts(kernels)
     want = per_prefill + SERVE15_STEPS * per_decode
     if launched != [want, 0, 0, 0]:
-        raise AssertionError(f"[15d] {tag}: K1-K4 launches {launched}; expected K1 = {want}")
+        raise AssertionError(f"[{phase}] {tag}: K1-K4 launches {launched}; expected K1 = {want}")
     with mock.patch.object(ops._bq, "binary_qmm", ref.binary_qmm_ref):
         plain, plain_cache = run()
     if not all(torch.equal(a, b) for a, b in zip(got, plain)) or not Z.caches_equal(cache, plain_cache):
-        raise AssertionError(f"[15d] {tag}: logits or cache differ with K1 swapped for its plain version")
+        raise AssertionError(f"[{phase}] {tag}: logits or cache differ with K1 swapped for its plain version")
     if not all(bool(torch.isfinite(x).all()) and x.shape == (1, cfg.vocab_size) for x in got):
-        raise AssertionError(f"[15d] {tag}: served logits not finite or of the wrong shape")
-    log(f"[15d] {tag} trained latents packed (prepare_serving_params, pallas) and served: a "
+        raise AssertionError(f"[{phase}] {tag}: served logits not finite or of the wrong shape")
+    log(f"[{phase}] {tag} trained latents packed (prepare_serving_params, pallas) and served: a "
         f"{prompt.shape[1]}-token Z.prefill and {SERVE15_STEPS} decode steps, binary_qmm launches {want} = "
         f"{per_prefill} + {SERVE15_STEPS} x {per_decode}; logits and every cache leaf bitwise equal with "
         f"binary_qmm swapped for binary_qmm_ref; greedy tokens " + str([int(x.argmax()) for x in got]))
@@ -3696,7 +3713,23 @@ def measure_modules(Z, bert_cfg, device, ops, ref, kernels, smi, make_prefill) -
 MD_BATCH, MD_SEQ, MD_STEPS = 32, 128, 5  # [18a] / [18c]: bit-bert-base, 2 ranks, mesh 2x1
 MD_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=MD_STEPS)
 MD_GRANITE = (4, 4, 512, 2)  # [18b]: granite-8b layers, batch, seq, steps (prebinarize_gather)
-MD_RANKS_TIMEOUT_S = 300
+# [18f]: deepseek-v2-lite-16b at full width over the two ranks: layers,
+# global batch, seq, steps.  3 layers (the "Md" prefix and 2 "Mm") are
+# ~1.67 B latents: 52 GB on one card with AdamW ([15a]); a rank holds half
+# the latents and moments, the gathered tree and the whole gradients
+# before their reduce-scatter.  4 x 512 tokens: 2 x 512 a rank, capacity
+# 240 an expert over the global microbatch (120 over a rank's own rows).
+MD_MOE = (3, 4, 512, 2)
+MD_MOE_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=MD_MOE[3])
+MD_RANKS_TIMEOUT_S = 600
+MD_MOE_WAIT_S = 300  # a rank's wait for the parent's 1-rank run
+# [18f]: a live route may differ from the 1-rank run's only where that
+# run's top-k margin is within twice the token's largest score gap between
+# the runs (a near-tie the forward's rounding flips: the packed gather adds
+# alpha's partial sums in another order, cuBLAS may pick another algorithm
+# for 1,024 rows than for 2,048), and on fewer than MD_ROUTE_FLIP_SHARE of
+# the routes (ROADMAP section 3)
+MD_ROUTE_FLIP_SHARE = 1e-2
 # Stated bounds (ROADMAP section 3).  At W1A1 a trajectory is chaotic:
 # Adam's early steps move each latent by about lr whatever its gradient's
 # size, so a gradient that differs in its last bits can move an element the
@@ -3749,8 +3782,8 @@ def _mu_gap(got, want) -> float:
 
 
 def _md_rank(rank: int, world: int, tmp: str, plan: dict) -> None:
-    """One rank of phase 18: [18a], [18b] and [18c] over a 2x1 mesh (gloo,
-    both ranks on the one card), its numbers saved to ``tmp``."""
+    """One rank of phase 18: [18a], [18b], [18c] and [18f] over a 2x1 mesh
+    (gloo, both ranks on the one card), its numbers saved to ``tmp``."""
     import torch.distributed as dist
 
     from repro_torch.checkpoint import CheckpointManager
@@ -3961,9 +3994,187 @@ def _md_rank(rank: int, world: int, tmp: str, plan: dict) -> None:
         out["c"] = dict(steps=rows, payload=compression.payload_bytes(params), n_leaves=len(torch_leaves(params)),
                         n=sum(x.numel() for x in torch_leaves(params)), **finish(t0))
         del params, opt, err
+
+        # [18f] deepseek-v2-lite-16b, its MoE layers routing the global microbatch
+        out["f"] = _md_moe_rank(rank, n, Path(tmp), plan, device, mesh, group, start, finish, sync)
     finally:
         torch.save(out, f"{tmp}/rank{rank}.pt")
         dist.destroy_process_group()
+
+
+def _wait_for(paths, procs, seconds: float) -> None:
+    """Wait until every file of ``paths`` exists; raise if ``seconds`` pass
+    or one of ``procs`` (the ranks, when the parent waits) exits first."""
+    end = time.perf_counter() + seconds
+    while not all(Path(x).exists() for x in paths):
+        if procs is not None and any(not p.is_alive() for p in procs):
+            raise AssertionError(f"[18f] a rank exited before {[str(x) for x in paths]}: "
+                                 f"{[p.exitcode for p in procs]}")
+        if time.perf_counter() > end:
+            raise AssertionError(f"[18f] waited {seconds:.0f} s for {[str(x) for x in paths]}")
+        time.sleep(0.2)
+
+
+def _first_moe_calls(M, seen: list, n_calls: int):
+    """Patches that record the first ``n_calls`` MoE layers' router logits
+    and experts (``_route``) and their rows (``_place``'s ``xf``): the
+    forward's layers, before remat's recompute calls them again."""
+    route, place = M._route, M._place
+
+    def spy_route(logits, *a, **k):
+        out = route(logits, *a, **k)
+        if len(seen) < n_calls:
+            seen.append({"logits": logits.detach().clone(), "experts": out[1].detach().clone()})
+        return out
+
+    def spy_place(xf, *a, **k):
+        if len(seen) <= n_calls and "xf" not in seen[-1]:
+            seen[-1]["xf"] = xf.detach().clone()
+        return place(xf, *a, **k)
+
+    return mock.patch.object(M, "_route", spy_route), mock.patch.object(M, "_place", spy_place)
+
+
+def _dispatch_given(M, e, x, logits, rank: int, n: int, routing) -> dict:
+    """[18f]'s dispatch check, outside the step: rank ``rank`` of ``n``
+    routes its rows of the 1-rank run's MoE input ``x`` by their router
+    ``logits`` over the data ranks (``routing``); its routes, ``keep``,
+    ``dest`` and the expert buffer against the 1-rank dispatch of the whole
+    of them; and how many of its routes local routing (its own rows'
+    capacity) would keep otherwise."""
+    t = x.shape[0] // n
+    mine = slice(rank * t, (rank + 1) * t)
+    with torch.no_grad():
+        _, whole = M._route(logits, e, e.top_k)
+        cap_1, want, want_buf, _ = M._place(x, whole, e, None, True)
+        _, experts = M._route(logits[mine], e, e.top_k)
+        cap, got, buf, _ = M._place(x[mine], experts, e, routing, True)
+        cap_local, local, _, _ = M._place(x[mine], experts, e, None, True)
+    sel = want[1] // t == rank
+    exact = (cap == cap_1 and torch.equal(experts, whole[mine]) and torch.equal(got[1] + rank * t, want[1][sel])
+             and torch.equal(got[2], want[2][sel]) and torch.equal(got[3], want[3][sel])
+             and torch.equal(buf[:-1], want_buf[:-1]))
+    return dict(exact=bool(exact), capacity=cap, local_capacity=cap_local, routes=int(got[2].numel()),
+                dropped=int((~got[2]).sum()), dropped_local=int((~local[2]).sum()),
+                keep_differs_local=int((got[2] != local[2]).sum()))
+
+
+def _md_moe_rank(rank: int, n: int, tmp: Path, plan: dict, device, mesh, group, start, finish, sync) -> dict:
+    """[18f] in one rank: deepseek-v2-lite-16b over the 2x1 mesh for
+    ``plan["moe_run"]``'s steps, each MoE layer routing the global
+    microbatch; the first step's forward routes recorded, each step's
+    routing traffic.  The trained latents are gathered to rank 0, packed
+    there for serving and written for the parent (``f_served.pt``); the
+    card freed, each rank marks ``f_trained{rank}`` and waits for the
+    parent's 1-rank run's MoE inputs and router logits (``f_logits.pt``),
+    on which it runs the global dispatch outside the step."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.models import moe as M
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as SH
+    from repro_torch.runtime import train_loop as TL
+
+    cfg = plan["deepseek"]
+    batch, seq, steps = plan["moe_run"]
+    n_moe = sum(k == "Mm" for k in cfg.layer_kinds)
+    t0 = start()
+    params, opt = TL.init_train_state(0, cfg, device=device, mesh=mesh)
+    step = TL.make_train_step(cfg, TL.TrainConfig(optimizer=adamw.AdamWConfig(**plan["moe_opt"])),
+                              device=device, mesh=mesh)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0))
+    rows, first = [], []
+    for i in range(steps):
+        b = pipe.next()
+        M.clear_routing_traffic()
+        sync()
+        t = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            for patch in (_first_moe_calls(M, first, n_moe) if i == 0 else ()):
+                stack.enter_context(patch)
+            params, opt, met = step(params, opt, b)
+        sync()
+        rows.append(dict(loss=float(met["loss"]), aux=float(met["aux"]), ms=(time.perf_counter() - t) * 1e3,
+                         routing={k: dict(v) for k, v in M.ROUTING.items()}))
+    part = finish(t0)
+    t = time.perf_counter()
+    p_sh, _ = TL.train_shardings(cfg, mesh)
+    full = SH.gather_tree_to(params, p_sh, device=device)
+    del params, opt, step
+    if rank == 0:
+        served = Z.prepare_serving_params(full, with_backend(plan["deepseek_serve"], "pallas"))
+        torch.save(served, tmp / "f_served.part")
+        os.replace(tmp / "f_served.part", tmp / "f_served.pt")
+        del served
+    del full
+    sync()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    pack_s = time.perf_counter() - t
+    (tmp / f"f_trained{rank}").touch()
+    _wait_for([tmp / "f_logits.pt"], None, MD_MOE_WAIT_S)
+    given = torch.load(tmp / "f_logits.pt", weights_only=False)
+    routing = TL._routing(group, rank, n)
+    checks = [_dispatch_given(M, cfg.moe, x.to(device), lg.to(device), rank, n, routing) for x, lg in given]
+    return dict(steps=rows, first=[{k: v.cpu() for k, v in f.items() if k != "xf"} for f in first],
+                checks=checks, pack_s=pack_s, **part)
+
+
+def _moe_yardstick(TL, adamw, M, cfg, device, run: tuple, opt: dict) -> dict:
+    """[18f]'s 1-rank prebinarized run of the ranks' steps (same seed and
+    batches), its first step's MoE layers recorded (rows, router logits,
+    routes)."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+
+    batch, seq, steps = run
+    n_moe = sum(k == "Mm" for k in cfg.layer_kinds)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, state = TL.init_train_state(0, cfg, device=device)
+    step = TL.make_train_step(cfg, TL.TrainConfig(optimizer=adamw.AdamWConfig(**opt)), device=device)
+    pipe = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0))
+    losses, auxes, ms, first = [], [], [], []
+    for i in range(steps):
+        b = pipe.next()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            for patch in (_first_moe_calls(M, first, n_moe) if i == 0 else ()):
+                stack.enter_context(patch)
+            params, state, met = step(params, state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(met["loss"]))
+        auxes.append(float(met["aux"]))
+    peak = torch.cuda.max_memory_allocated()
+    del params, state, step
+    torch.cuda.empty_cache()
+    return dict(losses=losses, auxes=auxes, ms=ms, first=first, peak=peak, s=time.perf_counter() - t0)
+
+
+def _route_flips(L, e, want: dict, got: dict, rows: slice) -> dict:
+    """The live routes of a rank (``got``: its rows' router logits and
+    experts) against the 1-rank run's (``want``, whole): routes in one set
+    and not the other, each differing token's top-k margin in the 1-rank
+    run's scores and its scores' largest gap between the runs."""
+    def scores(logits):
+        if e.router_scoring == "sigmoid":
+            return 1.0 / (1.0 + torch.exp(-logits))
+        return L.softmax(logits)
+
+    w_logits, w_experts = want["logits"][rows].float().cpu(), want["experts"][rows].cpu()
+    g_logits, g_experts = got["logits"].float().cpu(), got["experts"].cpu()
+    sets = [torch.zeros((x.shape[0], e.n_routed), dtype=torch.bool).scatter_(1, x, True) for x in (w_experts, g_experts)]
+    differs = (sets[0] != sets[1]).any(dim=-1)
+    s_want, s_got = scores(w_logits), scores(g_logits)
+    top = s_want.sort(dim=-1, descending=True).values
+    margin = top[:, e.top_k - 1] - top[:, e.top_k]
+    gap = (s_got - s_want).abs().max(dim=-1).values
+    return dict(routes=int(w_experts.numel()), moved=int((sets[0] & ~sets[1]).sum()), tokens=int(differs.sum()),
+                margins=[float(x) for x in margin[differs]], gaps=[float(x) for x in gap[differs]],
+                explained=bool((margin[differs] <= 2 * gap[differs]).all()), score_gap=float(gap.max()),
+                logits_gap=float((g_logits - w_logits).abs().max()), logits_scale=float(w_logits.abs().max()))
 
 
 def torch_leaves(tree):
@@ -3972,16 +4183,21 @@ def torch_leaves(tree):
     return leaves(tree)
 
 
-def train_multidevice(Z, bert_cfg, granite_cfg, device, ops, ref, kernels, smi, workdir: Path) -> dict:
-    """Phase 18.  Returns K3's ``multidevice`` entry (its launches in
-    [18e]'s ``Z.prefill`` of the 2-rank-trained model) and the phase's
-    numbers, with [18b]'s granite-8b ``layers``."""
+def train_multidevice(Z, bert_cfg, granite_cfg, deepseek_cfg, device, ops, ref, kernels, smi,
+                      workdir: Path) -> dict:
+    """Phase 18.  Returns K3's and K1's ``multidevice`` entries (their
+    launches in [18e]'s and [18f]'s serving of the 2-rank-trained models)
+    and the phase's numbers, with [18b]'s granite-8b ``layers``."""
     import torch.distributed as dist
     import torch.multiprocessing as mp
 
     from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import InputShape
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
-    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh, make_host_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
     from repro_torch.optim import adamw
     from repro_torch.runtime import train_loop as TL
 
@@ -3991,194 +4207,287 @@ def train_multidevice(Z, bert_cfg, granite_cfg, device, ops, ref, kernels, smi, 
     gcfg = dataclasses.replace(granite_cfg, n_layers=layers)
     tcfg = TL.TrainConfig(optimizer=adamw.AdamWConfig(**MD_OPT))
     lr = MD_OPT["lr"]
+    d_layers, d_batch, d_seq, d_steps = MD_MOE
+    dcfg = dataclasses.replace(deepseek_cfg, n_layers=d_layers)
+    mcfg = dataclasses.replace(dcfg, quant=dataclasses.replace(dcfg.quant, prebinarize_gather=True))
     tmp = workdir / "ranks"
     tmp.mkdir()
-    plan = dict(device=str(device), bert=cfg, granite=gcfg, ckpt=str(workdir / "ckpt_a"))
+    plan = dict(device=str(device), bert=cfg, granite=gcfg, ckpt=str(workdir / "ckpt_a"), deepseek=mcfg,
+                deepseek_serve=dcfg, moe_run=(d_batch, d_seq, d_steps), moe_opt=MD_MOE_OPT)
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_md_rank, args=(r, 2, str(tmp), plan)) for r in range(2)]
     for p in procs:
         p.start()
-
-    def stream(c, batch, seq):
-        return TokenPipeline(DataConfig(vocab_size=c.vocab_size, seq_len=seq, global_batch=batch, seed=0))
-
-    # while the ranks run: [18b]'s reference, a 1-rank prebinarized run
-    pcfg = dataclasses.replace(gcfg, quant=dataclasses.replace(gcfg.quant, prebinarize_gather=True))
-    gp, go = TL.init_train_state(0, pcfg, device=device)
-    gp, go, ref_glosses, _ = _timed_steps(TL.make_train_step(pcfg, tcfg, device=device), gp, go,
-                                          stream(pcfg, gb, gs), gsteps)
-    del gp, go
-    torch.cuda.empty_cache()
-
-    # [18d] one rank over NCCL: the mesh step against the step without a group
-    p0, o0 = TL.init_train_state(0, cfg, device=device)
-    batch0 = stream(cfg, MD_BATCH, MD_SEQ).next()
-    plain = TL.make_train_step(cfg, tcfg, device=device)(p0, o0, batch0)
-    dist.init_process_group("nccl", init_method=f"file://{workdir}/nccl_init", rank=0, world_size=1)
     try:
-        mesh = make_host_mesh(1, 1, device=str(device))
-        ps, os_ = TL.init_train_state(0, cfg, device=device, mesh=mesh)
-        meshed = TL.make_train_step(cfg, tcfg, device=device, mesh=mesh)(ps, os_, batch0)
+        def stream(c, batch, seq):
+            return TokenPipeline(DataConfig(vocab_size=c.vocab_size, seq_len=seq, global_batch=batch, seed=0))
+
+        # while the ranks run: [18b]'s reference, a 1-rank prebinarized run
+        pcfg = dataclasses.replace(gcfg, quant=dataclasses.replace(gcfg.quant, prebinarize_gather=True))
+        gp, go = TL.init_train_state(0, pcfg, device=device)
+        gp, go, ref_glosses, _ = _timed_steps(TL.make_train_step(pcfg, tcfg, device=device), gp, go,
+                                              stream(pcfg, gb, gs), gsteps)
+        del gp, go
+        torch.cuda.empty_cache()
+
+        # [18d] one rank over NCCL: the mesh step against the step without a group
+        p0, o0 = TL.init_train_state(0, cfg, device=device)
+        batch0 = stream(cfg, MD_BATCH, MD_SEQ).next()
+        plain = TL.make_train_step(cfg, tcfg, device=device)(p0, o0, batch0)
+        dist.init_process_group("nccl", init_method=f"file://{workdir}/nccl_init", rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh(1, 1, device=str(device))
+            ps, os_ = TL.init_train_state(0, cfg, device=device, mesh=mesh)
+            meshed = TL.make_train_step(cfg, tcfg, device=device, mesh=mesh)(ps, os_, batch0)
+            torch.cuda.synchronize()
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+        if not (_trees_equal(meshed[0], plain[0]) and _trees_equal(meshed[1], plain[1])
+                and all(torch.equal(meshed[2][k], plain[2][k]) for k in plain[2])):
+            raise AssertionError("[18d] the 1-rank NCCL mesh step differs from the step without a process group")
+        log(f"[18d] one rank over {backend} (mesh 1x1, {cfg.name}, {MD_BATCH} x {MD_SEQ}): the mesh step's params, "
+            f"AdamW state and metrics bit for bit the step without a process group's (each collective over a "
+            f"group of one rank is the identity: the gradients' reduce-scatter, the fake-quant range, loss and "
+            f"global-norm all-reduces; the gathers skip an axis of one rank) | {smi}")
+        del p0, o0, ps, os_, plain, meshed
+        torch.cuda.empty_cache()
+        t_parent = time.perf_counter() - t_phase
+
+        # [18f] once both ranks have trained deepseek and freed the card: the
+        # 1-rank yardstick, whose first step's MoE inputs and router logits go
+        # to the ranks for the dispatch check; then the latents the ranks
+        # trained, packed by rank 0, served through K1
+        _wait_for([tmp / f"f_trained{r}" for r in range(2)], procs,
+                  MD_RANKS_TIMEOUT_S - (time.perf_counter() - t_phase))
+        t_wait = time.perf_counter() - t_phase
+        yard = _moe_yardstick(TL, adamw, M, mcfg, device, plan["moe_run"], MD_MOE_OPT)
+        torch.save([(f["xf"].cpu(), f["logits"].cpu()) for f in yard["first"]], tmp / "f_logits.part")
+        os.replace(tmp / "f_logits.part", tmp / "f_logits.pt")
+        yard["first"] = [{k: v.cpu() for k, v in f.items() if k != "xf"} for f in yard["first"]]
+        served = torch.load(tmp / "f_served.pt", map_location=device, weights_only=False)
+        prompt = stream(dcfg, 1, SERVE15_PROMPT).next()["tokens"].astype(np.int64)
+        f_launches, _ = _serve_trained(Z, dcfg, None, device, ops, ref, kernels, k1_per_forward(dcfg, True),
+                                       k1_per_forward(dcfg, False), f"{dcfg.name} trained in 2 ranks", prompt,
+                                       served=served, phase="18f")
+        del served
+        torch.cuda.empty_cache()
+        t_parent_f = time.perf_counter() - t_phase
+
+        for p in procs:
+            p.join(max(1.0, MD_RANKS_TIMEOUT_S - (time.perf_counter() - t_phase)))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"[18] ranks exited {[p.exitcode for p in procs]}")
+        t_ranks = time.perf_counter() - t_phase
+        runs = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
+        a = runs[0]["a"]
+        n_el = sum(x.numel() for x in torch_leaves(Z.init_params(0, cfg, device="meta")))
+
+        def staged(part):
+            return ", ".join(f"{op} {part['staged'][op]} calls {part['staged_s'].get(op, 0.0):.2f} s"
+                             for op in sorted(part["staged"]))
+
+        # [18a] each 2-rank step against the 1-rank step from the same state
+        checks = a["checks"]
+        half = checks[0]["half_mu_gap"] if checks else None
+        bad = [c for c in checks if c["loss_gap"] > MD_STEP_LOSS_RTOL or c["mu_gap"] > MD_MU_RTOL
+               or c["apart"] > MD_APART_SHARE * n_el]
+        if len(checks) != MD_STEPS or bad or runs[1]["a"]["losses"] != a["losses"] or not half > MD_MU_RTOL:
+            raise AssertionError(f"[18a] 2-rank steps against the 1-rank step from the same state: {checks}")
+        log(f"[18a] {cfg.name} whole ({cfg.n_layers} layers, d_model {cfg.d_model}) in 2 ranks on the one card "
+            f"(gloo, mesh 2x1, FSDP storage: {a['shard_bytes'] / 1e6:.1f} MB of latents and moments a rank), "
+            f"{MD_STEPS} steps of {MD_BATCH} x {MD_SEQ} through TrainingRunner, the checkpoint gathered to rank 0 "
+            f"alone; each step against the 1-rank step from the same state (gathered to rank 0): loss relative gaps "
+            + ", ".join(f"{c['loss_gap']:.3g}" for c in checks) + f" (held to {MD_STEP_LOSS_RTOL}); first moments' "
+            "largest gap of a leaf's largest " + ", ".join(f"{c['mu_gap']:.3g}" for c in checks)
+            + f" (held to {MD_MU_RTOL:g}; the gradient of one rank's rows alone reads {half:.3g}, held to exceed "
+            f"it); elements apart by more than lr / 10: " + ", ".join(str(c["apart"]) for c in checks)
+            + f" of {n_el} (held under {MD_APART_SHARE:g} of them); params largest gaps (a reading, 2 lr = "
+            f"{2 * lr:g} holds any update) " + ", ".join(f"{c['param_gap']:.3g}" for c in checks) + "; losses "
+            + " ".join(f"{x:.6f}" for x in a["losses"]) + "; mesh step ms " + ", ".join(f"{x:.0f}" for x in a["ms"])
+            + f"; [18a] took {a['s']:.1f} s in the ranks (rank 0: the runner {a['spent']['runner']:.1f} s, of "
+            f"it the mesh steps {sum(a['ms']) / 1e3:.1f} s, the check's gathers of the state "
+            f"{a['spent']['gather']:.1f} s, its 1-rank steps {a['spent']['one_rank']:.1f} s, its comparisons "
+            f"{a['spent']['compare']:.1f} s); peak allocated rank 0 {a['peak'] / 1e9:.3f} GB (with the "
+            f"1-rank check), rank 1 {runs[1]['a']['peak'] / 1e9:.3f} GB; host-staged gloo ops (rank 0) {staged(a)} "
+            f"| {smi}")
+
+        # [18b] granite-8b with the packed-weight gather
+        b = runs[0]["b"]["steps"]
+        ggaps = [abs(r["loss"] - y) / abs(y) for r, y in zip(b, ref_glosses)]
+        if ggaps[0] > MD_STEP_LOSS_RTOL or max(ggaps) > MD_LOSS_RTOL or not all(np.isfinite(r["loss"]) for r in b) \
+                or [r["loss"] for r in runs[1]["b"]["steps"]] != [r["loss"] for r in b]:
+            raise AssertionError(f"[18b] prebinarized 2 ranks vs 1: loss gaps {ggaps}")
+        g0 = b[0]
+        log(f"[18b] {gcfg.name} at full width, {layers} of its {granite_cfg.n_layers} layers, prebinarize_gather "
+            f"on, mesh 2x1, {gsteps} steps of {gb} x {gs}: losses " + " ".join(f"{r['loss']:.6f}" for r in b)
+            + " against the 1-rank prebinarized run's " + " ".join(f"{x:.6f}" for x in ref_glosses)
+            + f" (relative gaps {', '.join(f'{x:.3g}' for x in ggaps)}; held to {MD_STEP_LOSS_RTOL} / "
+            f"{MD_LOSS_RTOL}); gathered into a rank a step: QMM weights {g0['packed'] / 1e6:.2f} MB as packed sign "
+            f"words against {g0['latent_equiv'] / 1e6:.1f} MB as the float32 latents they replace "
+            f"({g0['latent_equiv'] / max(g0['packed'], 1):.1f}x), other leaves {g0['latent'] / 1e6:.1f} MB float32; "
+            f"step ms " + ", ".join(f"{r['ms']:.0f}" for r in b) + f"; [18b] took {runs[0]['b']['s']:.1f} s in the "
+            f"ranks; peak allocated {runs[0]['b']['peak'] / 1e9:.2f} / {runs[1]['b']['peak'] / 1e9:.2f} GB; "
+            f"host-staged gloo ops (rank 0) {staged(runs[0]['b'])} | {smi}")
+
+        # [18c] the compressed data-parallel step
+        c = runs[0]["c"]
+        rows = c["steps"]
+        fin = rows[-1]
+        cgaps = [abs(r["next_loss"] - r["next_loss_f32"]) / abs(r["next_loss_f32"]) for r in rows]
+        bad = [r for r in rows if r["loss"] != r["loss_f32"] or not r["err_kept"]]
+        if bad or max(cgaps) > MD_COMPRESSED_LOSS_RTOL or fin["steps_off"] > MD_HALF_STEP \
+                or fin["f32_gap"] > MD_F32_RTOL or max(fin["mu_gap"], fin["mu_gap_f32"]) > MD_MU_RTOL \
+                or not fin["own_mu_gap"] > MD_MU_RTOL \
+                or [r["loss"] for r in runs[1]["c"]["steps"]] != [r["loss"] for r in rows]:
+            raise AssertionError(f"[18c] compressed vs float32 DP: {rows}")
+        i8, f32 = c["payload"]
+        log(f"[18c] make_compressed_dp_step on {cfg.name} in 2 ranks (params replicated, each rank's ranges "
+            f"local), {MD_STEPS} steps of {MD_BATCH} x {MD_SEQ}, the int8 error-feedback update and the float32 "
+            f"one from the same state at each step; step {MD_STEPS} checked outside the steps against the ranks' "
+            f"gradients all-gathered: the int8 average within {fin['steps_off']:.4f} of a quantization step of "
+            f"the mean of the ranks' g + e (held to {MD_HALF_STEP}), the float32 average within "
+            f"{fin['f32_gap']:.3g} of the mean of their g (of a leaf's largest; held to {MD_F32_RTOL:.3g}); the "
+            f"steps' first moments against AdamW's on those averages: int8 {fin['mu_gap']:.3g}, float32 "
+            f"{fin['mu_gap_f32']:.3g} (held to {MD_MU_RTOL:g}; a rank's own gradient unaveraged reads "
+            f"{fin['own_mu_gap']:.3g}, held to exceed it); losses " + " ".join(f"{r['loss']:.6f}" for r in rows)
+            + "; the two results' loss on the next batch "
+            + ", ".join(f"{r['next_loss']:.6f} / {r['next_loss_f32']:.6f}" for r in rows)
+            + " (relative gaps " + ", ".join(f"{x:.3g}" for x in cgaps) + f"; held to {MD_COMPRESSED_LOSS_RTOL}); "
+            "params largest gaps (a reading) " + ", ".join(f"{r['param_gap']:.3g}" for r in rows)
+            + ", elements apart by more than lr / 10: " + ", ".join(str(r["apart"]) for r in rows)
+            + f" of {c['n']}; bytes a rank handed to the collectives a step: int8 {rows[0]['bytes'] / 1e6:.1f} MB "
+            f"(the mantissas' int32 sum, the MAX of {c['n_leaves']} leaves' maxima, the metrics), float32 "
+            f"{rows[0]['bytes_f32'] / 1e6:.1f} MB (the int8 payload's own size {i8 / 1e6:.1f} MB, float32's "
+            f"{f32 / 1e6:.1f} MB); step ms int8 " + ", ".join(f"{r['ms']:.0f}" for r in rows) + ", float32 "
+            + ", ".join(f"{r['ms_f32']:.0f}" for r in rows) + f"; [18c] took {c['s']:.1f} s in the ranks; peak "
+            f"allocated {c['peak'] / 1e9:.2f} GB; host-staged gloo ops (rank 0) {staged(c)} | {smi}")
+
+        # [18e] the 2-rank-trained model (rank 0's checkpoint) served through K3 (W1A1)
+        like = TL.init_train_state(0, cfg, device=device)
+        step_no, saved, _ = CheckpointManager(plan["ckpt"]).restore(like={"params": like[0], "opt": like[1]})
+        del like
+        if step_no != MD_STEPS:
+            raise AssertionError(f"[18e] the ranks' checkpoint is of step {step_no}")
+        serve_cfg = with_backend(cfg, "pallas")
+        sp = Z.prepare_serving_params(saved["params"], serve_cfg)
+        prompt = torch.as_tensor(stream(cfg, 1, MD_SEQ).next()["tokens"], device=device).to(torch.int64)
+        per_forward = BERT_SITES_PER_LAYER * cfg.n_layers
+
+        def serve_prefill():
+            return Z.prefill(sp, prompt, serve_cfg, Z.init_cache(1, MD_SEQ, serve_cfg, device=device))
+
         torch.cuda.synchronize()
-        backend = dist.get_backend()
-    finally:
-        dist.destroy_process_group()
-    if not (_trees_equal(meshed[0], plain[0]) and _trees_equal(meshed[1], plain[1])
-            and all(torch.equal(meshed[2][k], plain[2][k]) for k in plain[2])):
-        raise AssertionError("[18d] the 1-rank NCCL mesh step differs from the step without a process group")
-    log(f"[18d] one rank over {backend} (mesh 1x1, {cfg.name}, {MD_BATCH} x {MD_SEQ}): the mesh step's params, "
-        f"AdamW state and metrics bit for bit the step without a process group's (each collective over a "
-        f"group of one rank is the identity: the gradients' reduce-scatter, the fake-quant range, loss and "
-        f"global-norm all-reduces; the gathers skip an axis of one rank) | {smi}")
-    del p0, o0, ps, os_, plain, meshed
-    torch.cuda.empty_cache()
-    t_parent = time.perf_counter() - t_phase
+        _zero(kernels)
+        last, cache = serve_prefill()
+        torch.cuda.synchronize()
+        launched = _counts(kernels)
+        if launched != [0, 0, per_forward, 0]:
+            raise AssertionError(f"[18e] the trained model's prefill launched K1-K4 {launched}; expected K3 = "
+                                 f"{per_forward} and no other")
+        plain_k3 = lambda x, w: ref.popcount_qmm_ref(x, w, 32 * x.shape[1])  # noqa: E731
+        with mock.patch.object(ops._pq, "popcount_qmm", plain_k3):
+            last_plain, cache_plain = serve_prefill()
+        if not torch.equal(last, last_plain) or not Z.caches_equal(cache, cache_plain):
+            raise AssertionError("[18e] the 2-rank-trained model's prefill differs with K3 swapped for its plain "
+                                 "version")
+        if not bool(torch.isfinite(last).all()) or last.shape != (1, cfg.vocab_size):
+            raise AssertionError("[18e] served logits not finite or of the wrong shape")
+        log(f"[18e] the 2-rank-trained params (rank 0's checkpoint) packed and a {MD_SEQ}-token Z.prefill served at "
+            f"W1A1: popcount_qmm launches {launched[2]} = {BERT_SITES_PER_LAYER} x {cfg.n_layers}, logits and cache "
+            f"bitwise equal with popcount_qmm swapped for popcount_qmm_ref | {smi}")
+        # [18f] deepseek-v2-lite-16b in 2 ranks, its MoE layers routing the global microbatch
+        f0, f1 = runs[0]["f"], runs[1]["f"]
+        e = dcfg.moe
+        t_rank = d_batch // 2 * d_seq
+        capacity = int(max(1, round(e.capacity_factor * d_batch * d_seq * e.top_k / e.n_routed)))
+        f_loss = [abs(r["loss"] - y) / abs(y) for r, y in zip(f0["steps"], yard["losses"])]
+        f_aux = [abs(r["aux"] - y) / abs(y) for r, y in zip(f0["steps"], yard["auxes"])]
+        if (max(f_loss[0], f_aux[0]) > MD_STEP_LOSS_RTOL or max(f_loss + f_aux) > MD_LOSS_RTOL
+                or [(r["loss"], r["aux"]) for r in f1["steps"]] != [(r["loss"], r["aux"]) for r in f0["steps"]]
+                or not all(np.isfinite([r["loss"] for r in f0["steps"]]))):
+            raise AssertionError(f"[18f] 2 ranks vs 1: loss gaps {f_loss}, aux gaps {f_aux}")
+        given = [c for f in (f0, f1) for c in f["checks"]]
+        if len(given) != 2 * len(yard["first"]) or not all(c["exact"] and c["capacity"] == capacity for c in given):
+            raise AssertionError(f"[18f] the global dispatch given the 1-rank run's router logits: {given}")
+        flips = [_route_flips(L, e, want, got, slice(r * t_rank, (r + 1) * t_rank))
+                 for r, f in enumerate((f0, f1)) for want, got in zip(yard["first"], f["first"])]
+        moved, routes = sum(x["moved"] for x in flips), sum(x["routes"] for x in flips)
+        if len(flips) != 2 * len(yard["first"]) or not all(x["explained"] for x in flips) \
+                or moved > MD_ROUTE_FLIP_SHARE * routes:
+            raise AssertionError(f"[18f] live routes against the 1-rank run's: {flips}")
+        plan_routing = dryrun.collective_bytes(mcfg, abstract_mesh((2, 1), ("data", "model")), 1,
+                                               InputShape("md_moe", d_seq, d_batch, "train"))["routing"]
+        want_routing = {k: {"bytes": v["bytes"], "count": v["count"]} for k, v in plan_routing.items()}
+        if any(r["routing"] != want_routing for f in (f0, f1) for r in f["steps"]):
+            raise AssertionError(f"[18f] routing traffic {[r['routing'] for r in f0['steps']]} against the "
+                                 f"dry-run's plan {want_routing}")
+        local_share = sum(c["keep_differs_local"] for c in given) / sum(c["routes"] for c in given)
+        routing_bytes = sum(v["bytes"] for v in want_routing.values())
+        log(f"[18f] {dcfg.name} at full width, {d_layers} layers ({''.join(dcfg.layer_kinds)}; "
+            f"{e.n_routed} routed experts top-{e.top_k} + {e.n_shared} shared), "
+            f"prebinarize_gather on, mesh 2x1, {d_steps} steps of {d_batch} x {d_seq}, each MoE layer routing the "
+            f"global microbatch (capacity {capacity} an expert): losses "
+            + " ".join(f"{r['loss']:.6f}" for r in f0["steps"]) + " against the 1-rank run's "
+            + " ".join(f"{x:.6f}" for x in yard["losses"]) + " (relative gaps " + ", ".join(f"{x:.3g}" for x in f_loss)
+            + "), aux " + " ".join(f"{r['aux']:.6f}" for r in f0["steps"]) + " against "
+            + " ".join(f"{x:.6f}" for x in yard["auxes"]) + " (gaps " + ", ".join(f"{x:.3g}" for x in f_aux)
+            + f"; held to {MD_STEP_LOSS_RTOL} / {MD_LOSS_RTOL}); given the 1-rank run's MoE inputs and router "
+            f"logits, the ranks' global dispatch (routes, keep, dest, the {e.n_routed} x {capacity} x "
+            f"{dcfg.d_model} buffer) equals the 1-rank dispatch bit for bit at all {len(given)} (rank, layer) "
+            f"pairs, {sum(c['dropped'] for c in given)} of {sum(c['routes'] for c in given)} routes dropped; "
+            f"local routing (capacity {given[0]['local_capacity']}) would keep or drop otherwise "
+            f"{local_share:.4f} of them ({sum(c['dropped_local'] for c in given)} dropped); live routes "
+            f"against the 1-rank run's: {moved} of {routes} differ (held under {MD_ROUTE_FLIP_SHARE:g}), "
+            f"each at a top-k margin within twice its scores' gap (margins "
+            + ", ".join(f"{m:.3g}" for x in flips for m in x["margins"]) + "; gaps "
+            + ", ".join(f"{g:.3g}" for x in flips for g in x["gaps"]) + f"); largest score gap "
+            f"{max(x['score_gap'] for x in flips):.3g}, router logits' largest gap "
+            f"{max(x['logits_gap'] for x in flips):.3g} of {max(x['logits_scale'] for x in flips):.3g}; routing "
+            f"collectives a step {routing_bytes / 1e6:.3f} MB = the dry-run plan's, by part "
+            + ", ".join(f"{k} {v['bytes']} B in {v['count']}" for k, v in want_routing.items())
+            + "; step ms " + ", ".join(f"{r['ms']:.0f}" for r in f0["steps"]) + " (1-rank "
+            + ", ".join(f"{x:.0f}" for x in yard["ms"]) + f"); [18f] took {f0['s']:.1f} s in the ranks, the "
+            f"gather and packing {f0['pack_s']:.1f} s, the 1-rank run {yard['s']:.1f} s; peak allocated "
+            f"{f0['peak'] / 1e9:.2f} / {f1['peak'] / 1e9:.2f} GB a rank (1-rank {yard['peak'] / 1e9:.2f} GB); "
+            f"host-staged gloo ops (rank 0) {staged(f0)}; binary_qmm launches serving the trained latents "
+            f"{f_launches} | {smi}")
+        numbers = dict(a_step_loss_gaps=[x["loss_gap"] for x in checks], a_mu_gaps=[x["mu_gap"] for x in checks],
+                       a_half_batch_mu_gap=half, a_apart=[x["apart"] for x in checks],
+                       a_param_gaps=[x["param_gap"] for x in checks], a_step_ms=a["ms"], a_spent=a["spent"],
+                       a_peak_bytes=[r["a"]["peak"] for r in runs], b_loss_gaps=ggaps, b_step_ms=[r["ms"] for r in b],
+                       b_packed_bytes=g0["packed"], b_latent_equiv_bytes=g0["latent_equiv"], b_float_bytes=g0["latent"],
+                       c_next_loss_gaps=cgaps, c_steps_off=fin["steps_off"], c_f32_gap=fin["f32_gap"],
+                       c_mu_gaps=[fin["mu_gap"], fin["mu_gap_f32"]], c_own_mu_gap=fin["own_mu_gap"],
+                       c_step_ms=[r["ms"] for r in rows], c_step_ms_f32=[r["ms_f32"] for r in rows],
+                       c_bytes=[rows[0]["bytes"], rows[0]["bytes_f32"]], c_payload_int8=i8, c_payload_float32=f32,
+                       f_loss_gaps=f_loss, f_aux_gaps=f_aux, f_step_ms=[r["ms"] for r in f0["steps"]],
+                       f_one_rank_ms=yard["ms"], f_peak_bytes=[f0["peak"], f1["peak"]], f_one_rank_peak=yard["peak"],
+                       f_routing=want_routing, f_routes_moved=moved, f_routes=routes,
+                       f_route_margins=[m for x in flips for m in x["margins"]],
+                       f_score_gap=max(x["score_gap"] for x in flips), f_local_keep_share=local_share,
+                       f_k1_launches=f_launches,
+                       seconds={"a": a["s"], "b": runs[0]["b"]["s"], "c": c["s"], "f": f0["s"],
+                                "f_pack": f0["pack_s"], "f_one_rank": yard["s"], "parent": t_parent,
+                                "parent_f": t_parent_f, "wait_f": t_wait, "ranks": t_ranks},
+                       staged={k: {"calls": runs[0][k]["staged"], "s": runs[0][k]["staged_s"],
+                                   "bytes": runs[0][k]["bytes"]} for k in "abcf"})
+        log("[18] multi-device numbers (rank 0's parts; staged: its host-staged gloo collectives by op): "
+            + json.dumps(numbers) + f" | {smi}")
+        del saved, sp
+        torch.cuda.empty_cache()
+        log(f"[18] phase 18 took {time.perf_counter() - t_phase:.1f} s")
+        return dict(launches=launched[2]), dict(launches=f_launches), dict(numbers, layers=layers)
 
-    for p in procs:
-        p.join(max(1.0, MD_RANKS_TIMEOUT_S - (time.perf_counter() - t_phase)))
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    if any(p.exitcode != 0 for p in procs):
-        raise AssertionError(f"[18] ranks exited {[p.exitcode for p in procs]}")
-    t_ranks = time.perf_counter() - t_phase
-    runs = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
-    a = runs[0]["a"]
-    n_el = sum(x.numel() for x in torch_leaves(Z.init_params(0, cfg, device="meta")))
-
-    def staged(part):
-        return ", ".join(f"{op} {part['staged'][op]} calls {part['staged_s'].get(op, 0.0):.2f} s"
-                         for op in sorted(part["staged"]))
-
-    # [18a] each 2-rank step against the 1-rank step from the same state
-    checks = a["checks"]
-    half = checks[0]["half_mu_gap"] if checks else None
-    bad = [c for c in checks if c["loss_gap"] > MD_STEP_LOSS_RTOL or c["mu_gap"] > MD_MU_RTOL
-           or c["apart"] > MD_APART_SHARE * n_el]
-    if len(checks) != MD_STEPS or bad or runs[1]["a"]["losses"] != a["losses"] or not half > MD_MU_RTOL:
-        raise AssertionError(f"[18a] 2-rank steps against the 1-rank step from the same state: {checks}")
-    log(f"[18a] {cfg.name} whole ({cfg.n_layers} layers, d_model {cfg.d_model}) in 2 ranks on the one card "
-        f"(gloo, mesh 2x1, FSDP storage: {a['shard_bytes'] / 1e6:.1f} MB of latents and moments a rank), "
-        f"{MD_STEPS} steps of {MD_BATCH} x {MD_SEQ} through TrainingRunner, the checkpoint gathered to rank 0 "
-        f"alone; each step against the 1-rank step from the same state (gathered to rank 0): loss relative gaps "
-        + ", ".join(f"{c['loss_gap']:.3g}" for c in checks) + f" (held to {MD_STEP_LOSS_RTOL}); first moments' "
-        "largest gap of a leaf's largest " + ", ".join(f"{c['mu_gap']:.3g}" for c in checks)
-        + f" (held to {MD_MU_RTOL:g}; the gradient of one rank's rows alone reads {half:.3g}, held to exceed "
-        f"it); elements apart by more than lr / 10: " + ", ".join(str(c["apart"]) for c in checks)
-        + f" of {n_el} (held under {MD_APART_SHARE:g} of them); params largest gaps (a reading, 2 lr = "
-        f"{2 * lr:g} holds any update) " + ", ".join(f"{c['param_gap']:.3g}" for c in checks) + "; losses "
-        + " ".join(f"{x:.6f}" for x in a["losses"]) + "; mesh step ms " + ", ".join(f"{x:.0f}" for x in a["ms"])
-        + f"; [18a] took {a['s']:.1f} s in the ranks (rank 0: the runner {a['spent']['runner']:.1f} s, of "
-        f"it the mesh steps {sum(a['ms']) / 1e3:.1f} s, the check's gathers of the state "
-        f"{a['spent']['gather']:.1f} s, its 1-rank steps {a['spent']['one_rank']:.1f} s, its comparisons "
-        f"{a['spent']['compare']:.1f} s); peak allocated rank 0 {a['peak'] / 1e9:.3f} GB (with the "
-        f"1-rank check), rank 1 {runs[1]['a']['peak'] / 1e9:.3f} GB; host-staged gloo ops (rank 0) {staged(a)} "
-        f"| {smi}")
-
-    # [18b] granite-8b with the packed-weight gather
-    b = runs[0]["b"]["steps"]
-    ggaps = [abs(r["loss"] - y) / abs(y) for r, y in zip(b, ref_glosses)]
-    if ggaps[0] > MD_STEP_LOSS_RTOL or max(ggaps) > MD_LOSS_RTOL or not all(np.isfinite(r["loss"]) for r in b) \
-            or [r["loss"] for r in runs[1]["b"]["steps"]] != [r["loss"] for r in b]:
-        raise AssertionError(f"[18b] prebinarized 2 ranks vs 1: loss gaps {ggaps}")
-    g0 = b[0]
-    log(f"[18b] {gcfg.name} at full width, {layers} of its {granite_cfg.n_layers} layers, prebinarize_gather "
-        f"on, mesh 2x1, {gsteps} steps of {gb} x {gs}: losses " + " ".join(f"{r['loss']:.6f}" for r in b)
-        + " against the 1-rank prebinarized run's " + " ".join(f"{x:.6f}" for x in ref_glosses)
-        + f" (relative gaps {', '.join(f'{x:.3g}' for x in ggaps)}; held to {MD_STEP_LOSS_RTOL} / "
-        f"{MD_LOSS_RTOL}); gathered into a rank a step: QMM weights {g0['packed'] / 1e6:.2f} MB as packed sign "
-        f"words against {g0['latent_equiv'] / 1e6:.1f} MB as the float32 latents they replace "
-        f"({g0['latent_equiv'] / max(g0['packed'], 1):.1f}x), other leaves {g0['latent'] / 1e6:.1f} MB float32; "
-        f"step ms " + ", ".join(f"{r['ms']:.0f}" for r in b) + f"; [18b] took {runs[0]['b']['s']:.1f} s in the "
-        f"ranks; peak allocated {runs[0]['b']['peak'] / 1e9:.2f} / {runs[1]['b']['peak'] / 1e9:.2f} GB; "
-        f"host-staged gloo ops (rank 0) {staged(runs[0]['b'])} | {smi}")
-
-    # [18c] the compressed data-parallel step
-    c = runs[0]["c"]
-    rows = c["steps"]
-    fin = rows[-1]
-    cgaps = [abs(r["next_loss"] - r["next_loss_f32"]) / abs(r["next_loss_f32"]) for r in rows]
-    bad = [r for r in rows if r["loss"] != r["loss_f32"] or not r["err_kept"]]
-    if bad or max(cgaps) > MD_COMPRESSED_LOSS_RTOL or fin["steps_off"] > MD_HALF_STEP \
-            or fin["f32_gap"] > MD_F32_RTOL or max(fin["mu_gap"], fin["mu_gap_f32"]) > MD_MU_RTOL \
-            or not fin["own_mu_gap"] > MD_MU_RTOL \
-            or [r["loss"] for r in runs[1]["c"]["steps"]] != [r["loss"] for r in rows]:
-        raise AssertionError(f"[18c] compressed vs float32 DP: {rows}")
-    i8, f32 = c["payload"]
-    log(f"[18c] make_compressed_dp_step on {cfg.name} in 2 ranks (params replicated, each rank's ranges "
-        f"local), {MD_STEPS} steps of {MD_BATCH} x {MD_SEQ}, the int8 error-feedback update and the float32 "
-        f"one from the same state at each step; step {MD_STEPS} checked outside the steps against the ranks' "
-        f"gradients all-gathered: the int8 average within {fin['steps_off']:.4f} of a quantization step of "
-        f"the mean of the ranks' g + e (held to {MD_HALF_STEP}), the float32 average within "
-        f"{fin['f32_gap']:.3g} of the mean of their g (of a leaf's largest; held to {MD_F32_RTOL:.3g}); the "
-        f"steps' first moments against AdamW's on those averages: int8 {fin['mu_gap']:.3g}, float32 "
-        f"{fin['mu_gap_f32']:.3g} (held to {MD_MU_RTOL:g}; a rank's own gradient unaveraged reads "
-        f"{fin['own_mu_gap']:.3g}, held to exceed it); losses " + " ".join(f"{r['loss']:.6f}" for r in rows)
-        + "; the two results' loss on the next batch "
-        + ", ".join(f"{r['next_loss']:.6f} / {r['next_loss_f32']:.6f}" for r in rows)
-        + " (relative gaps " + ", ".join(f"{x:.3g}" for x in cgaps) + f"; held to {MD_COMPRESSED_LOSS_RTOL}); "
-        "params largest gaps (a reading) " + ", ".join(f"{r['param_gap']:.3g}" for r in rows)
-        + ", elements apart by more than lr / 10: " + ", ".join(str(r["apart"]) for r in rows)
-        + f" of {c['n']}; bytes a rank handed to the collectives a step: int8 {rows[0]['bytes'] / 1e6:.1f} MB "
-        f"(the mantissas' int32 sum, the MAX of {c['n_leaves']} leaves' maxima, the metrics), float32 "
-        f"{rows[0]['bytes_f32'] / 1e6:.1f} MB (the int8 payload's own size {i8 / 1e6:.1f} MB, float32's "
-        f"{f32 / 1e6:.1f} MB); step ms int8 " + ", ".join(f"{r['ms']:.0f}" for r in rows) + ", float32 "
-        + ", ".join(f"{r['ms_f32']:.0f}" for r in rows) + f"; [18c] took {c['s']:.1f} s in the ranks; peak "
-        f"allocated {c['peak'] / 1e9:.2f} GB; host-staged gloo ops (rank 0) {staged(c)} | {smi}")
-
-    # [18e] the 2-rank-trained model (rank 0's checkpoint) served through K3 (W1A1)
-    like = TL.init_train_state(0, cfg, device=device)
-    step_no, saved, _ = CheckpointManager(plan["ckpt"]).restore(like={"params": like[0], "opt": like[1]})
-    del like
-    if step_no != MD_STEPS:
-        raise AssertionError(f"[18e] the ranks' checkpoint is of step {step_no}")
-    serve_cfg = with_backend(cfg, "pallas")
-    sp = Z.prepare_serving_params(saved["params"], serve_cfg)
-    prompt = torch.as_tensor(stream(cfg, 1, MD_SEQ).next()["tokens"], device=device).to(torch.int64)
-    per_forward = BERT_SITES_PER_LAYER * cfg.n_layers
-
-    def serve_prefill():
-        return Z.prefill(sp, prompt, serve_cfg, Z.init_cache(1, MD_SEQ, serve_cfg, device=device))
-
-    torch.cuda.synchronize()
-    _zero(kernels)
-    last, cache = serve_prefill()
-    torch.cuda.synchronize()
-    launched = _counts(kernels)
-    if launched != [0, 0, per_forward, 0]:
-        raise AssertionError(f"[18e] the trained model's prefill launched K1-K4 {launched}; expected K3 = "
-                             f"{per_forward} and no other")
-    plain_k3 = lambda x, w: ref.popcount_qmm_ref(x, w, 32 * x.shape[1])  # noqa: E731
-    with mock.patch.object(ops._pq, "popcount_qmm", plain_k3):
-        last_plain, cache_plain = serve_prefill()
-    if not torch.equal(last, last_plain) or not Z.caches_equal(cache, cache_plain):
-        raise AssertionError("[18e] the 2-rank-trained model's prefill differs with K3 swapped for its plain "
-                             "version")
-    if not bool(torch.isfinite(last).all()) or last.shape != (1, cfg.vocab_size):
-        raise AssertionError("[18e] served logits not finite or of the wrong shape")
-    log(f"[18e] the 2-rank-trained params (rank 0's checkpoint) packed and a {MD_SEQ}-token Z.prefill served at "
-        f"W1A1: popcount_qmm launches {launched[2]} = {BERT_SITES_PER_LAYER} x {cfg.n_layers}, logits and cache "
-        f"bitwise equal with popcount_qmm swapped for popcount_qmm_ref | {smi}")
-    numbers = dict(a_step_loss_gaps=[x["loss_gap"] for x in checks], a_mu_gaps=[x["mu_gap"] for x in checks],
-                   a_half_batch_mu_gap=half, a_apart=[x["apart"] for x in checks],
-                   a_param_gaps=[x["param_gap"] for x in checks], a_step_ms=a["ms"], a_spent=a["spent"],
-                   a_peak_bytes=[r["a"]["peak"] for r in runs], b_loss_gaps=ggaps, b_step_ms=[r["ms"] for r in b],
-                   b_packed_bytes=g0["packed"], b_latent_equiv_bytes=g0["latent_equiv"], b_float_bytes=g0["latent"],
-                   c_next_loss_gaps=cgaps, c_steps_off=fin["steps_off"], c_f32_gap=fin["f32_gap"],
-                   c_mu_gaps=[fin["mu_gap"], fin["mu_gap_f32"]], c_own_mu_gap=fin["own_mu_gap"],
-                   c_step_ms=[r["ms"] for r in rows], c_step_ms_f32=[r["ms_f32"] for r in rows],
-                   c_bytes=[rows[0]["bytes"], rows[0]["bytes_f32"]], c_payload_int8=i8, c_payload_float32=f32,
-                   seconds={"a": a["s"], "b": runs[0]["b"]["s"], "c": c["s"], "parent": t_parent,
-                            "ranks": t_ranks},
-                   staged={k: {"calls": runs[0][k]["staged"], "s": runs[0][k]["staged_s"],
-                               "bytes": runs[0][k]["bytes"]} for k in "abc"})
-    log("[18] multi-device numbers (rank 0's parts; staged: its host-staged gloo collectives by op): "
-        + json.dumps(numbers) + f" | {smi}")
-    del saved, sp
-    torch.cuda.empty_cache()
-    log(f"[18] phase 18 took {time.perf_counter() - t_phase:.1f} s")
-    return dict(launches=launched[2]), dict(numbers, layers=layers)
+    finally:  # a failed check leaves no rank behind
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
 
 
 # ---------------------------------------------------------------------------
@@ -4571,10 +4880,10 @@ def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg, rec
                        (k5, "binary_attn_scores_planes")):
         path.update(measured[name])
 
-    # ---- phase 18: multi-device QAT training (2 ranks on the card, NCCL), served through K3
+    # ---- phase 18: multi-device QAT training (2 ranks on the card, NCCL), served through K3 and K1
     with tempfile.TemporaryDirectory(prefix="chip_smoke_18_") as workdir:
-        k3["multidevice"], md_numbers = train_multidevice(Z, bert_cfg, model_cfg, device, ops, ref, all_kernels,
-                                                          smi, Path(workdir))
+        k3["multidevice"], k1["multidevice"], md_numbers = train_multidevice(
+            Z, bert_cfg, model_cfg, deepseek_cfg, device, ops, ref, all_kernels, smi, Path(workdir))
 
     # ---- phase 19: the invariant verifier over the real launches, the self-test, the dry-run
     verified = verify_and_dry_run(Z, model_cfg, bert_cfg, device, all_kernels + (K5.binary_attn_scores_planes,),

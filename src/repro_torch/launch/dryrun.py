@@ -16,7 +16,12 @@ counts what one rank of the production mesh (``launch/mesh.py``:
     reduce-scatter move a step, by op, from its ``_TreePlan``
     (``runtime/train_loop.py``), with the bytes gathered into the rank by
     kind (``GATHERED``'s keys: under ``--opt packed_gather`` the QMM
-    weights travel as packed sign words);
+    weights travel as packed sign words); for an MoE model over data
+    ranks also its routing's all-gathers and all-reduces (``"routing"``,
+    by part: the ``(n, E)`` counts, the buffer exchange, the balance
+    statistics and their gradient, each MoE layer and microbatch, remat's
+    recompute counted again; ``models/moe.py::routing_traffic``), added to
+    the totals by op;
   * ``flops`` -- one rank's step counted by
     ``torch.utils.flop_counter.FlopCounterMode`` on meta tensors (matrix
     products only: the kernels' plain versions, which the wrappers run on
@@ -24,15 +29,16 @@ counts what one rank of the production mesh (``launch/mesh.py``:
 
 The port computes replicated over ``model`` (ROADMAP item 7.7): a rank
 takes its data index's rows of the batch and the whole gathered model, so
-``flops`` is the model's on ``global_batch / data ranks`` rows; no serving
-step runs over a mesh (item 7.8), so a serving cell's numbers are a rank's
-share of its batch under the same rules.  XLA's temporary and
-generated-code sizes have no counterpart and are not written.  A cell
-whose step cannot run records ``status: "error"`` with the reason (an MoE
-model over data ranks, a pod axis in training, a batch that does not split
-over the data ranks -- the port has no sequence parallelism --, an
-operator with no meta path) beside the numbers counted before it, never a
-guessed number.  The reference's ``--opt gqa_expand`` has no counterpart
+``flops`` is the model's on ``global_batch / data ranks`` rows, an MoE
+layer's experts over the global microbatch's ``E * C`` buffer rows (every
+rank runs the experts over the whole buffer); no serving step runs over a
+mesh (item 7.8), so a serving cell's numbers are a rank's share of its
+batch under the same rules.  XLA's temporary and generated-code sizes have
+no counterpart and are not written.  A cell whose step cannot run records
+``status: "error"`` with the reason (a pod axis in training, a batch that
+does not split over the data ranks -- the port has no sequence
+parallelism --, an operator with no meta path) beside the numbers counted
+before it, never a guessed number.  The reference's ``--opt gqa_expand`` has no counterpart
 (the port's attention is always grouped), nor has ``--no-compile``
 (nothing compiles).
 
@@ -86,7 +92,8 @@ SMOKE_SHAPE = InputShape("smoke", 128, 8, "train")
 META = torch.device("meta")
 
 COMPUTE = ("one rank: its data index's rows of the batch over the whole (gathered) model, "
-           "computed replicated over 'model' (no tensor-parallel compute, ROADMAP item 7.7); "
+           "computed replicated over 'model' (no tensor-parallel compute, ROADMAP item 7.7); an MoE "
+           "layer routes the global microbatch and runs its experts over the whole E x C buffer; "
            "serving runs no mesh step (item 7.8)")
 
 OPT_TRANSFORMS = {
@@ -171,12 +178,15 @@ def argument_bytes(cfg: ArchConfig, shape: InputShape, mesh) -> dict:
     return out
 
 
-def collective_bytes(cfg: ArchConfig, mesh, accum_steps: int = 1) -> dict:
+def collective_bytes(cfg: ArchConfig, mesh, accum_steps: int = 1, shape: InputShape = None) -> dict:
     """What the mesh training step's gathers and reduce-scatter move for
     rank (0, 0) a step (``accum_steps`` microbatches, each gathering the
     tree once), from its plan over shape-only shards; the bytes gathered
-    into the rank by kind under ``"gathered"``."""
+    into the rank by kind under ``"gathered"``.  With ``shape``, an MoE
+    model's routing collectives too (``"routing"``, by part, and in the
+    totals by op)."""
     from repro_torch.models import model_zoo as Z
+    from repro_torch.models import moe as M
     from repro_torch.runtime import sharding as SH
     from repro_torch.runtime import train_loop as TL
 
@@ -190,8 +200,33 @@ def collective_bytes(cfg: ArchConfig, mesh, accum_steps: int = 1) -> dict:
     out = {}
     for op, v in plan.items():
         out[op] = {k: n * accum_steps for k, n in v.items()}
-    out["total_bytes"] = sum(out[op]["bytes"] for op in ("all-gather", "reduce-scatter"))
+    n_data = _data_ranks(mesh)
+    if shape is not None and cfg.moe is not None and n_data > 1:
+        tokens = shape.global_batch // accum_steps // n_data * shape.seq_len
+        one = torch.zeros((1, 1), dtype=torch.int64, device=META)
+        act_bytes = Z._embed_inputs(params, one, cfg, one).element_size()  # the residual stream's
+        routing = M.routing_traffic(cfg, tokens, n_data, TL.TrainConfig().remat, act_bytes)
+        out["routing"] = {part: dict(v, bytes=v["bytes"] * accum_steps, count=v["count"] * accum_steps)
+                          for part, v in routing.items()}
+        for v in out["routing"].values():
+            op = out.setdefault(v["op"], {"bytes": 0, "count": 0})
+            op["bytes"] += v["bytes"]
+            op["count"] += v["count"]
+    out["total_bytes"] = sum(v["bytes"] for op, v in out.items() if op not in ("gathered", "routing"))
     return out
+
+
+def _meta_routing(cfg: ArchConfig, mesh):
+    """Shape-only stand-ins for the routing collectives of data rank 0
+    (``meta`` tensors carry no values), or None where the step routes on
+    one rank."""
+    from repro_torch.models import moe as M
+
+    n = _data_ranks(mesh)
+    if cfg.moe is None or n == 1:
+        return None
+    return M.GlobalRouting(n=n, r=0, all_gather=lambda t: t.unsqueeze(0).expand((n,) + tuple(t.shape)),
+                           all_reduce=lambda t: t.clone())
 
 
 def step_flops(cfg: ArchConfig, shape: InputShape, mesh, accum_steps: int = 1) -> int:
@@ -199,8 +234,12 @@ def step_flops(cfg: ArchConfig, shape: InputShape, mesh, accum_steps: int = 1) -
     meta tensors: data rank 0's rows of the global batch, split as the mesh
     step splits them (``train_loop._rows``: ``accum_steps`` microbatches,
     each over the data ranks; a batch that does not split raises), in
-    training the forward, the checkpoints' recompute and the backward."""
+    training the forward, the checkpoints' recompute and the backward, an
+    MoE layer routing the global microbatch (``moe.routing_global``)."""
+    import contextlib
+
     from repro_torch.models import model_zoo as Z
+    from repro_torch.models import moe as M
     from repro_torch.runtime import train_loop as TL
 
     train = shape.kind == "train"
@@ -211,7 +250,9 @@ def step_flops(cfg: ArchConfig, shape: InputShape, mesh, accum_steps: int = 1) -
         if cfg.quant.enabled and cfg.quant.prebinarize_gather:
             def prepare(p):
                 return TL.prebinarize_params(p, cfg)
-        with FlopCounterMode(display=False) as counter:
+        routing = _meta_routing(cfg, mesh)
+        with FlopCounterMode(display=False) as counter, (
+                contextlib.nullcontext() if routing is None else M.routing_global(routing)):
             for mb in micro:
                 TL.value_and_grad(params, mb, cfg, TL.TrainConfig(), prepare)
         return counter.get_total_flops()
@@ -274,7 +315,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, accum_steps: int = 1, o
             refusal = TL.mesh_step_refusal(cfg, mesh)
             if refusal is not None:
                 raise NotImplementedError(refusal)
-            record["collectives"] = collective_bytes(cfg, mesh, accum_steps)
+            record["collectives"] = collective_bytes(cfg, mesh, accum_steps, shape)
         record["flops"] = step_flops(cfg, shape, mesh, accum_steps)
         record["count_s"] = round(time.time() - t0, 1)
         record["status"] = "ok"

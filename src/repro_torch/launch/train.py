@@ -25,7 +25,9 @@ cross-attention.
 ``--devices N --mesh DxM`` spawns N ranks (``torch.multiprocessing``) and
 trains over a ``D x M`` mesh (``data`` x ``model``; ``launch/mesh.py``)
 the global-batch step of ``runtime/train_loop.py``: FSDP storage, each
-leaf gathered for the forward, global fake-quant ranges and loss.  Every
+leaf gathered for the forward, global fake-quant ranges and loss, and an
+MoE model's routing (capacity, drops, expert buffer, balance loss) over
+the global microbatch.  Every
 rank draws the whole global batch and keeps its rows.  The backend is
 gloo with ``--device cpu``; on the card NCCL, one card a rank, when N is
 at most the cards there are, else gloo with the ranks sharing the cards

@@ -24,9 +24,35 @@ product a float einsum; gradients flow through the gather into the
 buffer, the bf16 combine weights and the combine, and ``moe_ffn`` also
 returns the reference's Switch-style load-balance loss.  Nothing on the
 autograd path is written in place.
+
+**Over data ranks** (``routing_global``, entered by the mesh training
+step): the reference's SPMD step routes the global microbatch, so its
+capacity, positions, drops, expert buffer and balance loss span every data
+rank's rows.  Rank ``r`` of ``n`` holds the ``t`` contiguous tokens
+``[r t, (r+1) t)`` of the microbatch's ``n t``, so its stable sort by
+expert is the global sort restricted to its routes: a route's global
+position within its expert is its local one plus the routes the ranks
+before ``r`` sent to that expert (one all-gather of the ``(n, E)``
+counts).  Every rank then builds the global ``(E, C, D)`` buffer from the
+ranks' rows and destinations (one all-gather; rows are copied, so the
+buffer equals the 1-rank step's bit for bit, ``-0.0`` included, where an
+all-reduce of the ranks' disjoint buffers would turn ``-0.0`` into
+``+0.0`` and carry ``k`` times the capacity factor as many rows: 7.5x at
+deepseek-v2-lite's top-6 and 1.25), runs the experts over all of it
+(replicated, as the step is over ``model``) and combines only its own
+routes.  Its backward moves nothing: a rank's rows
+get their gradient from its own combine alone.  The balance loss takes
+the global counts (the gathered ones, summed) and the all-reduced sum of
+the router's probabilities, whose backward all-reduces the gradient (the
+step averages the ranks' gradients, and every rank's loss holds the global
+aux term).
 """
 
 from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Callable
 
 import torch
 
@@ -37,7 +63,97 @@ from repro_torch.core.constants import scalar
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 
-__all__ = ["init_experts", "init_moe", "pack_experts_for_serving", "expert_qlinear", "moe_ffn"]
+__all__ = ["init_experts", "init_moe", "pack_experts_for_serving", "expert_qlinear", "moe_ffn",
+           "GlobalRouting", "routing_global", "ROUTING", "ROUTING_OPS", "clear_routing_traffic",
+           "routing_traffic"]
+
+#: the routing collectives by part: the ``(n, E)`` route counts, the
+#: buffer exchange (each rank's rows and its routes' destinations), the
+#: router's summed probabilities and, in the backward, their gradient
+ROUTING_OPS = {"counts": "all-gather", "buffer": "all-gather", "balance": "all-reduce",
+               "balance_grad": "all-reduce"}
+
+#: what the routing collectives moved for this rank since last cleared, by
+#: part: each call's result bytes (an all-gather's ``n`` pieces, an
+#: all-reduce's one) and the calls
+ROUTING = {part: {"bytes": 0, "count": 0} for part in ROUTING_OPS}
+
+
+def clear_routing_traffic() -> None:
+    for v in ROUTING.values():
+        v.update(bytes=0, count=0)
+
+
+@dataclasses.dataclass(frozen=True)
+class GlobalRouting:
+    """Rank ``r`` of ``n`` data ranks and their collectives: ``all_gather(t)
+    -> (n, *t.shape)``, the ranks' ``t`` in rank order, and ``all_reduce(t)``,
+    their sum.  The mesh step passes a process group's; the dry-run passes
+    shape-only stand-ins on ``meta``."""
+
+    n: int
+    r: int
+    all_gather: Callable
+    all_reduce: Callable
+
+    def gather(self, part: str, *ts: torch.Tensor) -> list:
+        """Each of ``ts`` from every rank, ``(n, *t.shape)``, in one
+        all-gather of their bytes."""
+        flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in ts])
+        got = self.all_gather(flat)  # (n, bytes)
+        ROUTING[part]["bytes"] += got.numel()
+        ROUTING[part]["count"] += 1
+        out, o = [], 0
+        for t in ts:
+            nb = t.numel() * t.element_size()
+            out.append(got[:, o:o + nb].contiguous().view(t.dtype).view((self.n,) + tuple(t.shape)))
+            o += nb
+        return out
+
+    def reduce(self, part: str, t: torch.Tensor) -> torch.Tensor:
+        out = self.all_reduce(t)
+        ROUTING[part]["bytes"] += out.numel() * out.element_size()
+        ROUTING[part]["count"] += 1
+        return out
+
+
+#: the routing over data ranks while ``routing_global`` is entered
+_routing = None
+
+
+@contextlib.contextmanager
+def routing_global(routing: GlobalRouting):
+    """Within the block every train-mode ``moe_ffn`` routes the global
+    microbatch of ``routing.n`` ranks' rows (capacity, positions, drops,
+    buffer and balance loss), in the forward and in remat's recompute
+    alike, as ``quantization.ranges_reduced`` does for the ranges."""
+    global _routing
+    prev, _routing = _routing, routing
+    try:
+        yield
+    finally:
+        _routing = prev
+
+
+def routing_traffic(cfg: ArchConfig, tokens: int, n: int, remat: bool, act_bytes: int) -> dict:
+    """What the routing collectives move for a rank in one forward and
+    backward of a microbatch of ``tokens`` tokens a rank over ``n`` data
+    ranks, by part (``ROUTING``'s): every MoE layer gathers its counts and
+    buffer (its rows, ``act_bytes`` an element, and its routes' int32
+    destinations) and all-reduces its probabilities once a forward (twice
+    with remat: the recompute runs them again) and their gradient once."""
+    out = {part: {"op": op, "bytes": 0, "count": 0} for part, op in ROUTING_OPS.items()}
+    layers = sum(k == "Mm" for k in cfg.layer_kinds) if cfg.moe is not None and n > 1 else 0
+    if not layers:
+        return out
+    e = cfg.moe
+    passes = 2 if remat else 1
+    each = {"counts": n * e.n_routed * 4, "buffer": n * tokens * (cfg.d_model * act_bytes + e.top_k * 4),
+            "balance": e.n_routed * 4, "balance_grad": e.n_routed * 4}
+    for part, nbytes in each.items():
+        calls = layers * (1 if part == "balance_grad" else passes)
+        out[part].update(bytes=calls * nbytes, count=calls)
+    return out
 
 
 def init_experts(gen: torch.Generator, n_experts: int, d_in: int, d_out: int, scale: float = 1.0) -> dict:
@@ -153,10 +269,12 @@ def _route(logits: torch.Tensor, e: MoEConfig, top_k: int):
     return w, idx
 
 
-def _dispatch(experts: torch.Tensor, capacity: int, drop: int):
+def _dispatch(experts: torch.Tensor, capacity: int, drop: int, offsets=None):
     """Capacity-based dispatch of the routes ``experts`` (T, k): sort them
     by expert (stable), place each at its position within its expert's
     ``capacity`` rows, and send the overflow to the drop slot ``drop``.
+    ``offsets`` (E,): routes that precede these in each expert's global
+    order (the ranks before this one), added to every position.
     Returns (order, token of each sorted route, keep, destination row)."""
     tk = experts.numel()
     dev = experts.device
@@ -165,6 +283,8 @@ def _dispatch(experts: torch.Tensor, capacity: int, drop: int):
     se = flat_expert[order]
     st = order // experts.shape[-1]  # route j belongs to token j // k
     pos = torch.arange(tk, device=dev) - torch.searchsorted(se, se, side="left")
+    if offsets is not None:
+        pos = pos + offsets[se]
     keep = pos < capacity
     dest = torch.where(keep, se * capacity + pos, torch.full_like(pos, drop))
     return order, st, keep, dest
@@ -180,6 +300,103 @@ def _balance_loss(logits: torch.Tensor, experts: torch.Tensor, e: MoEConfig) -> 
     counts = torch.bincount(experts.reshape(-1), minlength=e.n_routed).to(torch.float32)
     frac = counts / scalar(float(experts.numel()), torch.float32, dev)
     return scalar(float(e.n_routed), torch.float32, dev) * torch.sum(frac * probs_mean)
+
+
+def _expert_counts(experts: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Routes to each expert, int32 (E,) (a scatter, which ``meta`` runs)."""
+    flat = experts.reshape(-1)
+    counts = torch.zeros((n_experts,), dtype=torch.int64, device=flat.device)
+    return counts.scatter_add_(0, flat, torch.ones_like(flat)).to(torch.int32)
+
+
+def _global_offsets(counts_all: torch.Tensor, r: int) -> torch.Tensor:
+    """Each expert's routes on the ranks before ``r`` (the exclusive prefix
+    over ranks of the gathered ``(n, E)`` counts)."""
+    return counts_all[:r].to(torch.int64).sum(dim=0)
+
+
+class _GlobalBuffer(torch.autograd.Function):
+    """The global ``(E C + 1, D)`` buffer from this rank's rows ``xf`` (t,
+    D) and its sorted routes (``order``, ``dest``): one all-gather of every
+    rank's rows and its routes' destinations (in route order), then each
+    rank's rows copied to their destinations, as the 1-rank step copies the
+    global batch's.  Backward: this rank's rows' gradients alone, read at
+    its own destinations and summed over each token's routes, as autograd
+    differentiates ``buf.index_copy(0, dest, xf[st])``; no other rank's rows
+    get one here (they get theirs from their own combine), so nothing
+    moves."""
+
+    @staticmethod
+    def forward(ctx, xf, order, dest, routing, size):
+        t, k = xf.shape[0], dest.numel() // xf.shape[0]
+        by_route = torch.empty_like(dest).scatter_(0, order, dest).to(torch.int32)
+        rows, dests = routing.gather("buffer", xf, by_route)
+        token = torch.arange(routing.n * t * k, device=xf.device) // k
+        buf = torch.zeros((size, xf.shape[1]), dtype=xf.dtype, device=xf.device)
+        buf.index_copy_(0, dests.reshape(-1).to(torch.int64), rows.reshape(-1, xf.shape[1])[token])
+        ctx.save_for_backward(order, dest)
+        ctx.k = k
+        return buf
+
+    @staticmethod
+    def backward(ctx, g):
+        order, dest = ctx.saved_tensors
+        st = order // ctx.k
+        rows = g.index_select(0, dest)
+        gx = torch.zeros((st.numel() // ctx.k, g.shape[1]), dtype=g.dtype, device=g.device)
+        return gx.index_put_((st,), rows, accumulate=True), None, None, None, None
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """The sum of ``x`` over the data ranks (an all-reduce).  Every rank's
+    loss holds the term it feeds, and the step averages the ranks'
+    gradients, so the backward all-reduces the incoming gradient too: an
+    identity backward would leave this rank's inputs ``n`` times too
+    small a gradient."""
+
+    @staticmethod
+    def forward(ctx, x, routing):
+        ctx.routing = routing
+        return routing.reduce("balance", x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.routing.reduce("balance_grad", g), None
+
+
+def _global_balance_loss(logits: torch.Tensor, counts_all: torch.Tensor, e: MoEConfig,
+                         routing: GlobalRouting) -> torch.Tensor:
+    """``_balance_loss`` over the global microbatch: the ranks' counts
+    summed, the router's probabilities summed over every rank's tokens."""
+    dev = logits.device
+    n_tokens = routing.n * logits.shape[0]
+    probs_mean = _SumOverRanks.apply(L.softmax(logits).sum(dim=0), routing) / scalar(
+        float(n_tokens), torch.float32, dev)
+    counts = counts_all.to(torch.int64).sum(dim=0).to(torch.float32)
+    frac = counts / scalar(float(n_tokens * e.top_k), torch.float32, dev)
+    return scalar(float(e.n_routed), torch.float32, dev) * torch.sum(frac * probs_mean)
+
+
+def _place(xf: torch.Tensor, experts: torch.Tensor, e: MoEConfig, glob, train: bool):
+    """The capacity, the dispatch (``_dispatch``'s four) and the ``(E C + 1,
+    D)`` expert buffer of rows ``xf`` (T, D) routed to ``experts`` (T, k):
+    the single device's, or with ``glob`` (a ``GlobalRouting``) the global
+    microbatch's, with the ranks' gathered ``(n, E)`` counts (else None)."""
+    t, d = xf.shape
+    n = 1 if glob is None else glob.n
+    capacity = int(max(1, round(e.capacity_factor * n * t * e.top_k / e.n_routed)))
+    drop = e.n_routed * capacity
+    if glob is not None:
+        (counts_all,) = glob.gather("counts", _expert_counts(experts, e.n_routed))
+        routes = _dispatch(experts, capacity, drop, _global_offsets(counts_all, glob.r))
+        return capacity, routes, _GlobalBuffer.apply(xf, routes[0], routes[3], glob, drop + 1), counts_all
+    order, st, keep, dest = _dispatch(experts, capacity, drop)
+    buf = torch.zeros((drop + 1, d), dtype=xf.dtype, device=xf.device)
+    if train:
+        buf = buf.index_copy(0, dest, xf[st])
+    else:
+        buf.index_copy_(0, dest, xf[st])  # duplicate writes land in the drop slot
+    return capacity, (order, st, keep, dest), buf, None
 
 
 class _ScaleRoutes(torch.autograd.Function):
@@ -207,9 +424,12 @@ class _ScaleRoutes(torch.autograd.Function):
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, mode: str = "serve"):
     """The MoE FFN of ``x`` (B, S, D) -> (B, S, D).  Serving computes no
     load-balance loss (the reference's aux term is for training); train mode
-    returns ``(out, aux)``, aux the float32 balance loss."""
+    returns ``(out, aux)``, aux the float32 balance loss, and within
+    ``routing_global`` routes the global microbatch of which ``x`` is this
+    rank's rows."""
     e, quant = cfg.moe, cfg.quant
     train = mode == "train"
+    glob = _routing if train else None
     b, s, d = x.shape
     t = b * s
     dev = x.device
@@ -217,15 +437,9 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, mode: str = "serve"):
     logits = xf.to(torch.float32) @ p["router"]["w"].to(torch.float32)
     weights, experts = _route(logits, e, e.top_k)
 
-    capacity = int(max(1, round(e.capacity_factor * t * e.top_k / e.n_routed)))
+    capacity, (order, st, keep, dest), buf, counts_all = _place(xf, experts, e, glob, train)
     drop = e.n_routed * capacity
-    order, st, keep, dest = _dispatch(experts, capacity, drop)
     sw = weights.reshape(-1)[order].to(x.dtype)  # combine weights ride in bf16
-    buf = torch.zeros((drop + 1, d), dtype=x.dtype, device=dev)
-    if train:
-        buf = buf.index_copy(0, dest, xf[st])
-    else:
-        buf.index_copy_(0, dest, xf[st])  # duplicate writes land in the drop slot
     h_in = buf[:drop].reshape(e.n_routed, capacity, d)
 
     up = expert_qlinear(p["up"], h_in, quant, d, mode=mode)
@@ -248,4 +462,7 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, mode: str = "serve"):
     if "shared" in p:
         combined = combined + L.ffn(p["shared"], xf, cfg.ffn_type, quant, mode=mode)
     out = combined.reshape(b, s, d)
-    return (out, _balance_loss(logits, experts, e)) if train else out
+    if not train:
+        return out
+    aux = _balance_loss(logits, experts, e) if glob is None else _global_balance_loss(logits, counts_all, e, glob)
+    return out, aux

@@ -38,21 +38,25 @@ step.  XLA derives that from shardings; here each part is written out:
   reduce-scatter, once the model's backward is done), then the step
   divides by the data ranks; AdamW's clip takes the global norm of the
   shards, each element counted once.
-* **Not here**: Megatron-style tensor-parallel compute over ``model``, and
-  an MoE layer with more than one data rank (its capacity, buffer and
-  balance loss are global in the reference; ROADMAP section 1, item 7.4b):
-  the mesh step refuses it, and ``make_compressed_dp_step`` trains MoE
-  models with each rank's routing local, as the reference's ``shard_map``
-  step does.
+* **MoE layers** route the global microbatch over the data ranks
+  (``moe.routing_global``, entered beside ``ranges_reduced`` for every
+  microbatch): capacity, positions, drops, the expert buffer and the
+  balance loss are the 1-rank step's on the same global batch; the
+  metrics' ``aux`` is the global balance loss, on every rank alike.
+* **Not here**: Megatron-style tensor-parallel compute over ``model``
+  (ROADMAP section 1, item 7.7).
 
 ``make_compressed_dp_step`` is the reference's pure data-parallel step:
 params replicated, each rank's gradients of its rows (its ranges and
-routing local), averaged by ``optim.compression.compressed_psum`` over each
+routing local: an MoE layer's capacity, buffer and balance loss are the
+rank's own, as in the reference's ``shard_map`` step, where the mesh step's
+are global), averaged by ``optim.compression.compressed_psum`` over each
 data axis, then AdamW on every rank alike.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -65,6 +69,7 @@ from repro_torch.core import quantization as Q
 from repro_torch.core.constants import scalar
 from repro_torch.launch.mesh import mesh_axes
 from repro_torch.models import model_zoo as Z
+from repro_torch.models import moe as M
 from repro_torch.optim import adamw, compression
 from repro_torch.runtime import collectives as C
 from repro_torch.runtime import sharding as SH
@@ -124,6 +129,7 @@ def value_and_grad(params: dict, batch: dict, cfg: ArchConfig, tcfg: TrainConfig
     tracked = tree.unflatten(params, leaves)
     used = tracked if prepare is None else prepare(tracked)
     total, metrics = Z.loss_fn(used, batch, cfg, aux_weight=tcfg.aux_weight, remat=tcfg.remat)
+    del used  # a gathered leaf is freed once the backward no longer needs it
     grads = torch.autograd.grad(total, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     return {k: v.detach() for k, v in metrics.items()}, tree.unflatten(params, grads)
@@ -275,14 +281,22 @@ class _TreePlan:
     def scatter(self, grads, alphas):
         n_data = self.sizes.get("data", 1)
         coords = SH.coordinates(self.mesh)
-        chunks = [[] for _ in range(n_data)]
+        # data rank d's pieces of every leaf, in leaf order, fill row d of
+        # one buffer: copied once, with no per-piece tensors beside it
+        flat = torch.empty((n_data, sum(math.prod(leaf[3]) for leaf in self.leaves)), dtype=torch.float32,
+                           device=self.device)
+        o = 0
         for (kind, spec, shape, local, _), g, alpha in zip(self.leaves, grads, alphas):
+            n = math.prod(local)
             if g is None:
-                g = torch.zeros(shape, dtype=torch.float32, device=self.device)
+                flat[:, o:o + n].zero_()
+                o += n
+                continue
             g = g.to(torch.float32) * alpha if kind == "qmm" else g  # STE through sign
             for d in range(n_data):
-                chunks[d].append(SH.local_shard(g, spec, self.mesh, dict(coords, data=d)).reshape(-1))
-        mine = C.reduce_scatter(torch.cat([torch.cat(c) for c in chunks]), self.mesh.get_group("data"))
+                flat[d, o:o + n].view(local).copy_(SH.local_shard(g, spec, self.mesh, dict(coords, data=d)))
+            o += n
+        mine = C.reduce_scatter(flat.reshape(-1), self.mesh.get_group("data"))
         out, o = [], 0
         for kind, spec, shape, local, _ in self.leaves:
             n = math.prod(local)
@@ -422,8 +436,13 @@ def _sharded_norm(grads, shardings, mesh) -> torch.Tensor:
     return adamw.global_norm(grads, reduce=reduce)
 
 
-def _is_moe(cfg: ArchConfig) -> bool:
-    return cfg.moe is not None and any(k == "Mm" for k in cfg.layer_kinds)
+def _routing(group, r: int, n: int):
+    """The MoE layers' routing over the data ranks of ``group`` (None over
+    one rank, where the step's routing is the single device's as it is)."""
+    if n == 1:
+        return None
+    return M.GlobalRouting(n=n, r=r, all_gather=lambda t: C.all_gather(t, group),
+                           all_reduce=lambda t: C.all_reduce(t, group=group))
 
 
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig, device="cuda", mesh=None):
@@ -472,11 +491,6 @@ def mesh_step_refusal(cfg: ArchConfig, mesh) -> Optional[str]:
         return (f"the mesh step takes a (data, model) mesh: its fake-quant ranges and gradient "
                 f"reduce-scatter reduce over 'data' alone, so a 'pod' axis of {sizes['pod']} ranks "
                 "has no step")
-    n = math.prod(sizes[a] for a in SH.data_axes(mesh))
-    if n > 1 and _is_moe(cfg):
-        return (f"{cfg.name}: an MoE layer over {n} data ranks needs global routing (capacity "
-                "positions, the expert buffer and the balance loss over the global batch; ROADMAP "
-                "section 1, item 7.4b); make_compressed_dp_step trains it with each rank's routing local")
     return None
 
 
@@ -489,6 +503,7 @@ def _make_mesh_step(cfg: ArchConfig, tcfg: TrainConfig, device, mesh):
     p_sh, _ = train_shardings(cfg, mesh)
     group = mesh.get_group("data")
     ranges = _range_reduce(group)
+    routing = _routing(group, r, n)
 
     def prepare(p):
         return _gathered(p, cfg, mesh, p_sh)
@@ -496,7 +511,8 @@ def _make_mesh_step(cfg: ArchConfig, tcfg: TrainConfig, device, mesh):
     def step(params, opt_state, batch):
         batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
         grads, metrics = None, None
-        with Q.ranges_reduced(ranges):
+        with Q.ranges_reduced(ranges), (contextlib.nullcontext() if routing is None
+                                        else M.routing_global(routing)):
             for mb in _rows(batch, accum, r, n):
                 m, g = value_and_grad(params, mb, cfg, tcfg, prepare)
                 g = tree.leaves(g)

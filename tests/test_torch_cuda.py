@@ -13,6 +13,7 @@ unembed) differ in their last bits between devices, which can flip a bf16
 rounding and one 8-bit bucket of the next per-token quantization.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -1261,6 +1262,73 @@ def test_two_ranks_on_one_card_train_as_one_rank(dev, tmp_path):
     for got, want in zip(out[0]["params"], tree.leaves(params)):
         assert float((got - want.cpu()).abs().max()) <= 3 * 2 * MESH_OPT["lr"] * (1 + 1e-3)
     assert {"all_gather", "reduce_scatter", "all_reduce"} <= set(out[0]["staged"])
+
+
+def test_two_ranks_on_one_card_train_moe_as_one_rank(dev, tmp_path):
+    """deepseek-v2-lite smoke in 2 gloo ranks sharing the card (mesh 2x1),
+    its MoE layer routing the global microbatch: the first step's routes,
+    keep, dest and expert buffer those of the 1-rank step on the card,
+    its loss and balance loss within 1e-5, its first moments within 2**-6
+    of a leaf's largest; later steps within 2e-2."""
+    from torch_dist_workers import _cfg, moe_spy, run_ranks
+
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop as TL
+
+    cfg = _cfg("deepseek-v2-lite-16b")
+    batches = _mesh_batches(cfg)
+    out = run_ranks("card_mesh_worker", 2, tmp_path, {"opt": MESH_OPT, "batches": batches,
+                                                      "name": "deepseek-v2-lite-16b"})
+    params, opt = TL.init_train_state(0, cfg, device=dev)
+    step = TL.make_train_step(cfg, TL.TrainConfig(optimizer=adamw.AdamWConfig(**MESH_OPT)), device=dev)
+    losses, auxes, first_mu, seen = [], [], None, []
+    for b in batches:
+        with moe_spy(seen) if first_mu is None else contextlib.nullcontext():
+            params, opt, met = step(params, opt, b)
+        losses.append(float(met["loss"]))
+        auxes.append(float(met["aux"]))
+        first_mu = tree.leaves(opt.mu) if first_mu is None else first_mu
+    assert out[1]["losses"] == out[0]["losses"] and out[1]["auxes"] == out[0]["auxes"]
+    for ours, want in ((out[0]["losses"], losses), (out[0]["auxes"], auxes)):
+        gaps = [abs(x - y) / abs(y) for x, y in zip(ours, want)]
+        assert gaps[0] <= 1e-5 and max(gaps) <= 2e-2, gaps
+    for got, want in zip(out[0]["first_mu"], first_mu):
+        want = want.cpu()
+        assert float((got - want).abs().max()) <= 2.0 ** -6 * float(want.abs().max())
+    for r in range(2):
+        got = out[r]["seen"]
+        assert len(got) == len(seen) > 0
+        for g, w in zip(got, seen):
+            t = g["experts"].shape[0]
+            mine = w["st"].cpu() // t == r
+            assert torch.equal(g["experts"], w["experts"][r * t:(r + 1) * t].cpu())
+            for key in ("keep", "dest"):
+                assert torch.equal(g[key], w[key].cpu()[mine]), key
+            assert torch.equal(g["h_in"], w["h_in"].cpu())
+
+
+def test_global_dispatch_given_logits_on_card(dev, tmp_path):
+    """2 gloo ranks on the card, outside any step: given a microbatch's MoE
+    input and router logits at deepseek-v2-lite's expert count and top-k
+    (2 x 512 tokens a rank, capacity 240), each rank's global dispatch of
+    its rows equals the 1-rank dispatch of the whole on the card (routes,
+    order, keep, dest, the expert buffer), and the routing traffic is the
+    plan's counts and buffer parts."""
+    from torch_dist_workers import run_ranks
+
+    gen = torch.Generator().manual_seed(7)
+    t, d = 1024, 256
+    x = torch.randn((2 * t, d), generator=gen).to(torch.bfloat16)
+    logits = torch.randn((2 * t, 64), generator=gen) * 2
+    logits[:, :4] += 3  # experts 0-3 overflow the global capacity
+    logits[:t, 4] += 6  # rank 0 fills expert 4: rank 1's routes to it drop
+    out = run_ranks("card_dispatch_worker", 2, tmp_path, {"x": x, "logits": logits})
+    for r in out:
+        assert r["capacity"] == (240, 240) and r["experts"] and r["order"] and r["buffer"]
+        assert all(r["dispatch"]), r["dispatch"]
+        assert r["routing"]["counts"] == {"bytes": 2 * 64 * 4, "count": 1}
+        assert r["routing"]["buffer"] == {"bytes": 2 * (t * d * 2 + t * 6 * 4), "count": 1}
+    assert sum(r["dropped"] for r in out) > 0
 
 
 def test_one_rank_over_nccl_is_the_step_without_a_group(dev, tmp_path):

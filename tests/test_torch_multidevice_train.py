@@ -1,8 +1,9 @@
 """Multi-device QAT training of the port on the CPU: the mesh step
 (``make_train_step(mesh=)``), the packed-weight gather
 (``prebinarize_params``), the compressed data-parallel step, sharded
-checkpoints and the MoE refusal, in one group of 4 gloo ranks
-(``torch_dist_workers.train_worker``, spawned once for the module).
+checkpoints and MoE layers routing the global microbatch over data ranks,
+in one group of 4 gloo ranks (``torch_dist_workers.train_worker``, spawned
+once for the module).
 
 The oracle of a mesh step is the port's 1-rank step on the same global
 batch, itself held to the reference's ``make_train_step``
@@ -23,9 +24,15 @@ Tolerances, with what was seen:
   (the mean of two shard means; 1 seen); params to ``2 lr`` (Adam's first
   step moves each element by ``lr`` times the sign of its gradient, which
   flips where the gradient is tiny).
+* an MoE layer over ``data = 2``: its routes, ``keep``, ``dest`` and expert
+  buffer ``h_in`` are the 1-rank step's bit for bit (the global dispatch);
+  the balance loss ``aux`` within 4 float32 ulps (the router's
+  probabilities summed a rank at a time; 1 seen), the loss and first
+  moments as above.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -44,7 +51,7 @@ from repro_torch.core import tree
 from repro_torch.optim import adamw
 from repro_torch.runtime import sharding as SH
 from repro_torch.runtime import train_loop as TL
-from torch_dist_workers import _cfg, run_ranks
+from torch_dist_workers import MOE_CASES, _cfg, moe_spy, moe_tcfg, run_ranks
 from torch_port_fixtures import release_jax_caches  # noqa: F401  (autouse)
 
 # the clip never engages (grad_clip 1e6), so a global norm that differs in
@@ -52,12 +59,14 @@ from torch_port_fixtures import release_jax_caches  # noqa: F401  (autouse)
 # update as it is; the norm itself is held to 1e-6 below
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10, grad_clip=1e6)
 NAMES = ("granite-8b", "bit-bert-base")
+MOE_NAMES = ("deepseek-v2-lite-16b", "deepseek-v3-671b")
 BATCH, SEQ = 8, 16
+ULP4 = 4 * np.finfo(np.float32).eps
 
 
 def _batches() -> dict:
     out = {}
-    for i, name in enumerate(NAMES):
+    for i, name in enumerate(NAMES + MOE_NAMES):
         rng = np.random.default_rng(10 + i)
         out[name] = {"tokens": rng.integers(0, _cfg(name).vocab_size, size=(BATCH, SEQ)).astype(np.int32)}
     return out
@@ -326,9 +335,144 @@ def _coords_mesh(label: str, rank: int):
     return abstract_mesh((2, 1) if rank < 2 else (1, 2), ("data", "model"))
 
 
-def test_moe_over_data_ranks_is_refused(ranks):
-    """deepseek smoke over 2 data ranks needs the reference's global routing
-    (ROADMAP item 7.4b): the mesh step refuses it; over 1 data rank it
-    builds."""
-    assert "7.4b" in ranks[0]["moe"] and "7.4b" in ranks[1]["moe"]
-    assert ranks[2]["moe"] is None and ranks[3]["moe"] is None
+# ---------------------------------------------------------------------------
+# MoE layers over data ranks: the global microbatch's routing
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_one_rank(key: str):
+    """The 1-rank step of ``MOE_CASES[key]``'s model and config on the
+    global batch, every MoE layer's routing spied as the ranks spy theirs."""
+    name, _, fields, _ = MOE_CASES[key]
+    cfg = _cfg(name)
+    params, opt = TL.init_train_state(0, cfg, device="cpu")
+    seen = []
+    with moe_spy(seen):
+        p2, o2, met = TL.make_train_step(cfg, moe_tcfg(OPT, **fields), device="cpu")(params, opt,
+                                                                                     _batches()[name])
+    return {"params": p2, "mu": o2.mu, "nu": o2.nu, "metrics": met, "seen": seen}
+
+
+def _moe_run(ranks, key: str, rank: int):
+    return ranks[rank]["moe"][key]
+
+
+def _assert_dispatch_is_global(got: list, want: list, r: int, n: int):
+    """Rank ``r`` of ``n``'s spied routing against the 1-rank step's: its
+    rows' routes, and its sorted routes' keep and destinations as the
+    1-rank step's sorted routes of its tokens; ``h_in`` whole."""
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        t = g["experts"].shape[0]
+        assert w["experts"].shape[0] == n * t
+        assert torch.equal(g["experts"], w["experts"][r * t:(r + 1) * t])
+        mine = w["st"] // t == r
+        assert torch.equal(g["st"] + r * t, w["st"][mine])
+        assert torch.equal(g["keep"], w["keep"][mine])
+        assert torch.equal(g["dest"], w["dest"][mine])
+        assert torch.equal(g["h_in"], w["h_in"])
+
+
+@pytest.mark.parametrize("key", ["v2_pair", "v2_full", "v3_pair", "v3_full"])
+def test_moe_dispatch_over_data_ranks_is_the_one_rank_dispatch(ranks, key):
+    """deepseek-v2-lite (softmax routing, shared experts) and deepseek-v3
+    (sigmoid routing) smoke over 2x1 and 2x2: every MoE layer's routes,
+    ``keep``, ``dest`` and expert buffer, forward and remat's recompute,
+    are the 1-rank step's on the global batch, bit for bit; some routes
+    are dropped at the global capacity."""
+    want = _moe_one_rank(key)["seen"]
+    for rank in (range(2) if key.endswith("pair") else range(4)):  # 2x2: data index rank // 2
+        _assert_dispatch_is_global(_moe_run(ranks, key, rank)["seen"], want, rank if key.endswith("pair")
+                                   else rank // 2, 2)
+    assert any(not bool(w["keep"].all()) for w in want)
+
+
+def _assert_bounded(got: dict, want: dict):
+    """The module's bounds on a data = 2 step: loss and aux within 4 float32
+    ulps, first moments within ``2**-6`` of each leaf's largest."""
+    for k in ("loss", "aux"):
+        a, b = float(got["metrics"][k]), float(want["metrics"][k])
+        assert abs(a - b) <= ULP4 * abs(b), (k, a, b)
+    for path, mu in tree.leaves_with_paths(got["mu"]):
+        ref_mu = dict(tree.leaves_with_paths(want["mu"]))[path]
+        assert float((mu - ref_mu).abs().max()) <= 2.0 ** -6 * float(ref_mu.abs().max()) + 1e-30, path
+
+
+@pytest.mark.parametrize("name", ["v2", "v3"])
+def test_moe_mesh_steps_are_bounded_and_2x2_equals_2x1(ranks, name):
+    """The MoE models' 2x1 step within the module's bounds of the 1-rank
+    step, its aux the global balance loss on both ranks alike; 2x2 equal to
+    2x1 bit for bit (params, moments, metrics)."""
+    want = _moe_one_rank(f"{name}_pair")
+    two, four = _moe_run(ranks, f"{name}_pair", 0), _moe_run(ranks, f"{name}_full", 0)
+    _assert_bounded(two, want)
+    assert float(two["metrics"]["aux"]) > 0
+    assert torch.equal(two["metrics"]["aux"], _moe_run(ranks, f"{name}_pair", 1)["metrics"]["aux"])
+    for key in ("params", "mu", "nu"):
+        assert _equal(two[key], four[key]), key
+    for k in ("loss", "aux", "nll", "lr"):
+        assert torch.equal(two["metrics"][k], four["metrics"][k]), k
+
+
+def test_moe_over_one_data_rank_is_the_one_rank_step(ranks):
+    """1x2 (one data rank, two model ranks) routes on one rank as the
+    1-rank step does: params, moments and metrics bit for bit, no routing
+    collective."""
+    for key in ("v2_pair", "v3_pair"):
+        want, one = _moe_one_rank(key), _moe_run(ranks, key, 2)
+        for k in ("params", "mu", "nu"):
+            assert _equal(one[k], want[k]), (key, k)
+        for k in ("loss", "aux", "nll"):
+            assert torch.equal(one["metrics"][k], want["metrics"][k]), (key, k)
+        assert all(v == {"bytes": 0, "count": 0} for v in one["routing"].values())
+        _assert_dispatch_is_global(one["seen"], want["seen"], 0, 1)
+
+
+def test_moe_mesh_step_with_accumulation(ranks):
+    """``accum_steps=2``: each microbatch's routing is the global
+    microbatch's (capacity from its 2 x 4 rows' routes), bit for bit; the
+    step within the bounds."""
+    want = _moe_one_rank("v2_accum")
+    for rank in range(2):
+        _assert_dispatch_is_global(_moe_run(ranks, "v2_accum", rank)["seen"], want["seen"], rank, 2)
+    _assert_bounded(_moe_run(ranks, "v2_accum", 0), want)
+
+
+def test_moe_balance_gradient_is_summed_over_the_ranks(ranks):
+    """``aux_weight=1.0``: the router's first moments stay within the
+    bound.  With the balance statistics' backward left as the identity
+    (each rank's probabilities given its own share of the gradient, ``n``
+    times too small once the step averages the ranks) the loss is the same
+    but the router's moments read beyond it."""
+    want = _moe_one_rank("v2_aux")
+    got, wrong = _moe_run(ranks, "v2_aux", 0), _moe_run(ranks, "v2_aux_identity", 0)
+    _assert_bounded(got, want)
+    assert torch.equal(wrong["metrics"]["loss"], got["metrics"]["loss"])
+    router = [p for p, _ in tree.leaves_with_paths(want["mu"]) if "router" in p]
+    assert router
+    ref = dict(tree.leaves_with_paths(want["mu"]))
+    gaps = [float((dict(tree.leaves_with_paths(wrong["mu"]))[p] - ref[p]).abs().max())
+            / float(ref[p].abs().max()) for p in router]
+    assert max(gaps) > 2.0 ** -6, gaps
+
+
+def test_dryrun_plan_equals_the_live_routing(ranks):
+    """The dry-run's routing bytes for deepseek-v2-lite smoke over 2x1
+    (``dryrun.collective_bytes`` with the batch's shape: the counts, the
+    buffer exchange, the balance statistics and their gradient, each MoE
+    layer, remat's recompute counted again) equal the live step's counters
+    on both ranks, with and without accumulation."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh
+
+    mesh = abstract_mesh((2, 1), ("data", "model"))
+    shape = InputShape("smoke", SEQ, BATCH, "train")
+    for key, accum in (("v2_pair", 1), ("v2_accum", 2)):
+        plan = dryrun.collective_bytes(_cfg("deepseek-v2-lite-16b"), mesh, accum, shape)
+        want = {part: {"bytes": v["bytes"], "count": v["count"]} for part, v in plan["routing"].items()}
+        assert want["buffer"]["bytes"] > 0 and want["balance_grad"]["count"] == accum
+        for rank in range(2):
+            assert _moe_run(ranks, key, rank)["routing"] == want, (key, rank)
+    assert plan["all-reduce"]["count"] == sum(v["count"] for k, v in want.items() if k.startswith("balance"))

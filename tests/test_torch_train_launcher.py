@@ -2,7 +2,9 @@
 repro_torch.launch.train --devices 2 --mesh 2x1 --device cpu`` trains 2
 steps in two gloo ranks and rank 0 checkpoints the gathered leaves; the
 same run relaunched on a 1x2 mesh resumes from that checkpoint (each rank
-takes its slice under the new mesh) and carries on to step 4."""
+takes its slice under the new mesh) and carries on to step 4.  An MoE
+model trains over 2 data ranks too (its routing over the global
+microbatch)."""
 
 import os
 import subprocess
@@ -43,3 +45,15 @@ def test_a_mesh_needs_devices():
     with pytest.raises(ValueError, match="exceeds 1 devices"):
         LT.train(LT.parse_args(["--arch", "bit-bert-base", "--smoke", "--device", "cpu", "--mesh", "2x1"]))
     assert LT.backend_for("cpu", 4) == "gloo"
+
+
+def test_moe_model_trains_over_two_data_ranks(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", "deepseek-v2-lite-16b",
+                          "--smoke", "--device", "cpu", "--devices", "2", "--mesh", "2x1", "--steps", "2",
+                          "--batch", "4", "--seq", "32", "--ckpt-every", "2", "--lr", "1e-3",
+                          "--ckpt-dir", str(tmp_path / "ckpt")], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert run.stdout.count("[runner] step") == 2 and "[train] loss" in run.stdout
+    assert (tmp_path / "ckpt" / "step_000000002" / "_COMMITTED").exists()

@@ -7,6 +7,7 @@ torch only, never JAX, so a rank starts in a few seconds."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import sys
 import traceback
@@ -108,12 +109,97 @@ def _global(tree_, shardings):
     return SH.gather_tree(tree_, shardings)
 
 
+@contextlib.contextmanager
+def moe_spy(seen: list):
+    """Record every train-mode MoE layer's routes (``_route``'s experts),
+    dispatch (``_dispatch``'s order, token, keep and destination) and
+    expert buffer (``h_in``, the input of the first ``expert_qlinear`` of
+    each layer), in call order: the forward's, then remat's recompute."""
+    from unittest import mock
+
+    from repro_torch.models import moe as M
+
+    route, dispatch, qlinear = M._route, M._dispatch, M.expert_qlinear
+    calls = []
+
+    def spy_route(*a, **k):
+        out = route(*a, **k)
+        seen.append({"experts": out[1].detach().clone()})
+        calls.clear()
+        return out
+
+    def spy_dispatch(*a, **k):
+        out = dispatch(*a, **k)
+        seen[-1].update(zip(("order", "st", "keep", "dest"), (x.clone() for x in out)))
+        return out
+
+    def spy_qlinear(p, x, *a, **k):
+        if not calls:
+            seen[-1]["h_in"] = x.detach().clone()
+        calls.append(1)
+        return qlinear(p, x, *a, **k)
+
+    with mock.patch.object(M, "_route", spy_route), mock.patch.object(M, "_dispatch", spy_dispatch), \
+            mock.patch.object(M, "expert_qlinear", spy_qlinear):
+        yield seen
+
+
+#: the MoE scenarios of ``train_worker``: (name, mesh shape or "pair",
+#: TrainConfig fields, the balance gradient's backward left as the identity)
+MOE_CASES = {
+    "v2_pair": ("deepseek-v2-lite-16b", "pair", {}, False),
+    "v2_full": ("deepseek-v2-lite-16b", (2, 2), {}, False),
+    "v3_pair": ("deepseek-v3-671b", "pair", {}, False),
+    "v3_full": ("deepseek-v3-671b", (2, 2), {}, False),
+    "v2_accum": ("deepseek-v2-lite-16b", "pair", {"accum_steps": 2}, False),
+    "v2_aux": ("deepseek-v2-lite-16b", "pair", {"aux_weight": 1.0}, False),
+    "v2_aux_identity": ("deepseek-v2-lite-16b", "pair", {"aux_weight": 1.0}, True),
+}
+
+
+def moe_tcfg(opt: dict, **fields):
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train_loop as TL
+
+    return TL.TrainConfig(optimizer=adamw.AdamWConfig(**opt), **fields)
+
+
+def _moe_cases(rank: int, payload, pairs, full) -> dict:
+    """Each of ``MOE_CASES``' first steps on this rank: the global trees,
+    the metrics, every MoE layer's spied routing and the routing
+    collectives' traffic."""
+    from unittest import mock
+
+    from repro_torch.models import moe as M
+    from repro_torch.runtime import train_loop as TL
+
+    out = {}
+    on_pair = (2, 1) if rank < 2 else (1, 2)
+    for key, (name, shape, fields, identity) in MOE_CASES.items():
+        mesh = pairs[on_pair] if shape == "pair" else full
+        cfg = _cfg(name)
+        params, opt = TL.init_train_state(0, cfg, device="cpu", mesh=mesh)
+        step = TL.make_train_step(cfg, moe_tcfg(payload["opt"], **fields), device="cpu", mesh=mesh)
+        M.clear_routing_traffic()
+        seen = []
+        with moe_spy(seen), contextlib.ExitStack() as stack:
+            if identity:  # the balance statistics' gradient not summed over the ranks
+                stack.enter_context(mock.patch.object(M._SumOverRanks, "backward",
+                                                      staticmethod(lambda ctx, g: (g, None))))
+            p2, o2, met = step(params, opt, payload["batch"][name])
+        p_sh, _ = TL.train_shardings(cfg, mesh)
+        out[key] = {"metrics": met, "params": _global(p2, p_sh), "mu": _global(o2.mu, p_sh),
+                    "nu": _global(o2.nu, p_sh), "seen": seen,
+                    "routing": {k: dict(v) for k, v in M.ROUTING.items()}}
+    return out
+
+
 def train_worker(rank: int, world: int, payload):
     """Every scenario of ``tests/test_torch_multidevice_train.py`` in one
     group of 4 ranks: the meshes' first steps (2x1 on ranks 0-1 beside 1x2
     on ranks 2-3, then 2x2), the fake-quant ranges, the prebinarized step,
     the compressed step, a sharded checkpoint restored onto other meshes,
-    and the MoE refusal."""
+    and the MoE models' steps with their routing spied (``MOE_CASES``)."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core import quantization as Q
     from repro_torch.core import tree
@@ -222,43 +308,71 @@ def train_worker(rank: int, world: int, payload):
                            "specs": [s.spec for s in tree.leaves(q_sh)]}
     out["restored"] = restored
 
-    # an MoE model over two data ranks is refused (ROADMAP 7.4b)
-    try:
-        TL.make_train_step(_cfg("deepseek-v2-lite-16b"), tcfg, device="cpu", mesh=pairs[on_pair])
-        out["moe"] = None
-    except NotImplementedError as e:
-        out["moe"] = str(e)
+    out["moe"] = _moe_cases(rank, payload, pairs, full)
     return out
 
 
 def card_mesh_worker(rank: int, world: int, payload):
     """Two ranks on one card (gloo, CUDA tensors staged through the host):
-    bit-bert smoke over a 2x1 mesh, one step a batch of ``payload``; the
-    losses, the gathered params, the first step's first moments and the
-    staged ops."""
+    ``payload["name"]``'s smoke model (bit-bert by default) over a 2x1
+    mesh, one step a batch of ``payload``; the losses and balance losses,
+    the gathered params, the first step's first moments and MoE routing
+    (``moe_spy``), and the staged ops."""
     from repro_torch.core import tree
-    from repro_torch.optim import adamw
     from repro_torch.runtime import collectives as C
     from repro_torch.runtime import train_loop as TL
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    cfg = _cfg("bit-bert-base")
+    cfg = _cfg(payload.get("name", "bit-bert-base"))
     mesh = _mesh((2, 1), [0, 1])
-    tcfg = TL.TrainConfig(optimizer=adamw.AdamWConfig(**payload["opt"]))
     params, opt = TL.init_train_state(0, cfg, device=dev, mesh=mesh)
-    step = TL.make_train_step(cfg, tcfg, device=dev, mesh=mesh)
+    step = TL.make_train_step(cfg, moe_tcfg(payload["opt"]), device=dev, mesh=mesh)
     p_sh, _ = TL.train_shardings(cfg, mesh)
     C.STAGED.clear()
-    losses, first_mu = [], None
+    losses, auxes, first_mu, seen = [], [], None, []
     for batch in payload["batches"]:
-        params, opt, met = step(params, opt, batch)
+        with moe_spy(seen) if first_mu is None else contextlib.nullcontext():
+            params, opt, met = step(params, opt, batch)
         losses.append(float(met["loss"]))
+        auxes.append(float(met["aux"]))
         if first_mu is None:
             first_mu = [t.cpu() for t in tree.leaves(_global(opt.mu, p_sh))]
     full = _global(params, p_sh)
-    return {"losses": losses, "params": [t.cpu() for t in tree.leaves(full)], "first_mu": first_mu,
-            "staged": dict(C.STAGED)}
+    return {"losses": losses, "auxes": auxes, "params": [t.cpu() for t in tree.leaves(full)],
+            "first_mu": first_mu, "staged": dict(C.STAGED),
+            "seen": [{k: v.cpu() for k, v in x.items()} for x in seen]}
+
+
+def card_dispatch_worker(rank: int, world: int, payload):
+    """Two ranks on one card: the global dispatch given the whole
+    microbatch's MoE input and router logits (``payload``), this rank's
+    rows routed over the gloo group outside any step, against the 1-rank
+    dispatch of the whole, computed here on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    from repro_torch.runtime import train_loop as TL
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    e = get_config("deepseek-v2-lite-16b").moe
+    x, logits = payload["x"].to(dev), payload["logits"].to(dev)
+    t = x.shape[0] // world
+    mine = slice(rank * t, (rank + 1) * t)
+    with torch.no_grad():
+        _, whole = M._route(logits, e, e.top_k)
+        capacity, want, want_buf, _ = M._place(x, whole, e, None, True)
+        _, experts = M._route(logits[mine], e, e.top_k)
+        M.clear_routing_traffic()
+        cap, got, buf, _ = M._place(x[mine], experts, e, TL._routing(dist.group.WORLD, rank, world), True)
+    sel = want[1] // t == rank
+    return {"capacity": (cap, capacity), "experts": torch.equal(experts, whole[mine]),
+            "dispatch": [torch.equal(a, b[sel]) for a, b in zip(got[2:], want[2:])],  # keep, dest
+            "order": torch.equal(got[1] + rank * t, want[1][sel]), "buffer": torch.equal(buf[:-1], want_buf[:-1]),
+            "dropped": int((~got[2]).sum()), "routing": {k: dict(v) for k, v in M.ROUTING.items()}}
+
 
 
 def staged_worker(rank: int, world: int, payload):
