@@ -306,13 +306,36 @@ Phases (each prints its own lines):
    AdamW state are built on the card (within 512 B, the allocator's
    rounding, a tensor), and its 2x1 plan's gathered bytes against [18b]'s
    counters, exactly.
+20. the serving steps over a ``(data, model)`` mesh (``make_prefill`` /
+   ``make_decode_step`` with ``mesh=``), 2 gloo ranks sharing the card, a
+   prefill of 4 x 128 tokens (max_len 512) and 16 greedy decode steps each:
+   [20a] granite-8b at full width and depth, W1A8 ``pallas``, mesh 1x2
+   (tensor-parallel: K1 at the local shapes, 252 launches a forward a
+   rank); [20b] bit-bert-base W1A1 with ``attn.qk -> binary``, mesh 1x2
+   (K3 72 and the scores kernel 12, on 6 heads a rank); [20c] granite-8b
+   on 4 of 36 layers, mesh 2x1 (the batch over ``data``).  Against the
+   unmeshed steps on the same params: every cache leaf of each rank its
+   shard's bits after the prefill and at the end, greedy tokens equal,
+   logits within ``TP_LOGITS_RTOL``, each wrapper's launches and each K1 /
+   K3 call's (M, K, N).  Each rank logs its prefill and step ms (beside the
+   parent's work), ``collectives.BYTES``, staged calls and seconds by op,
+   peak memory, and against the dry-run's plan of the same steps
+   (``dryrun.serving_counts``) the bytes the collectives carried.  [20d]
+   one NCCL rank, mesh 1x1, [20c]'s 4 layers: the steps captured with
+   their collectives (mode ``graph``), replays bitwise the unmeshed
+   ``CompiledStep``'s, the device work the collectives add to an eager
+   step found in a profiled replay (NCCL over one rank copies device to
+   device: graph memcpy nodes).  Then K1, K3 and
+   the scores kernel at the local shapes against their plain versions,
+   timed (their ``sharded`` entries).
 11. (printed last) one JSON line of per-kernel numbers, the ``nvidia-smi``
    line, and last ``{"ok": true, "device": {...}}``.  Each kernel's
    ``launches`` is its wrapper's count over its main path's run alone
    (phase 3's engine run for K1, phase 4's fused pass for K2, phase 5's
    engine run for K3, phase 6 for K4, phase 12's engine run for the scores
    kernel, which adds ``autotune``, [12c]'s keys, timing runs and winners;
-   K3 adds ``multidevice``, [18e]'s launches);
+   K3 adds ``multidevice``, [18e]'s launches; K1, K3 and the scores kernel
+   add ``sharded``, phase 20's launches and their rows at the local shapes);
    ``replays`` is the number of replayed ticks in that run, and
    ``replay_launches`` the kernel's launches counted on the device in one
    profiled replay of that path's decode graph (K3 and the scores kernel add
@@ -639,7 +662,9 @@ def _log_row(name: str, r) -> None:
         f"[{r['library']}]{int_mm}{k4}")
 
 
-def check_kernels(gen: torch.Generator):
+def check_kernels(gen: torch.Generator, shapes=None, k1_only=None):
+    """K1 and K2 against their plain versions at ``shapes`` (phase 2's by
+    default), K1 alone at ``k1_only``; timed."""
     from repro_torch.core import packing
     from repro_torch.kernels import ref
     from repro_torch.kernels.binary_qmm import binary_qmm, plan
@@ -647,7 +672,9 @@ def check_kernels(gen: torch.Generator):
 
     dev = gen.device
     rows = {"binary_qmm": [], "fused_qmm": []}
-    for m, k, n in KERNEL_SHAPES + GEMMA3_SHAPES + K1_ONLY_SHAPES:
+    shapes = KERNEL_SHAPES + GEMMA3_SHAPES if shapes is None else shapes
+    k1_only = K1_ONLY_SHAPES if k1_only is None else k1_only
+    for m, k, n in shapes + k1_only:
         kw = packing.packed_len(k, 1)
         w_bytes = 4 * kw * n
         reps = _copies(w_bytes)
@@ -671,7 +698,7 @@ def check_kernels(gen: torch.Generator):
         bm, bn, splits = plan(m, k, n, dev)
         rows["binary_qmm"][-1].update(tile=[bm, bn], splits=splits)
         _log_row("binary_qmm", rows["binary_qmm"][-1])
-        if (m, k, n) in K1_ONLY_SHAPES:
+        if (m, k, n) in k1_only:
             del wps, a
             continue
         # ---- K2 at W1A8: 8 activation planes x 1 weight plane, arbitrary scales
@@ -739,8 +766,9 @@ BITSERIAL_CASES = [
 ]
 
 
-def check_bit_kernels(gen: torch.Generator):
-    """K3 and K4 against their plain versions (equal int32), timed."""
+def check_bit_kernels(gen: torch.Generator, popcount_shapes=None, bitserial_cases=None):
+    """K3 and K4 against their plain versions (equal int32), timed, at
+    phase 2's shapes unless others are given."""
     from repro_torch.core import packing
     from repro_torch.kernels import ref
     from repro_torch.kernels.bitserial_qmm import bitserial_qmm
@@ -749,7 +777,7 @@ def check_bit_kernels(gen: torch.Generator):
 
     dev = gen.device
     rows = {"popcount_qmm": [], "bitserial_qmm": []}
-    for m, k, n in POPCOUNT_SHAPES:
+    for m, k, n in POPCOUNT_SHAPES if popcount_shapes is None else popcount_shapes:
         kw = packing.packed_len(k, 1)
         a = torch.randint(0, 2, (m, k), generator=gen, device=dev, dtype=torch.int8)
         ap = packing.pack_bits(a, 1, axis=-1)
@@ -777,7 +805,7 @@ def check_bit_kernels(gen: torch.Generator):
         rows["popcount_qmm"][-1].update(tile=[bm, bn], splits=splits, k4_a1_ms=device_ms(
             [lambda w=w: bitserial_qmm(ap[None], w[None]) for w in bps], 20 * len(bps)))
         del bps, a, b
-    for (m, k, n), xb, yb in BITSERIAL_CASES:
+    for (m, k, n), xb, yb in BITSERIAL_CASES if bitserial_cases is None else bitserial_cases:
         kw = packing.packed_len(k, 1)
         x = torch.randint(0, 2**xb, (m, k), generator=gen, device=dev)
         y = torch.randint(0, 2**yb, (k, n), generator=gen, device=dev)
@@ -859,10 +887,14 @@ KERNEL_NAMES = ("binary_qmm", "fused_qmm", "popcount_qmm", "bitserial_qmm", "bin
 # window: those at the start went, those at the end stayed).  So each
 # profile opens with PROFILE_MARGIN spin kernels and PROFILE_MARGIN_S of
 # idle time before the work, closes with PROFILE_MARGIN spin kernels, and
-# counts neither; a trace that lost some of them is logged.
-PROFILE_MARGIN = 64
+# counts neither; a trace that lost some of them is logged.  By phase 20 a
+# trace lost all of 64 leading spins and then some of the work (PR 32), so
+# the margin is 512; ``LAST_TRACE`` holds how many of each margin the last
+# trace kept beside the work, for a check that needs the work whole.
+PROFILE_MARGIN = 512
 PROFILE_MARGIN_S = 0.05
 _MARGIN_NAME = "spin_kernel"
+LAST_TRACE = {"before": PROFILE_MARGIN, "after": PROFILE_MARGIN}
 
 
 def _spin_kernels() -> None:
@@ -894,11 +926,13 @@ def profile_forward(fn):
     cuda = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     spins = sorted(e.time_range.start for e in cuda if _MARGIN_NAME in e.name)
     work = [e for e in cuda if _MARGIN_NAME not in e.name]
+    first = min((e.time_range.start for e in work), default=None)
+    last = max((e.time_range.end for e in work), default=None)
+    LAST_TRACE.update(before=sum(x < first for x in spins) if first is not None else 0,
+                      after=sum(x >= last for x in spins) if last is not None else 0)
     if len(spins) != 2 * PROFILE_MARGIN:
-        first = min((e.time_range.start for e in work), default=None)
-        before = sum(x < first for x in spins) if first is not None else 0
         log(f"  (the trace holds {len(spins)} of the profile's {2 * PROFILE_MARGIN} margin spin "
-            f"kernels, {before} of them before the work)")
+            f"kernels, {LAST_TRACE['before']} of them before the work)")
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA and _MARGIN_NAME not in e.key:
             by_kernel[e.key] = by_kernel.get(e.key, 0.0) + e.self_device_time_total / 1e3
@@ -2041,7 +2075,7 @@ BINARY_ATTN_LAYERS = 12  # bit-bert-base: one scores launch a layer
 AUTOTUNE_REQUESTS = 4
 
 
-def check_binary_attn(gen: torch.Generator) -> list:
+def check_binary_attn(gen: torch.Generator, cases=None) -> list:
     """The scores kernel against its plain version, bit for bit, on the
     layouts the model hands it: Q a transposed view of ``(B, S, H, dw)``
     words, K the packed cache ``(B, T, G, dw)`` permuted to ``(B, G, T,
@@ -2055,7 +2089,7 @@ def check_binary_attn(gen: torch.Generator) -> list:
 
     dev = gen.device
     rows = []
-    for tag, (b, h, s), (_, g, t), dh, dirty in BINARY_ATTN_CASES:
+    for tag, (b, h, s), (_, g, t), dh, dirty in BINARY_ATTN_CASES if cases is None else cases:
         dw = packing.packed_len(dh, 1)
 
         def planes(shape, tail=False):
@@ -4638,6 +4672,387 @@ def verify_and_dry_run(Z, granite_cfg, bert_cfg, device, kernels, smi, md_number
     return {n: verified[n] for n in names}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the serving steps over a (data, model) mesh -- granite-8b and
+# bit-bert-base tensor-parallel over 2 gloo ranks sharing the card, granite
+# over 2 data ranks, one NCCL rank's step captured with its collectives
+# ---------------------------------------------------------------------------
+
+TP_BATCH, TP_PROMPT, TP_MAX_LEN, TP_STEPS = 4, 128, 512, 16
+TP_DP_LAYERS = 4  # [20c]: granite-8b's first 4 of 36 layers over 2 data ranks
+TP_NCCL_STEPS = 4  # [20d]: decode calls of the captured step (1 capture + 3 replays)
+TP_TRACE_TRIES = 3  # [20d]: profiles of a step taken until the trace holds the whole work
+TP_RANKS_TIMEOUT_S = 600
+# The largest |logit| gap of a sharded step from the unmeshed one, as a share
+# of the step's largest |logit| (ROADMAP section 3): every integer result and
+# cache leaf is equal, and only the float32 unembedding's product over a
+# vocabulary shard may take another cuBLAS kernel, and so another K order,
+# than the product over the whole table.
+TP_LOGITS_RTOL = 1e-5
+# K1 at granite-8b's local sites over 2 model ranks and K3 at bit-bert-base's
+# (``_tp_sites``), at a decode's 4 rows and a 4 x 128-token prefill's 512;
+# the scores kernel on bit-bert-base's 6 heads a rank
+TP_ROWS = (4, 512)
+TP_SCORES_CASES = [
+    ("bit-bert TP prefill", (4, 6, 128), (4, 6, 128), 64, False),
+    ("bit-bert TP decode", (4, 6, 1), (4, 6, 512), 64, False),
+]
+
+
+def _tp_cases(granite_cfg, bert_cfg) -> dict:
+    """[20a]-[20c]: tag -> (config, mesh shape, K1 / K3 launches a forward)."""
+    g = with_backend(granite_cfg, "pallas")
+    b = _with_qk(with_backend(bert_cfg, "pallas"), "binary")
+    return {"20a": (g, (1, 2), SITES_PER_LAYER * g.n_layers),
+            "20b": (b, (1, 2), BERT_SITES_PER_LAYER * b.n_layers),
+            "20c": (dataclasses.replace(g, n_layers=TP_DP_LAYERS), (2, 1), SITES_PER_LAYER * TP_DP_LAYERS)}
+
+
+def _tp_sites(cfg, m: int) -> list:
+    """The (K, N) of a dense block's sites on one of ``m`` model ranks: q,
+    k / v, up (and gate), then the row-parallel o and down."""
+    q, kv, ff = cfg.n_heads * cfg.d_head // m, cfg.n_kv_heads * cfg.d_head // m, cfg.d_ff // m
+    return sorted({(cfg.d_model, q), (cfg.d_model, kv), (cfg.d_model, ff), (q, cfg.d_model), (ff, cfg.d_model)})
+
+
+def _tp_prompts(cfg) -> torch.Tensor:
+    rng = np.random.default_rng(20)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(TP_BATCH, TP_PROMPT)).astype(np.int64))
+
+
+def _tp_serve(Z, make_prefill, make_decode_step, cfg, device, mesh=None, params=None, steps=None,
+              snap_at=()):
+    """A prefill of ``_tp_prompts`` and ``steps`` greedy decode steps through
+    the compiled steps (over ``mesh`` when given, the whole params sharded
+    there); each call synchronised and timed.  Returns the logits and
+    tokens (on the host), the cache after the prefill, after each decode
+    call of ``snap_at`` and at the end (on the host), each call's ms and the
+    steps."""
+    whole = Z.init_serving_params(0, cfg, device=device) if params is None else params
+    prefill = make_prefill(cfg, TP_BATCH, TP_PROMPT, TP_MAX_LEN, device=device, mesh=mesh)
+    step = make_decode_step(cfg, TP_BATCH, TP_MAX_LEN, device=device, mesh=mesh)
+    if mesh is None:
+        p, cache = whole, Z.init_cache(TP_BATCH, TP_MAX_LEN, cfg, device=device)
+    else:
+        p, cache = prefill.shard_params(whole), prefill.init_cache()
+        del whole
+    torch.cuda.empty_cache()
+
+    def host(c):
+        return {"layers": [{k: v.to("cpu", copy=True) for k, v in layer.items()} for layer in c["layers"]]}
+
+    ms, logits, fed, snaps = [], [], [], {}
+    steps = TP_STEPS if steps is None else steps
+    tokens = _tp_prompts(cfg).to(device)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out, cache = prefill(p, tokens, cache)
+    torch.cuda.synchronize()
+    ms.append((time.perf_counter() - t) * 1e3)
+    snaps["prefill"] = host(cache)
+    for i in range(steps):
+        logits.append(out.cpu())
+        tok = out.argmax(-1)
+        fed.append(tok.cpu())
+        t = time.perf_counter()
+        out, cache = step(p, tok, cache)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        if i + 1 in snap_at:
+            snaps[i + 1] = host(cache)
+    logits.append(out.cpu())
+    snaps["end"] = host(cache)
+    return dict(logits=logits, fed=fed, snaps=snaps, ms=ms, steps=(prefill, step), params=p)
+
+
+def _tp_rank(rank: int, world: int, tmp: str, plan: dict) -> None:
+    """One rank of phase 20: [20a] and [20b] over a 1x2 mesh, [20c] over a
+    2x1 mesh (gloo, both ranks on the one card); each case's results, wrapper
+    launches and the (M, K, N) of each K1 / K3 call, seconds, collectives and
+    peak memory saved to ``tmp``."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import binary_attn as K5
+    from repro_torch.kernels import binary_qmm as K1
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import popcount_qmm as K3
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.runtime import collectives as C
+    from repro_torch.runtime import sharding as SH
+    from repro_torch.runtime.serve_loop import make_decode_step, make_prefill
+
+    os.environ["REPRO_QMM_AUTOTUNE"] = "0"  # the scores core is the kernel
+    device = torch.device(plan["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/init", rank=rank, world_size=world)
+    try:
+        meshes = {(1, 2): make_host_mesh(1, 2, device=str(device)), (2, 1): make_host_mesh(2, 1, device=str(device))}
+        kernels = (K1.binary_qmm, K3.popcount_qmm, K5.binary_attn_scores_planes)
+        out = {}
+        for tag, (cfg, shape, _) in plan["cases"].items():
+            seen = []
+            k1, k3 = ops.binary_qmm_int, ops.popcount_qmm_int
+
+            def spy_k1(a, w, k, o=None):
+                seen.append(("binary_qmm", a.shape[0], k, w.shape[1]))
+                return k1(a, w, k, o)
+
+            def spy_k3(a, b):
+                seen.append(("popcount_qmm", a.shape[0], 32 * a.shape[1], b.shape[1]))
+                return k3(a, b)
+
+            _zero(kernels)
+            for counter in (C.STAGED, C.STAGED_S, C.BYTES):
+                counter.clear()
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with mock.patch.object(ops, "binary_qmm_int", spy_k1), mock.patch.object(ops, "popcount_qmm_int", spy_k3):
+                run = _tp_serve(Z, make_prefill, make_decode_step, cfg, device, mesh=meshes[shape])
+            prefill, step = run.pop("steps")
+            del run["params"]
+            out[tag] = dict(run, s=time.perf_counter() - t0, launches=_counts(kernels), calls=seen,
+                            modes=(prefill.mode, step.mode), coords=SH.coordinates(meshes[shape]),
+                            staged=dict(C.STAGED), staged_s=dict(C.STAGED_S), bytes=dict(C.BYTES),
+                            peak=torch.cuda.max_memory_allocated() if device.type == "cuda" else 0)
+            del prefill, step, run
+            torch.cuda.empty_cache()
+        torch.save(out, Path(tmp) / f"rank{rank}.part")
+        os.replace(Path(tmp) / f"rank{rank}.part", Path(tmp) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_check(SH, tag: str, cfg, shape, want: dict, got: dict, rank: int, per_forward: int, kernel: int,
+              expect_calls: set) -> dict:
+    """Hold one rank's run to the unmeshed one: every cache leaf its shard's
+    bits after the prefill and at the end, the greedy tokens, the logits
+    within ``TP_LOGITS_RTOL``, each wrapper's launches and each K1 / K3
+    call's (M, K, N).  Returns the numbers the phase logs."""
+    from repro_torch.core import tree
+    from repro_torch.launch.mesh import abstract_mesh
+
+    mesh = abstract_mesh(shape, ("data", "model"))
+    for when in ("prefill", "end"):
+        whole = want["snaps"][when]
+        shard = SH.shard_tree(whole, SH.cache_shardings(whole, mesh, TP_BATCH, cfg), got["coords"])
+        bad = [path for (path, a), b in zip(tree.leaves_with_paths(shard), tree.leaves(got["snaps"][when]))
+               if a.dtype != b.dtype or not torch.equal(a, b)]
+        if bad:
+            raise AssertionError(f"[{tag}] rank {rank}: cache leaves {bad[:4]} differ from the unmeshed "
+                                 f"cache's shard {when}")
+    if [t.tolist() for t in got["fed"]] != [t.tolist() for t in want["fed"]]:
+        raise AssertionError(f"[{tag}] rank {rank}: greedy tokens differ from the unmeshed steps'")
+    gap = max(float((a - b).abs().max()) for a, b in zip(got["logits"], want["logits"]))
+    scale = max(float(b.abs().max()) for b in want["logits"])
+    finite = all(bool(torch.isfinite(a).all()) and a.shape == (TP_BATCH, cfg.vocab_size) for a in got["logits"])
+    if not finite or gap > TP_LOGITS_RTOL * scale:
+        raise AssertionError(f"[{tag}] rank {rank}: logits gap {gap:.3g} > {TP_LOGITS_RTOL} x {scale:.3g} "
+                             f"(or not finite / of the wrong shape)")
+    launched = got["launches"]
+    want_launches = [0, 0, 0]
+    want_launches[kernel] = per_forward * (TP_STEPS + 1)
+    if kernel == 1:  # the scores kernel: one launch a layer
+        want_launches[2] = cfg.n_layers * (TP_STEPS + 1)
+    if launched != want_launches:
+        raise AssertionError(f"[{tag}] rank {rank}: K1, K3, scores launches {launched}, expected {want_launches}")
+    calls = {c[1:] for c in got["calls"]}
+    if calls != expect_calls:
+        raise AssertionError(f"[{tag}] rank {rank}: (M, K, N) of the calls {sorted(calls)}, expected "
+                             f"{sorted(expect_calls)}")
+    return dict(gap=gap, scale=scale, launches=launched)
+
+
+def serve_sharded(Z, granite_cfg, bert_cfg, device, make_prefill, make_decode_step, smi,
+                  workdir: Path) -> dict:
+    """Phase 20.  Returns the ``sharded`` entries of K1, K3 and the scores
+    kernel: the ranks' launches at the local shapes and the kernels held to
+    their plain versions there, timed."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh, make_host_mesh
+    from repro_torch.runtime import collectives as C
+    from repro_torch.runtime import sharding as SH
+
+    t_phase = time.perf_counter()
+    cases = _tp_cases(granite_cfg, bert_cfg)
+    tmp = workdir / "ranks"
+    tmp.mkdir()
+    plan = dict(device=str(device), cases=cases)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_tp_rank, args=(r, 2, str(tmp), plan)) for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        # while the ranks run: the unmeshed steps on the same params
+        want = {}
+        with mock.patch.dict(os.environ, {"REPRO_QMM_AUTOTUNE": "0"}):
+            for tag, (cfg, _, _) in cases.items():
+                run = _tp_serve(Z, make_prefill, make_decode_step, cfg, device,
+                                snap_at=(TP_NCCL_STEPS,) if tag == "20c" else ())
+                steps = run.pop("steps")
+                if tag == "20c":
+                    granite_params, granite_step = run.pop("params"), steps[1]
+                else:
+                    del run["params"]
+                del steps
+                want[tag] = run
+                torch.cuda.empty_cache()
+        t_want = time.perf_counter() - t_phase
+
+        # [20d] one NCCL rank, mesh 1x1 ([20c]'s 4 layers): the steps
+        # captured with their collectives, replayed, bitwise the unmeshed steps
+        cfg = cases["20c"][0]
+        dist.init_process_group("nccl", init_method=f"file://{workdir}/nccl_init", rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh(1, 1, device=str(device))
+            C.BYTES.clear()
+            got = _tp_serve(Z, make_prefill, make_decode_step, cfg, device, mesh=mesh, params=granite_params,
+                            steps=TP_NCCL_STEPS)
+            handed = dict(C.BYTES)  # the capturing calls' (warm-up and capture); a replay calls none
+            prefill, step = got.pop("steps")
+            ref20 = want["20c"]
+            same = (all(torch.equal(a, b) for a, b in zip(got["logits"], ref20["logits"]))
+                    and Z.caches_equal(got["snaps"]["prefill"], ref20["snaps"]["prefill"])
+                    and Z.caches_equal(got["snaps"]["end"], ref20["snaps"][TP_NCCL_STEPS]))
+            if not (prefill.mode == step.mode == "graph" and prefill.captures == step.captures == 1
+                    and step.replays == TP_NCCL_STEPS - 1 and same):
+                raise AssertionError(f"[20d] the 1x1 NCCL steps: modes {prefill.mode} / {step.mode}, captures "
+                                     f"{prefill.captures} / {step.captures}, replays {step.replays}, bitwise "
+                                     f"equal to the unmeshed steps: {same}")
+            # the device operations the collectives add to an eager decode
+            # step (the meshed step's run beside the unmeshed one's, each
+            # on a copy of the cache) are in the replayed graph beside the
+            # unmeshed step's graph: the kernels by name, the device-to-device
+            # copies (NCCL's over one rank, and each collective's clone) as the
+            # graph's memcpy nodes, by count
+            tok = got["fed"][-1].to(device)
+            base = {"layers": [{k: v.to(device) for k, v in layer.items()}
+                               for layer in want["20c"]["snaps"][TP_NCCL_STEPS]["layers"]]}
+            mesh_cache, plain_cache = step.shard_cache(base), Z.cache_copy(base)
+            def traced(fn):
+                """``profile_forward(fn)`` whose trace holds margin kernels on
+                both sides of the work, so all of the work: a trace that lost
+                a whole margin is taken again, up to TP_TRACE_TRIES times."""
+                for _ in range(TP_TRACE_TRIES):
+                    out = profile_forward(fn)
+                    if LAST_TRACE["before"] and LAST_TRACE["after"]:
+                        return out
+                raise AssertionError(f"[20d] {TP_TRACE_TRIES} traces in a row lost a whole margin of "
+                                     f"{PROFILE_MARGIN} spin kernels beside the work: {LAST_TRACE}")
+
+            eager = {
+                "mesh": traced(lambda: step._step(got["params"], tok, step.cfg, mesh_cache))[4],
+                "plain": traced(lambda: Z.decode_step(granite_params, tok, cfg, plain_cache))[4]}
+            wall, busy, n_ops, by_kernel, counts, span = traced(step.graph.replay)
+            plain_replay = traced(granite_step.graph.replay)[4]
+
+            def split(c):
+                """(device-to-device copies, {kernel: launches}), profiler annotations dropped."""
+                copies = sum(n for k, n in c.items() if "memcpy" in k.lower())
+                return copies, {k: n for k, n in c.items() if "memcpy" not in k.lower() and not k.startswith("nccl:")}
+
+            (em, ek), (ep, epk), (rm, rk), (rp, rpk) = map(split, (eager["mesh"], eager["plain"], counts,
+                                                                  plain_replay))
+            added = {k: n - epk.get(k, 0) for k, n in ek.items() if n > epk.get(k, 0)}
+            missing = {k: n for k, n in added.items() if rk.get(k, 0) - rpk.get(k, 0) < n}
+            if missing or rm - rp != em - ep:
+                raise AssertionError(
+                    f"[20d] the collectives' device work in an eager step against the replayed graph: copies "
+                    f"{em - ep} eager, {rm - rp} replayed; kernels missing (name: added, replayed): " + "; ".join(
+                        f"{k[:90]}: {n}, {rk.get(k, 0) - rpk.get(k, 0)}" for k, n in missing.items()))
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+        log(f"[20d] one rank over {backend} (mesh 1x1, {cfg.name}, {TP_BATCH} x {TP_PROMPT} prompt): "
+            f"make_prefill / make_decode_step captured with their collectives (mode graph), "
+            f"{step.replays} replays; logits of the prefill and {TP_NCCL_STEPS} decode calls and the cache "
+            f"bitwise the unmeshed CompiledSteps'; the capturing calls handed the collectives {handed} bytes; a "
+            f"profiled replay runs {n_ops} device operations, busy {busy:.2f} ms, among them the work the "
+            f"collectives add to an eager step: {em - ep} device-to-device copies (graph memcpy nodes) and "
+            + ("; ".join(f"{k[:90]} x {n}" for k, n in added.items()) or "no other kernel") + f" | {smi}")
+        del got, prefill, step, granite_params, granite_step, eager, base, mesh_cache, plain_cache
+        torch.cuda.empty_cache()
+        t_nccl = time.perf_counter() - t_phase
+
+        # the dry-run's plan of each case's steps (launch/dryrun.py, on meta):
+        # a prefill and TP_STEPS decode steps
+        plans = {}
+        for tag, (cfg, shape, _) in cases.items():
+            mesh = abstract_mesh(shape, ("data", "model"))
+            plan = [dryrun.serving_counts(cfg, InputShape(tag, seq, TP_BATCH, kind), mesh)["collectives"]
+                    for kind, seq in (("prefill", TP_PROMPT), ("decode", TP_MAX_LEN))]
+            plans[tag] = {op.replace("-", "_"): plan[0][op]["bytes"] + TP_STEPS * plan[1][op]["bytes"]
+                          for op in ("all-reduce", "all-gather")}
+
+        for p in procs:
+            p.join(max(1.0, TP_RANKS_TIMEOUT_S - (time.perf_counter() - t_phase)))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"[20] ranks exited {[p.exitcode for p in procs]}")
+        runs = [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+    # the kernels at the local shapes, timed once the ranks have left the card
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20)
+    log("[20] the kernels at the sharded steps' local shapes (M, K, N) against their plain versions:")
+    k1_shapes = [(m, k, n) for m in TP_ROWS for k, n in _tp_sites(cases["20a"][0], 2)]
+    k3_shapes = [(m, k, n) for m in TP_ROWS for k, n in _tp_sites(cases["20b"][0], 2)]
+    rows = {"binary_qmm": check_kernels(gen, [], k1_shapes)["binary_qmm"],
+            "popcount_qmm": check_bit_kernels(gen, k3_shapes, [])["popcount_qmm"],
+            "binary_attn_scores_planes": check_binary_attn(gen, TP_SCORES_CASES)}
+    t_kernels = time.perf_counter() - t_phase
+    launches = {}
+    for tag, (cfg, shape, per_forward) in cases.items():
+        planned = plans[tag]
+        for r in range(2):
+            if runs[r][tag]["bytes"] != planned:
+                raise AssertionError(f"[{tag}] rank {r}: collectives' bytes {runs[r][tag]['bytes']} against the "
+                                     f"dry-run's plan {planned}")
+        kernel = 1 if tag == "20b" else 0
+        rows_a = TP_BATCH * TP_PROMPT // shape[0]
+        expect = {(m, k, n) for m in (rows_a, TP_BATCH // shape[0]) for k, n in _tp_sites(cfg, shape[1])}
+        checks = [_tp_check(SH, tag, cfg, shape, want[tag], runs[r][tag], r, per_forward, kernel, expect)
+                  for r in range(2)]
+        launches[tag] = runs[0][tag]["launches"]
+        for r in range(2):
+            g = runs[r][tag]
+            ms = g["ms"]
+            log(f"[{tag}] rank {r} {cfg.name} ({cfg.n_layers} layers) mesh {shape[0]}x{shape[1]} {g['coords']} "
+                f"mode {g['modes'][0]}: prefill {TP_BATCH} x {TP_PROMPT} {ms[0]:.1f} ms, decode step median "
+                f"{float(np.median(ms[1:])):.1f} ms (unmeshed CompiledStep {want[tag]['ms'][0]:.1f} / "
+                f"{float(np.median(want[tag]['ms'][1:])):.1f} ms); cache shards bitwise, {TP_STEPS} greedy "
+                f"tokens equal, logits gap {checks[r]['gap']:.3g} (largest |logit| {checks[r]['scale']:.3g}); "
+                f"launches K1 / K3 / scores {checks[r]['launches']} = {per_forward} a forward x "
+                f"{TP_STEPS + 1}; collectives bytes {g['bytes']} (the dry-run's plan), staged calls "
+                f"{g['staged']}, staged s "
+                + ", ".join(f"{op} {v:.2f}" for op, v in sorted(g["staged_s"].items()))
+                + f"; {g['s']:.1f} s; peak allocated {g['peak'] / 1e9:.2f} GB | {smi}")
+    log(f"[20] phase 20 took {time.perf_counter() - t_phase:.1f} s (beside the ranks: the unmeshed runs to "
+        f"{t_want:.1f} s, [20d] to {t_nccl:.1f} s; the ranks joined, then the kernels, to {t_kernels:.1f} s)")
+    return {
+        "binary_qmm": dict(launches={t: launches[t][0] for t in ("20a", "20c")}, shapes=rows["binary_qmm"],
+                           equal_to_plain=True),
+        "popcount_qmm": dict(launches={"20b": launches["20b"][1]}, shapes=rows["popcount_qmm"],
+                             equal_to_plain=True),
+        "binary_attn_scores_planes": dict(launches={"20b": launches["20b"][2]},
+                                          shapes=rows["binary_attn_scores_planes"], equal_to_plain=True),
+    }
+
+
 # The serving paths of phases 7-9 at full width, cut in depth so that the
 # whole run stays well inside its 1,200 s on a slow host (1,157.2 s with
 # every path at full depth on an H100): gemma3-27b its prefix and one period
@@ -4888,6 +5303,12 @@ def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg, rec
     # ---- phase 19: the invariant verifier over the real launches, the self-test, the dry-run
     verified = verify_and_dry_run(Z, model_cfg, bert_cfg, device, all_kernels + (K5.binary_attn_scores_planes,),
                                   smi, md_numbers)
+
+    # ---- phase 20: the serving steps over a (data, model) mesh
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_20_") as workdir:
+        sharded = serve_sharded(Z, model_cfg, bert_cfg, device, make_prefill, make_decode_step, smi, Path(workdir))
+    for path, name in ((k1, "binary_qmm"), (k3, "popcount_qmm"), (k5, "binary_attn_scores_planes")):
+        path["sharded"] = sharded[name]
 
     main_path = {"binary_qmm": k1, "fused_qmm": k2, "popcount_qmm": k3, "bitserial_qmm": k4,
                  "binary_attn_scores_planes": k5}

@@ -6,10 +6,17 @@ integer matrix product and every float operation is at most quadratic:
     a1*a2 * (X1 @ X2) + a1*g2 * rowsum(X1) + g1*a2 * colsum(X2) + g1*g2*K
 
 The epilogue is evaluated in exactly the reference's term order.
+
+A tensor-parallel step's row-parallel site holds one slice of K: within
+``partial_sums_reduced`` its int32 product and row sums are summed over
+the ranks first (exact in any order), and the epilogue then runs once with
+the global K, so the float output is the one-card product's bit for bit
+(summing the ranks' float outputs would not be).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
@@ -23,6 +30,8 @@ __all__ = [
     "exact_int_matmul",
     "op_counts_abstracted",
     "op_counts_naive",
+    "partial_sums_reduced",
+    "partial_sums_pending",
     "qmm_dequant_reference",
     "qmm_flow",
     "weight_corrections",
@@ -81,6 +90,32 @@ def weight_corrections(w: QuantTensor) -> torch.Tensor:
     return _int_sum(x2, dim=-2)
 
 
+#: ``(xy, row, k) -> (xy, row, k)`` applied before the epilogue while set
+_partial_sums = None
+
+
+@contextlib.contextmanager
+def partial_sums_reduced(fn):
+    """Within the block ``qmm_flow`` hands its int32 product ``xy``, its
+    int32 row sums and its K to ``fn`` before the epilogue, which runs on
+    what ``fn`` returns: a row-parallel site's sums over the ranks and the
+    global K (``models/tensor_parallel.py``); the weight's colsum must be
+    given whole (``w_colsum``).  A backend that applies its epilogue inside
+    its kernel cannot take part and raises (``partial_sums_pending``)."""
+    global _partial_sums
+    prev, _partial_sums = _partial_sums, fn
+    try:
+        yield
+    finally:
+        _partial_sums = prev
+
+
+def partial_sums_pending() -> bool:
+    """Whether the product being computed is one rank's part of a sum
+    (inside ``partial_sums_reduced``)."""
+    return _partial_sums is not None
+
+
 def qmm_flow(
     x: QuantTensor,
     w: QuantTensor,
@@ -125,9 +160,14 @@ def qmm_flow(
         xy = default_int_matmul(x1, x2, x.bits, w.bits)
     else:
         xy = int_matmul(x, w)
+    row = _int_sum(x1, dim=-1)
+    if _partial_sums is not None:
+        if w_colsum is None:  # the colsum of this rank's slice of K is not the site's
+            raise NotImplementedError("a row-parallel site's epilogue needs the weight's colsum over the "
+                                      "whole K (w_colsum); this rank holds only its slice of the weight")
+        xy, row, k = _partial_sums(xy, row, k)
     out = xy.to(out_dtype) * (a1 * a2)
-    row = _int_sum(x1, dim=-1)[..., None].to(out_dtype)
-    out = out + (a1 * g2) * row
+    out = out + (a1 * g2) * row[..., None].to(out_dtype)
     col = w_colsum if w_colsum is not None else _int_sum(x2, dim=-2)
     col = col[..., None, :].to(out_dtype)
     out = out + (g1 * a2) * col

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -110,12 +110,16 @@ def quantize_activation(
     scale: Optional[torch.Tensor] = None,
     offset: Optional[torch.Tensor] = None,
     per_channel_axis: Optional[int] = None,
+    range_reduce: Optional[Callable] = None,
 ) -> QuantTensor:
     """Elastic affine quantization (BiT section 3.2):
     ``q = round(clip((x - offset) / scale, 0, 2**bits - 1))``, rounding half
     to even as ``jnp.round`` does.  Calibrated from the tensor's own min/max
     when ``scale``/``offset`` are omitted, per ``per_channel_axis`` (kept)
-    or per tensor."""
+    or per tensor; ``range_reduce(lo, hi) -> (lo, hi)`` then widens those
+    to the ranges of the whole tensor where ``x`` is one rank's slice of it
+    (a tensor-parallel step's all-reduce, ``models/tensor_parallel.py``),
+    before the scale is derived."""
     qmax = float(2**bits - 1)
     if scale is None or offset is None:
         if per_channel_axis is None:
@@ -125,6 +129,8 @@ def quantize_activation(
             dims = tuple(i for i in range(x.ndim) if i != axis)
             lo = x.amin(dim=dims, keepdim=True)
             hi = x.amax(dim=dims, keepdim=True)
+        if range_reduce is not None:
+            lo, hi = range_reduce(lo, hi)
         derived = torch.clamp((hi - lo) / qmax, min=1e-8)
         scale = derived if scale is None else scale
         offset = lo if offset is None else offset

@@ -125,6 +125,9 @@ def qmm_fused(
     affine epilogue in the kernel.  ``w_colsum`` is ignored: the kernel
     counts the weight colsum from the planes it already reads."""
     _rank2("qmm_fused", x, w)
+    if flow_abstraction.partial_sums_pending():
+        raise NotImplementedError("fused_qmm applies its epilogue inside the kernel, so it cannot compute one "
+                                  "rank's part of a row-parallel site (its int32 sums are never exposed)")
     del w_colsum
     m, k = x.logical_shape
     n = w.logical_shape[-1]

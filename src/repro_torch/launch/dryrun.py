@@ -22,23 +22,30 @@ counts what one rank of the production mesh (``launch/mesh.py``:
     statistics and their gradient, each MoE layer and microbatch, remat's
     recompute counted again; ``models/moe.py::routing_traffic``), added to
     the totals by op;
+    serving: the bytes the sharded step's collectives carry a call, by op
+    (each input's size once, as ``runtime/collectives.py::BYTES`` counts
+    them live), counted by a stand-in for the collectives as the step runs
+    on ``meta``;
   * ``flops`` -- one rank's step counted by
     ``torch.utils.flop_counter.FlopCounterMode`` on meta tensors (matrix
     products only: the kernels' plain versions, which the wrappers run on
     meta, count their integer products as ``2 M K N``).
 
-The port computes replicated over ``model`` (ROADMAP item 7.7): a rank
+Training computes replicated over ``model`` (ROADMAP item 7.7): a rank
 takes its data index's rows of the batch and the whole gathered model, so
 ``flops`` is the model's on ``global_batch / data ranks`` rows, an MoE
 layer's experts over the global microbatch's ``E * C`` buffer rows (every
-rank runs the experts over the whole buffer); no serving step runs over a
-mesh (item 7.8), so a serving cell's numbers are a rank's share of its
-batch under the same rules.  XLA's temporary and generated-code sizes have
-no counterpart and are not written.  A cell whose step cannot run records
-``status: "error"`` with the reason (a pod axis in training, a batch that
-does not split over the data ranks -- the port has no sequence
-parallelism --, an operator with no meta path) beside the numbers counted
-before it, never a guessed number.  The reference's ``--opt gqa_expand`` has no counterpart
+rank runs the experts over the whole buffer).  Serving runs the sharded
+step (``runtime/serve_loop.py::MeshStep``): a rank's rows of the batch
+over the data axes and its heads, FFN columns and vocabulary shard over
+``model``, so a serving cell's ``flops`` and ``collectives`` are that
+step's, the live code path run on ``meta``.  XLA's temporary and
+generated-code sizes have no counterpart and are not written.  A cell
+whose step cannot run records ``status: "error"`` with the reason (a pod
+axis in training, a batch that does not split over the data ranks -- the
+port has no sequence parallelism --, a serving config or mesh that
+``sharding.serve_mesh_refusal`` refuses, an operator with no meta path)
+beside the numbers counted before it, never a guessed number.  The reference's ``--opt gqa_expand`` has no counterpart
 (the port's attention is always grouped), nor has ``--no-compile``
 (nothing compiles).
 
@@ -78,6 +85,7 @@ __all__ = [
     "apply_opts",
     "argument_bytes",
     "collective_bytes",
+    "serving_counts",
     "step_flops",
     "run_cell",
     "cell_path",
@@ -91,10 +99,11 @@ SMOKE_SHAPE = InputShape("smoke", 128, 8, "train")
 
 META = torch.device("meta")
 
-COMPUTE = ("one rank: its data index's rows of the batch over the whole (gathered) model, "
-           "computed replicated over 'model' (no tensor-parallel compute, ROADMAP item 7.7); an MoE "
-           "layer routes the global microbatch and runs its experts over the whole E x C buffer; "
-           "serving runs no mesh step (item 7.8)")
+COMPUTE = ("one rank: its data index's rows of the batch; training over the whole (gathered) model, "
+           "computed replicated over 'model' (no tensor-parallel training compute, ROADMAP item 7.7), an "
+           "MoE layer routing the global microbatch and running its experts over the whole E x C buffer; "
+           "serving over its heads, FFN columns and vocabulary shard on 'model' (the sharded step, "
+           "Megatron-style, integer partial sums all-reduced in int32)")
 
 OPT_TRANSFORMS = {
     "scores_bf16": dict(attn_scores_dtype="bf16"),
@@ -229,41 +238,85 @@ def _meta_routing(cfg: ArchConfig, mesh):
                            all_reduce=lambda t: t.clone())
 
 
+class _CountingComm:
+    """Shape-only stand-ins for a serving step's collectives on ``meta``:
+    each call's input bytes counted by op, as ``collectives.BYTES`` counts
+    a live call's, and a result of the live call's shape."""
+
+    def __init__(self, mesh):
+        from repro_torch.launch.mesh import mesh_axes
+
+        self.sizes = mesh_axes(mesh)
+        self.ops = {}
+
+    def _count(self, op: str, t: torch.Tensor) -> None:
+        rec = self.ops.setdefault(op, {"bytes": 0, "count": 0})
+        rec["bytes"] += t.numel() * t.element_size()
+        rec["count"] += 1
+
+    def all_reduce(self, t: torch.Tensor, op: str, axis: str) -> torch.Tensor:
+        self._count("all-reduce", t)
+        return t.clone()
+
+    def all_gather(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        self._count("all-gather", t)
+        return t.unsqueeze(0).expand((self.sizes[axis],) + tuple(t.shape)).contiguous()
+
+
+def serving_counts(cfg: ArchConfig, shape: InputShape, mesh) -> dict:
+    """Rank (0, ..., 0)'s serving step over ``mesh`` (``serve_loop.MeshStep``:
+    a prefill of ``shape.seq_len`` tokens a row, or a decode step over a
+    cache of that many rows) run on ``meta``: its ``flops``
+    (``FlopCounterMode``) and its collectives' bytes and calls by op, with
+    their ``total_bytes``.  A refused config or mesh raises
+    ``NotImplementedError`` with ``sharding.serve_mesh_refusal``'s reason."""
+    from repro_torch.launch.mesh import mesh_axes
+    from repro_torch.models import model_zoo as Z
+    from repro_torch.runtime.serve_loop import MeshStep
+
+    b = shape.global_batch
+    prefill = shape.kind == "prefill"
+    comm = _CountingComm(mesh)
+    step = MeshStep(Z.prefill if prefill else Z.decode_step, cfg, mesh, b, shape.seq_len,
+                    (b, shape.seq_len) if prefill else (b,), device=META, comm=comm,
+                    coords={a: 0 for a in mesh_axes(mesh)})
+    params = step.shard_params(Z.prepare_serving_params(Z.init_params(0, cfg, device=META), cfg))
+    tokens = torch.empty(step.tokens_shape, dtype=torch.int64, device=META)
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        step(params, tokens, step.init_cache(META))
+    coll = dict(comm.ops)
+    coll["total_bytes"] = sum(v["bytes"] for v in comm.ops.values())
+    return {"flops": counter.get_total_flops(), "collectives": coll}
+
+
 def step_flops(cfg: ArchConfig, shape: InputShape, mesh, accum_steps: int = 1) -> int:
     """One rank's step's FLOPs (``FlopCounterMode``, matrix products) on
     meta tensors: data rank 0's rows of the global batch, split as the mesh
     step splits them (``train_loop._rows``: ``accum_steps`` microbatches,
     each over the data ranks; a batch that does not split raises), in
     training the forward, the checkpoints' recompute and the backward, an
-    MoE layer routing the global microbatch (``moe.routing_global``)."""
+    MoE layer routing the global microbatch (``moe.routing_global``).  A
+    serving shape is counted by ``serving_counts``."""
     import contextlib
 
     from repro_torch.models import model_zoo as Z
     from repro_torch.models import moe as M
     from repro_torch.runtime import train_loop as TL
 
-    train = shape.kind == "train"
-    micro = TL._rows(input_specs(cfg, shape), accum_steps if train else 1, 0, _data_ranks(mesh))
-    if train:
-        params = Z.init_params(0, cfg, device=META)
-        prepare = None
-        if cfg.quant.enabled and cfg.quant.prebinarize_gather:
-            def prepare(p):
-                return TL.prebinarize_params(p, cfg)
-        routing = _meta_routing(cfg, mesh)
-        with FlopCounterMode(display=False) as counter, (
-                contextlib.nullcontext() if routing is None else M.routing_global(routing)):
-            for mb in micro:
-                TL.value_and_grad(params, mb, cfg, TL.TrainConfig(), prepare)
-        return counter.get_total_flops()
-    (rows,) = micro
-    params = Z.prepare_serving_params(Z.init_params(0, cfg, device=META), cfg)
-    cache = Z.init_cache(rows["tokens"].shape[0], shape.seq_len, cfg, device=META)
-    with torch.no_grad(), FlopCounterMode(display=False) as counter:
-        if shape.kind == "prefill":
-            Z.prefill(params, rows["tokens"], cfg, cache, rows.get("frontend"))
-        else:
-            Z.decode_step(params, rows["tokens"][:, 0], cfg, cache)
+    if shape.kind != "train":
+        raise ValueError(f"step_flops counts a training step; {shape.name} is a {shape.kind} shape "
+                         "(serving_counts)")
+    micro = TL._rows(input_specs(cfg, shape), accum_steps, 0, _data_ranks(mesh))
+    params = Z.init_params(0, cfg, device=META)
+    prepare = None
+    if cfg.quant.enabled and cfg.quant.prebinarize_gather:
+        def prepare(p):
+            return TL.prebinarize_params(p, cfg)
+    routing = _meta_routing(cfg, mesh)
+    with FlopCounterMode(display=False) as counter, (
+            contextlib.nullcontext() if routing is None else M.routing_global(routing)):
+        for mb in micro:
+            TL.value_and_grad(params, mb, cfg, TL.TrainConfig(), prepare)
     return counter.get_total_flops()
 
 
@@ -316,7 +369,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, accum_steps: int = 1, o
             if refusal is not None:
                 raise NotImplementedError(refusal)
             record["collectives"] = collective_bytes(cfg, mesh, accum_steps, shape)
-        record["flops"] = step_flops(cfg, shape, mesh, accum_steps)
+            record["flops"] = step_flops(cfg, shape, mesh, accum_steps)
+        else:
+            counts = serving_counts(cfg, shape, mesh)
+            record["collectives"], record["flops"] = counts["collectives"], counts["flops"]
         record["count_s"] = round(time.time() - t0, 1)
         record["status"] = "ok"
     except Exception as e:  # noqa: BLE001 -- recorded, the sweep continues

@@ -31,6 +31,14 @@ its two products in float32.  ``quantize_attention=False`` under quantized
 linears keeps the int8 cache but takes the float path over it,
 dequantized.
 
+Inside a tensor-parallel serving step (``models/tensor_parallel.py``) the
+config holds a rank's heads: query heads ``[r H/m, (r+1) H/m)`` and kv
+heads ``[r kvH/m, (r+1) kvH/m)``, so the grouping ``h // (H / kvH)`` meets
+the same kv heads as on one card.  Every calibration that spans all heads
+of a batch row (the cache's per-row affines, the query's grid, the binary
+grids: ``_row_ranges``) reduces its ranges over the model ranks, so the
+int8 and packed cache bits are the one-card step's.
+
 Unlike the reference, the cache is updated IN PLACE (``index_copy_`` /
 ``index_put_``): prefill and decode return the same dict they were given.
 
@@ -84,6 +92,7 @@ from repro_torch.core import quantization as Q
 from repro_torch.core.constants import scalar
 from repro_torch.kernels import ops as K_ops
 from repro_torch.models import layers as L
+from repro_torch.models import tensor_parallel as TP
 
 __all__ = [
     "init_attention",
@@ -178,11 +187,22 @@ def _per_row(s: torch.Tensor, ndim: int) -> torch.Tensor:
     return s.reshape(s.shape + (1,) * (ndim - 1))
 
 
+def _row_ranges():
+    """The reduction of a per-row calibration's ``(lo, hi)`` over the
+    model ranks inside a tensor-parallel step (a rank holds some heads of
+    each row), else None."""
+    tp = TP.current()
+    return None if tp is None else tp.ranges
+
+
 def _calibrate_rows(x: torch.Tensor):
     """Per-row min / (max-min)/255 over every axis but the batch row."""
     x32 = x.to(torch.float32).reshape(x.shape[0], -1)
-    off = x32.amin(dim=-1)
-    sc = torch.clamp((x32.amax(dim=-1) - off) / 255.0, min=1e-8)
+    off, hi = x32.amin(dim=-1), x32.amax(dim=-1)
+    reduce = _row_ranges()
+    if reduce is not None:
+        off, hi = reduce(off, hi)
+    sc = torch.clamp((hi - off) / 255.0, min=1e-8)
     return sc, off
 
 
@@ -227,7 +247,7 @@ def _scores_int(q, k_mantissa, k_scale, k_offset, attn_bits: int, backend: str =
     b, s, h, dh = q.shape
     t, kvh = k_mantissa.shape[1], k_mantissa.shape[2]
     g = h // kvh
-    qq = Q.quantize_activation(q.to(torch.float32), attn_bits, per_channel_axis=0)
+    qq = Q.quantize_activation(q.to(torch.float32), attn_bits, per_channel_axis=0, range_reduce=_row_ranges())
     qr = Q.recenter(qq)
     if site_log.is_recording():
         site_log.record(kind="attn", site="attn.qk", bits=attn_bits,
@@ -303,7 +323,7 @@ def _cache_binary(cache: Optional[dict], dh: int) -> bool:
 def _binarize_rows(x: torch.Tensor) -> Q.QuantTensor:
     """Per-row elastic 1-bit grid (BiT), min / max over every axis but the
     batch row: co-batched requests never share a grid."""
-    return Q.quantize_activation(x.to(torch.float32), 1, per_channel_axis=0)
+    return Q.quantize_activation(x.to(torch.float32), 1, per_channel_axis=0, range_reduce=_row_ranges())
 
 
 def _binarize_to_cache(k: torch.Tensor, scale, offset) -> torch.Tensor:

@@ -11,10 +11,17 @@ Serving params are plain dicts of tensors: a packed linear is
 stub projection, through ``float_linear``), and under a config whose
 quantization is off (``FLOAT_QUANT``) every linear, its weight in bf16.  Every cast of the reference is mirrored (float32 before
 quantizing, back to the activation dtype after each product).
+
+Inside a tensor-parallel serving step (``models/tensor_parallel.py``)
+``qlinear`` computes a rank's part of its site: a column-parallel site its
+own columns, a row-parallel one (``ROW_SITES``) its slice of K with the
+per-token ranges and the int32 partial sums reduced over the model ranks;
+``embed`` and ``unembed`` work on a vocabulary-sharded table.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -26,6 +33,7 @@ from repro_torch.core.constants import scalar
 from repro_torch.core import qmm as QE
 from repro_torch.core import quantization as Q
 from repro_torch.core import site_log
+from repro_torch.models import tensor_parallel as TP
 
 __all__ = [
     "init_linear",
@@ -112,12 +120,16 @@ def qlinear(
         length=k,
     )
     lead = x.shape[:-1]
-    xq = Q.quantize_activation(x.to(torch.float32).reshape(-1, k), bits, per_channel_axis=0)
+    tp = TP.current()
+    row = tp if tp is not None and name in TP.ROW_SITES else None
+    xq = Q.quantize_activation(x.to(torch.float32).reshape(-1, k), bits, per_channel_axis=0,
+                               range_reduce=None if row is None else row.ranges)
     if site_log.is_recording():
         site_log.record(kind="qlinear", site=name, bits=bits, cfg_bits=quant.act_bits,
                         mantissa_dtype=site_log.dtype_name(xq.mantissa.dtype),
                         backend=quant.backend_for(name))
-    out = QE.qmm(xq, wq, backend=quant.backend_for(name), w_colsum=p.get("w_colsum"))
+    with contextlib.nullcontext() if row is None else FA.partial_sums_reduced(row.sum_partials):
+        out = QE.qmm(xq, wq, backend=quant.backend_for(name), w_colsum=p.get("w_colsum"))
     return out.reshape(*lead, -1).to(x.dtype)
 
 
@@ -391,14 +403,23 @@ def ffn(p: dict, x: torch.Tensor, ffn_type: str, quant: QuantConfig, name: str =
 
 
 def embed(p: dict, tokens: torch.Tensor, d_model: int, dtype=torch.bfloat16) -> torch.Tensor:
+    """Scaled rows of the embedding table; inside a tensor-parallel step a
+    vocabulary shard's, each token's row taken from its owner."""
     scale = scalar(d_model**0.5, dtype, tokens.device)
-    return p["embedding"][tokens].to(dtype) * scale
+    tp = TP.current()
+    rows = p["embedding"][tokens] if tp is None else tp.lookup(p["embedding"], tokens)
+    return rows.to(dtype) * scale
 
 
 def unembed(p: dict, x: torch.Tensor, tied: bool, dtype=torch.float32) -> torch.Tensor:
     """Logits ``x @ table.T`` in ``dtype``: float32, or bf16 as the
-    reference's bf16 dot computes it (``float_einsum``)."""
+    reference's bf16 dot computes it (``float_einsum``).  Inside a
+    tensor-parallel step each rank computes its vocabulary shard's logits
+    and they are gathered along the vocabulary."""
     table = p["embedding"] if tied else p["unembedding"]
     if dtype == torch.float32:
-        return torch.matmul(x.to(dtype), table.to(dtype).T)
-    return float_einsum("...d,vd->...v", x.to(dtype), table.to(dtype))
+        logits = torch.matmul(x.to(dtype), table.to(dtype).T)
+    else:
+        logits = float_einsum("...d,vd->...v", x.to(dtype), table.to(dtype))
+    tp = TP.current()
+    return logits if tp is None else tp.gather_last(logits)

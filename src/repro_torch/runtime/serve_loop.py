@@ -2,12 +2,22 @@
 
 * ``make_prefill`` / ``make_decode_step`` -- the fixed-shape steps, captured
   once as CUDA graphs and replayed (the counterparts of the reference's
-  ``jax.jit`` steps; one card, so no mesh);
+  ``jax.jit`` steps); with ``mesh=`` a ``MeshStep`` over a ``(data,
+  model)`` mesh of ranks;
 * ``ServeEngine`` -- continuous batching over a replayed decode step;
 * ``serve_sequential`` -- the eager one-request-at-a-time oracle;
 * ``serving_params_shardings`` -- the sharding rules on the serving tree
-  (a shape-only template on ``meta``); serving runs on one card, so no
-  step takes them yet.
+  (a shape-only template on ``meta``), which a ``MeshStep``'s params follow.
+
+Over a mesh (``MeshStep``) a rank holds its shards of the serving params
+(``serving_params_shardings``) and of the cache (``cache_shardings``),
+takes its data index's rows of the batch, and computes the dense
+attention decoders Megatron-style over ``model``
+(``models/tensor_parallel.py``): every integer result and cache leaf is
+the one-card step's bit for bit, and every rank returns the whole batch's
+logits, as the reference's ``out_shardings=(None, ...)`` does.  What the
+step does not compute, ``sharding.serve_mesh_refusal`` refuses.  As in the
+reference, ``ServeEngine`` and ``serve_sequential`` take no mesh.
 
 ``ServeEngine`` keeps a fixed packed decode batch of ``batch_slots`` rows.
 An admitted request is prefilled alone at its exact prompt length (batch
@@ -57,8 +67,10 @@ import torch
 from repro_torch.checkpoint import manager as CM
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import backend_registry, dispatch
+from repro_torch.core import backend_registry, dispatch, tree
+from repro_torch.launch.mesh import AbstractMesh
 from repro_torch.models import model_zoo as Z
+from repro_torch.models import tensor_parallel as TP
 from repro_torch.runtime.faults import BackendFault, FaultInjector, InjectedFault, parse_fault_plan
 
 __all__ = [
@@ -66,6 +78,7 @@ __all__ = [
     "make_prefill",
     "make_decode_step",
     "CompiledStep",
+    "MeshStep",
     "Request",
     "ServeEngine",
     "serve_sequential",
@@ -123,8 +136,13 @@ class CompiledStep:
     must have that shape, and after a capture the captured buffer's dtype;
     each replay copies it into that buffer, as it does the tokens.
 
+    ``mode`` is ``"graph"`` on CUDA and ``"eager"`` on the CPU, or where
+    the step's collectives are host calls a graph cannot record (a
+    ``MeshStep`` over gloo groups, decided when the step is made): then
+    every call runs the step as it is.
+
     ``graph`` is the captured ``torch.cuda.CUDAGraph`` (None before the
-    first capture, and on the CPU).  ``captures`` / ``replays`` count the
+    first capture, and in ``"eager"`` mode).  ``captures`` / ``replays`` count the
     calls of each kind.  A capturing call goes through the kernel wrappers
     twice (the warm-up run, then the capture, which records each launch
     once); a replay does not call them.  The warm-up run is also where
@@ -134,7 +152,7 @@ class CompiledStep:
 
     def __init__(self, step: Callable, cfg: ArchConfig, tokens_shape: Tuple[int, ...],
                  cache_rows: Tuple[int, int], device="cuda",
-                 frontend_shape: Optional[Tuple[int, ...]] = None):
+                 frontend_shape: Optional[Tuple[int, ...]] = None, eager: bool = False):
         self._step = step
         self.cfg = cfg
         self.tokens_shape = tuple(tokens_shape)
@@ -144,6 +162,7 @@ class CompiledStep:
         # each layer's own rows: a ring layer holds its window, not max_len
         self._layer_rows = [(batch, rows) for rows in Z.cache_rows(max_len, cfg)]
         self.device = torch.device(device)
+        self.mode = "graph" if self.device.type == "cuda" and not eager else "eager"
         self.captures = 0
         self.replays = 0
         self.graph = None
@@ -170,7 +189,7 @@ class CompiledStep:
     def __call__(self, params: dict, tokens, cache: dict, frontend=None):
         tokens = torch.as_tensor(tokens)
         self._check(tokens, cache, frontend)
-        if self.device.type != "cuda":
+        if self.mode == "eager":
             extra = () if frontend is None else (frontend.to(self.device),)
             return self._step(params, tokens.to(self.device), self.cfg, cache, *extra)
         if not self.captured_on(params, cache):
@@ -223,25 +242,158 @@ class CompiledStep:
         return logits, cache
 
 
+class _GroupComm:
+    """A mesh's collectives by axis name (``runtime/collectives.py`` over
+    ``DeviceMesh.get_group``)."""
+
+    def __init__(self, mesh):
+        self.groups = {a: mesh.get_group(a) for a in mesh.mesh_dim_names}
+
+    def all_reduce(self, t: torch.Tensor, op: str, axis: str) -> torch.Tensor:
+        from repro_torch.runtime import collectives as C
+
+        return C.all_reduce(t, op, group=self.groups[axis])
+
+    def all_gather(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        from repro_torch.runtime import collectives as C
+
+        return C.all_gather(t, group=self.groups[axis])
+
+
+def _gloo(mesh) -> bool:
+    """Whether any of a ``DeviceMesh``'s axes runs over gloo."""
+    import torch.distributed as dist
+
+    return any(dist.get_backend(mesh.get_group(a)) == "gloo" for a in mesh.mesh_dim_names)
+
+
+class MeshStep(CompiledStep):
+    """A serving step ``fn(params, tokens, cache) -> (logits, cache)`` over
+    a ``(data, model)`` mesh (``launch/mesh.py::make_host_mesh``; a ``pod``
+    axis is more data ranks): ``params`` and ``cache`` are this rank's
+    shards (``shard_params``, ``shard_cache``, ``init_cache``), ``tokens``
+    the whole batch, of which the rank takes its data index's rows; the
+    logits come back whole on every rank.
+
+    Inside, ``step`` (``model_zoo.prefill`` or ``decode_step``) runs on a
+    rank's config (``tensor_parallel.local_config``) within
+    ``tensor_parallel.sharded``.  The cache leaves that the rules hold
+    whole on every data rank (the per-row affines and cursors, spec
+    ``()``) are handed to it as views of the rank's rows, and after the
+    forward the rows every rank wrote are gathered back into them (one
+    all-gather a step), so each rank's copy stays whole.  The step's
+    collectives: ``comm`` (the mesh's process groups by default; the
+    dry-run passes a counting stand-in on an abstract mesh with
+    ``coords``).  On NCCL groups it is captured as a CUDA graph with its
+    collectives; on gloo groups it runs eagerly (``mode``), as gloo's
+    collectives are host calls.  A config or mesh that
+    ``sharding.serve_mesh_refusal`` names raises ``NotImplementedError``."""
+
+    def __init__(self, step: Callable, cfg: ArchConfig, mesh, batch: int, max_len: int,
+                 tokens_shape: Tuple[int, ...], device="cuda", comm=None, coords=None):
+        from repro_torch.runtime import sharding as SH
+
+        reason = SH.serve_mesh_refusal(cfg, mesh, batch)
+        if reason is not None:
+            raise NotImplementedError(reason)
+        sizes = SH.mesh_axes(mesh)
+        self.mesh = mesh
+        self.coords = SH.coordinates(mesh) if coords is None else dict(coords)
+        self.comm = _GroupComm(mesh) if comm is None else comm
+        self.data_axes = SH.data_axes(mesh)
+        r, n = 0, 1
+        for a in self.data_axes:
+            r, n = r * sizes[a] + self.coords[a], n * sizes[a]
+        rows = slice(r * (batch // n), (r + 1) * (batch // n))
+        self.model = TP.ModelParallel(self.comm, sizes.get("model", 1), self.coords.get("model", 0))
+        self.local_cfg = TP.local_config(cfg, self.model.size)
+        self.batch, self.max_len = batch, max_len
+        tmpl = Z.init_cache(batch, max_len, cfg, device="meta")
+        # leaves held whole over the data ranks, by path: a view of the
+        # rank's rows goes in, every rank's rows are gathered back after
+        # the forward
+        whole = {path for (path, t), sh in zip(tree.leaves_with_paths(tmpl),
+                                               tree.leaves(SH.cache_shardings(tmpl, mesh, batch, cfg)))
+                 if t.ndim and t.shape[0] == batch and not SH._axes_of(sh.spec[0] if sh.spec else None)}
+        bad = [t.dtype for path, t in tree.leaves_with_paths(tmpl) if path in whole and t.element_size() != 4]
+        if bad:
+            raise NotImplementedError(f"whole-batch cache leaves of dtypes {bad}: their rows are gathered as "
+                                      "32-bit words")
+        eager = not isinstance(mesh, AbstractMesh) and _gloo(mesh)
+
+        def run(params, tokens, _cfg, cache, *extra):
+            leaves = tree.leaves_with_paths(cache)
+            mine = tree.unflatten(cache, [t[rows] if path in whole else t for path, t in leaves])
+            with TP.sharded(self.model):
+                logits, _ = step(params, tokens[rows], self.local_cfg, mine, *extra)
+            self._share_rows([t for path, t in leaves if path in whole], rows)
+            return self._gather_rows(logits), cache
+
+        super().__init__(run, cfg, tokens_shape, (batch // n, max_len), device, eager=eager)
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every data rank's rows of ``t``, stacked in the batch's order
+        (the first data axis major)."""
+        for a in reversed(self.data_axes):
+            t = self.comm.all_gather(t, a).reshape((-1,) + tuple(t.shape[1:]))
+        return t
+
+    def _share_rows(self, leaves, rows: slice) -> None:
+        """Each whole-batch leaf's rows from the rank that wrote them, in
+        place: one all-gather of their 32-bit words."""
+        if not leaves:
+            return
+        mine = [t[rows].reshape(-1).view(torch.int32) for t in leaves]
+        got = self._gather_rows(torch.cat(mine)[None])  # (data ranks, words)
+        o = 0
+        for t, m in zip(leaves, mine):
+            t.copy_(got[:, o:o + m.numel()].reshape(t.shape).view(t.dtype))
+            o += m.numel()
+
+    def shard_params(self, params: dict) -> dict:
+        """This rank's shards of the whole serving params (each leaf by the
+        rules at its path, ``serving_params_shardings``)."""
+        from repro_torch.runtime import sharding as SH
+
+        return SH.shard_tree(params, SH.params_shardings(params, self.mesh, self.cfg), self.coords)
+
+    def shard_cache(self, cache: dict) -> dict:
+        """This rank's shards of a whole ``(batch, max_len)`` cache
+        (``cache_shardings``)."""
+        from repro_torch.runtime import sharding as SH
+
+        return SH.shard_tree(cache, SH.cache_shardings(cache, self.mesh, self.batch, self.cfg), self.coords)
+
+    def init_cache(self, device=None) -> dict:
+        """This rank's shards of an empty cache."""
+        return self.shard_cache(Z.init_cache(self.batch, self.max_len, self.cfg,
+                                             device=self.device if device is None else device))
+
+
 def make_prefill(cfg: ArchConfig, batch: int, prompt_len: int, max_len: int,
-                 device="cuda") -> CompiledStep:
+                 device="cuda", mesh=None) -> CompiledStep:
     """``fn(params, tokens (batch, prompt_len), cache) -> (logits, cache)``:
     ``model_zoo.prefill`` from an empty ``(batch, max_len)`` cache, captured
     once and replayed.  To replay, pass the same cache again, reset
     (``model_zoo.cache_reset``).  A model with a frontend (``cfg.encoder``)
     takes ``fn(params, tokens, cache, frontend)``, the frontend of shape
-    ``(batch, n_positions, d_input or d_model)``."""
+    ``(batch, n_positions, d_input or d_model)``.  With ``mesh`` a
+    ``MeshStep`` over its ranks."""
     Z.check_max_len(cfg, max_len)
+    if mesh is not None:
+        return MeshStep(Z.prefill, cfg, mesh, batch, max_len, (batch, prompt_len), device)
     enc = cfg.encoder
     frontend = None if enc is None else (batch, enc.n_positions, enc.d_input or cfg.d_model)
     return CompiledStep(Z.prefill, cfg, (batch, prompt_len), (batch, max_len), device, frontend)
 
 
-def make_decode_step(cfg: ArchConfig, batch: int, max_len: int, device="cuda") -> CompiledStep:
+def make_decode_step(cfg: ArchConfig, batch: int, max_len: int, device="cuda", mesh=None) -> CompiledStep:
     """``fn(params, tokens (batch,), cache) -> (logits, cache)``:
     ``model_zoo.decode_step`` over a ``(batch, max_len)`` cache, captured
-    once and replayed."""
+    once and replayed.  With ``mesh`` a ``MeshStep`` over its ranks."""
     Z.check_max_len(cfg, max_len)
+    if mesh is not None:
+        return MeshStep(Z.decode_step, cfg, mesh, batch, max_len, (batch,), device)
     return CompiledStep(Z.decode_step, cfg, (batch,), (batch, max_len), device)
 
 

@@ -58,6 +58,7 @@ __all__ = [
     "batch_shardings",
     "cache_pspec",
     "cache_shardings",
+    "serve_mesh_refusal",
     "data_axes",
     "logical_batch_spec",
     "ref_path",
@@ -336,6 +337,61 @@ def cache_shardings(cache, mesh, batch: int, cfg):
         spec = cache_pspec(names, shape, mesh, batch)
         out.append(NamedSharding(mesh, _trim(_unstack(spec, stacked))))
     return tree.unflatten(cache, out)
+
+
+#: the qlinear sites of a dense block (``models/attention.py``, ``models/layers.py::ffn``)
+_DENSE_SITES = ("attn.q", "attn.k", "attn.v", "attn.o", "ffn.up", "ffn.gate", "ffn.down")
+
+
+def serve_mesh_refusal(cfg, mesh, batch: int) -> Optional[str]:
+    """Why a serving step cannot run ``cfg`` over ``mesh`` (any mesh,
+    abstract or not) at ``batch`` rows, or None.  The sharded step
+    (``runtime/serve_loop.py``) computes the dense attention decoders
+    Megatron-style over ``model`` and splits the batch over the data axes;
+    what it does not compute it refuses, never computing replicated."""
+    sizes = mesh_axes(mesh)
+    m = sizes.get("model", 1)
+    kinds = set(cfg.layer_kinds)
+    if cfg.mla is not None or kinds & {"Md", "Mm"}:
+        return ("MLA's latent cache over 'model' is not split by the sharded serving step "
+                "(ROADMAP item 7.8, follow-up 1: the latent over 'model')")
+    if cfg.moe is not None:
+        return ("MoE layers over a serving mesh need expert parallelism, the (E, C, D) buffer's experts "
+                "split over 'model' (ROADMAP item 7.8, follow-up 2)")
+    if kinds & {"r", "s"}:
+        return ("SSM and RG-LRU state over 'model' is not split by the sharded serving step "
+                "(ROADMAP item 7.8, follow-up 3)")
+    if cfg.encoder is not None:
+        return ("an encoder frontend has no sharded serving step (ROADMAP item 7.8, follow-up 4)")
+    if not cfg.quant.enabled:
+        return ("quantization is off: a row-parallel float product summed over 'model' is not the "
+                "one-card product, so only the integer datapath is served over a mesh")
+    widths = {"n_kv_heads": cfg.n_kv_heads, "n_heads": cfg.n_heads, "d_ff": cfg.d_ff,
+              "vocab_size": cfg.vocab_size}
+    for name, n in widths.items():
+        if n % m:
+            why = (" (the cache rule would split d_head instead, which the sharded step does not compute: "
+                   "ROADMAP item 7.8, follow-up 5)" if name == "n_kv_heads" else "")
+            return f"{name} {n} does not split over {m} 'model' ranks" + why
+    for name, k in (("attn.o", cfg.n_heads * cfg.d_head), ("ffn.down", cfg.d_ff)):
+        if m > 1 and k % (32 * m):
+            return (f"{name}'s K of {k} does not split over {m} 'model' ranks on 32-bit word boundaries "
+                    "(its packed weight is split along its words)")
+    dp = data_axes(mesh)
+    n = _prod(sizes[a] for a in dp) if dp else 1
+    if batch % n:
+        return (f"a batch of {batch} rows does not split over {n} data ranks (the port has no sequence "
+                "parallelism)")
+    if m > 1:
+        for site in _DENSE_SITES:
+            b = cfg.quant.backend_for(site)
+            if b in ("fused", "auto"):
+                return (f"backend {b!r} at {site} over {m} 'model' ranks: "
+                        + ("fused_qmm applies its epilogue inside the kernel, so a row-parallel site "
+                           "cannot sum its int32 partial products first" if b == "fused" else
+                           "ranks that time their candidates apart may pick different backends")
+                        + " (ROADMAP item 7.8, follow-up 6)")
+    return None
 
 
 # ---------------------------------------------------------------------------

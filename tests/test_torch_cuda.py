@@ -1380,3 +1380,72 @@ def test_train_cli_spawns_ranks_that_share_the_card(dev, tmp_path):
                            text=True, timeout=300)
     assert again.returncode == 0 and "resumed from step 2" in again.stdout, again.stderr[-3000:]
     assert (tmp_path / "ck" / "step_000000004" / "_COMMITTED").exists()
+
+
+def _tp_granite():
+    cfg = dataclasses.replace(smoke_variant(get_config("granite-8b")), n_kv_heads=2)
+    return dataclasses.replace(cfg, quant=dataclasses.replace(cfg.quant, backend="pallas"))
+
+
+def test_sharded_serving_two_ranks_on_one_card(dev, tmp_path):
+    """granite smoke (2 kv heads) over a 1x2 mesh in two gloo ranks on the
+    card (K1 at the local shapes): each rank's cache its shard of the
+    unmeshed step's bit for bit, after the prefill and at the end, the
+    greedy tokens equal and the logits within 1e-5 of their largest."""
+    import sys
+
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    from torch_dist_workers import run_ranks, serve_greedy
+
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.runtime import sharding as SH
+    from repro_torch.runtime.serve_loop import make_decode_step, make_prefill
+
+    cfg = _tp_granite()
+    params = Z.init_serving_params(0, cfg, device="cpu")
+    prompts = np.random.default_rng(7).integers(0, cfg.vocab_size, size=(2, 9))
+    want = serve_greedy(make_prefill, make_decode_step, cfg, _to(params, dev), prompts, 4, 32, device=dev)
+    out = run_ranks("card_serve_worker", 2, tmp_path, {"cfg": cfg, "params": params, "prompts": prompts,
+                                                       "n_decode": 4, "max_len": 32})
+    mesh = abstract_mesh((1, 2), ("data", "model"))
+    for got in out:
+        assert got["modes"] == ("eager", "eager")
+        assert [t.tolist() for t in got["fed"]] == [t.cpu().tolist() for t in want["fed"]]
+        scale = max(float(w.abs().max()) for w in want["logits"])
+        for g, w in zip(got["logits"], want["logits"]):
+            assert float((g - w.cpu()).abs().max()) <= 1e-5 * scale
+        for when in ("prefill", "end"):
+            whole = want[when]
+            shard = SH.shard_tree(whole, SH.cache_shardings(whole, mesh, 2, cfg), got["coords"])
+            for a, b in zip(tree.leaves(shard), tree.leaves(got[when])):
+                assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+def test_one_nccl_rank_captures_the_mesh_step(dev, tmp_path):
+    """A world of one NCCL rank, mesh 1x1: ``make_prefill`` /
+    ``make_decode_step`` with the mesh are captured with their collectives
+    (mode ``graph``) and replayed bitwise the unmeshed compiled steps."""
+    import sys
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    from torch_dist_workers import serve_greedy
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.serve_loop import make_decode_step, make_prefill
+
+    cfg = _tp_granite()
+    params = Z.init_serving_params(0, cfg, device=dev)
+    prompts = np.random.default_rng(8).integers(0, cfg.vocab_size, size=(2, 9))
+    want = serve_greedy(make_prefill, make_decode_step, cfg, params, prompts, 4, 32, device=dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/init", rank=0, world_size=1)
+    try:
+        got = serve_greedy(make_prefill, make_decode_step, cfg, params, prompts, 4, 32, device=dev,
+                           mesh=make_host_mesh(1, 1, device="cuda"))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert got["modes"] == ("graph", "graph")
+    assert all(torch.equal(a, b) for a, b in zip(got["logits"], want["logits"]))
+    assert Z.caches_equal(got["prefill"], want["prefill"]) and Z.caches_equal(got["end"], want["end"])

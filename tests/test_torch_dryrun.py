@@ -2,8 +2,9 @@
 per-device argument bytes equal the reference's compiled cell's (the
 reference run in a subprocess with the 512 host devices its module asks
 for), cached cells are not recomputed, refused steps are recorded with
-their reasons beside the numbers the sharding rules give, and the kernel
-wrappers' shape-only path on ``meta``."""
+their reasons beside the numbers the sharding rules give, serving cells
+count the sharded serving step, and the kernel wrappers' shape-only path
+on ``meta``."""
 
 import json
 import os
@@ -47,9 +48,12 @@ def test_smoke_cell_argument_bytes_equal_the_references(tmp_path):
 
 
 def test_cached_cell_recomputes_nothing(tmp_path, monkeypatch, capsys):
-    args = ["--arch", "smoke", "--shape", "decode_32k", "--out", str(tmp_path)]
+    # a training cell: the smoke arch's serving cells are refused at the
+    # production mesh's 16 model ranks (one kv head), and only completed
+    # cells are cached
+    args = ["--arch", "smoke", "--shape", "train_4k", "--out", str(tmp_path)]
     dryrun.main(args)
-    path = dryrun.cell_path(str(tmp_path), "smoke", "decode_32k", "single")
+    path = dryrun.cell_path(str(tmp_path), "smoke", "train_4k", "single")
     with open(path) as f:
         first = json.load(f)
     assert first["status"] == "ok" and first["schema"] == dryrun.SCHEMA and first["flops"] > 0
@@ -59,7 +63,29 @@ def test_cached_cell_recomputes_nothing(tmp_path, monkeypatch, capsys):
 
     monkeypatch.setattr(dryrun, "run_cell", recompute)
     dryrun.main(args)
-    assert "[cached] smoke decode_32k single: ok" in capsys.readouterr().out
+    assert "[cached] smoke train_4k single: ok" in capsys.readouterr().out
+    with open(path) as f:
+        assert json.load(f) == first
+
+
+def test_a_serving_cell_that_splits_is_counted_and_cached(tmp_path, monkeypatch, capsys):
+    """gemma3-27b's 32 query and 16 kv heads split over the production
+    mesh's 16 model ranks: its prefill cell is not skipped (the reference
+    lowers it too), is counted ``ok`` with its collectives, and is cached."""
+    args = ["--arch", "gemma3-27b", "--shape", "prefill_32k", "--out", str(tmp_path)]
+    dryrun.main(args)
+    path = dryrun.cell_path(str(tmp_path), "gemma3-27b", "prefill_32k", "single")
+    with open(path) as f:
+        first = json.load(f)
+    assert first["status"] == "ok" and first["kind"] == "prefill" and first["flops"] > 0
+    assert first["collectives"]["all-reduce"]["bytes"] > 0 and first["collectives"]["all-gather"]["bytes"] > 0
+
+    def recompute(*a, **k):
+        raise AssertionError("a cached cell was recomputed")
+
+    monkeypatch.setattr(dryrun, "run_cell", recompute)
+    dryrun.main(args)
+    assert "[cached] gemma3-27b prefill_32k single: ok" in capsys.readouterr().out
     with open(path) as f:
         assert json.load(f) == first
 
@@ -83,12 +109,39 @@ def test_refused_training_cells_keep_the_rules_numbers():
 
 
 def test_serving_cells_count_a_ranks_share():
-    single = dryrun.run_cell("smoke", "prefill_32k", "single")
-    multi = dryrun.run_cell("smoke", "prefill_32k", "multi")
-    assert single["status"] == multi["status"] == "ok"
-    assert single["data_ranks"] == 16 and multi["data_ranks"] == 32
-    assert single["flops"] == 2 * multi["flops"]  # 2 rows a rank against 1
-    assert "collectives" not in single  # serving runs no mesh step
+    """A serving cell counts the sharded step (``serve_loop.MeshStep``) as
+    it runs on ``meta``: gemma3-27b's decode over 16 data x 16 model ranks
+    does a sixteenth of the matrix products of its 8 rows computed whole
+    (every product splits one of its dims over ``model``: heads, FFN
+    columns, K at the row-parallel sites, the vocabulary), and its
+    collectives carry what the step hands them; the smoke arch (one kv
+    head) is refused with its reason, beside its argument bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo as Z
+
+    cell = dryrun.run_cell("gemma3-27b", "decode_32k", "single")
+    assert cell["status"] == "ok" and cell["data_ranks"] == 16
+    cfg = get_config("gemma3-27b")
+    rows, d, v, n = 128 // 16, cfg.d_model, cfg.vocab_size, cfg.n_layers
+    params = Z.prepare_serving_params(Z.init_params(0, cfg, device="meta"), cfg)
+    tokens = torch.empty((rows,), dtype=torch.int64, device="meta")
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        Z.decode_step(params, tokens, cfg, Z.init_cache(rows, 32768, cfg, device="meta"))
+    assert 16 * cell["flops"] == counter.get_total_flops()
+    # a layer: the query's grid, and at attn.o and ffn.down the per-token
+    # ranges and the int32 product with its row sums; then the embedding's
+    # rows (bf16 bytes), the vocabulary shards' logits, the data ranks'
+    # logits, and the cache's whole-batch leaves (4 affines and the cursor
+    # a layer) in one gather
+    ranges, partials = 2 * rows * 4, (rows * d + rows) * 4
+    assert cell["collectives"]["all-reduce"] == {"bytes": n * (3 * ranges + 2 * partials), "count": 5 * n}
+    gathers = rows * d * 2 + rows * v // 16 * 4 + rows * v * 4 + n * 5 * rows * 4
+    assert cell["collectives"]["all-gather"] == {"bytes": gathers, "count": 4}
+    assert cell["collectives"]["total_bytes"] == gathers + n * (3 * ranges + 2 * partials)
+    smoke = dryrun.run_cell("smoke", "prefill_32k", "single")
+    assert smoke["status"] == "error" and "n_kv_heads 1 does not split over 16 'model' ranks" in smoke["error"]
+    assert "ROADMAP item 7.8, follow-up 5" in smoke["error"]
+    assert smoke["memory"]["argument_size_in_bytes"] > 0 and "flops" not in smoke
 
 
 def test_kernel_wrappers_give_shapes_on_meta():
@@ -112,8 +165,8 @@ def test_skips_are_the_references(shape):
     rec = dryrun.run_cell("smoke", shape, "single")
     if shape == "long_500k":  # granite is not sub-quadratic
         assert rec["status"] == "skip" and "sub-quadratic" in rec["reason"]
-    else:
-        assert rec["status"] == "ok"
+    else:  # not skipped: counted, and refused by the sharded serving step (one kv head over 16)
+        assert rec["status"] == "error" and "does not split over 16 'model' ranks" in rec["error"]
 
 
 def test_mesh_step_refuses_a_pod_axis():

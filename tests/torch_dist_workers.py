@@ -391,3 +391,119 @@ def staged_worker(rank: int, world: int, payload):
             mock.patch.object(C, "_host_empty", lambda n, dtype: torch.empty((n,), dtype=dtype)):
         staged = [C.all_reduce(t), C.all_reduce(t, "max"), C.all_gather(t), C.reduce_scatter(t), C.gather_to(t)]
     return {"direct": direct, "staged": staged, "input": t}
+
+
+# ---------------------------------------------------------------------------
+# runtime/serve_loop.py: the serving steps over meshes
+# ---------------------------------------------------------------------------
+
+#: the sharded serving scenarios: label -> (model, mesh shape, the ranks of
+#: its mesh); the 1x2 and 2x1 meshes of ranks 0-1 run beside those of 2-3
+SERVE_CASES = {
+    "granite_2x1": ("granite", (2, 1), (0, 1)),
+    "gemma3_1x2": ("gemma3", (1, 2), (0, 1)),
+    "granite_1x2": ("granite", (1, 2), (2, 3)),
+    "bert_1x2": ("bert", (1, 2), (2, 3)),
+    "granite_2x2": ("granite", (2, 2), (0, 1, 2, 3)),
+}
+
+
+def _snap(cache) -> dict:
+    from repro_torch.models import model_zoo as Z
+
+    return Z.cache_copy(cache)
+
+
+def serve_greedy(make_prefill, make_decode_step, cfg, params, prompts, n_decode: int, max_len: int,
+                 device="cpu", mesh=None, spy=None):
+    """A prefill of ``prompts`` (B, S) and ``n_decode`` greedy steps through
+    the compiled steps (over ``mesh`` when given: ``params`` whole, sharded
+    here).  Returns the logits of each call, the tokens fed, the cache after
+    the prefill and at the end, and the collectives' bytes of each call
+    (``collectives.BYTES``, by op)."""
+    from repro_torch.runtime import collectives as C
+
+    b, s = prompts.shape
+    prefill = make_prefill(cfg, b, s, max_len, device=device, mesh=mesh)
+    step = make_decode_step(cfg, b, max_len, device=device, mesh=mesh)
+    if mesh is None:
+        from repro_torch.models import model_zoo as Z
+
+        cache = Z.init_cache(b, max_len, cfg, device=device)
+    else:
+        params, cache = prefill.shard_params(params), prefill.init_cache(device)
+    logits, fed, carried = [], [], []
+    C.BYTES.clear()
+    out, cache = prefill(params, torch.as_tensor(prompts, dtype=torch.int64), cache)
+    carried.append(dict(C.BYTES))
+    after_prefill = _snap(cache)
+    for _ in range(n_decode):
+        logits.append(out)
+        tok = out.argmax(-1)
+        fed.append(tok)
+        C.BYTES.clear()
+        out, cache = step(params, tok, cache)
+        carried.append(dict(C.BYTES))
+    logits.append(out)
+    return {"logits": logits, "fed": fed, "prefill": after_prefill, "end": _snap(cache),
+            "bytes": carried, "modes": (prefill.mode, step.mode)}
+
+
+def serve_worker(rank: int, world: int, payload):
+    """Every scenario of ``tests/test_torch_sharded_serving.py`` in one group
+    of 4 gloo ranks: each of ``SERVE_CASES`` this rank is on (the whole
+    params in ``payload["params"]``, sharded by the step); on granite 1x2 a
+    prefill again with each rank calibrating attention on its own heads."""
+    from unittest import mock
+
+    from repro_torch.models import attention as A
+    from repro_torch.runtime import sharding as SH
+    from repro_torch.runtime.serve_loop import make_decode_step, make_prefill
+
+    meshes = {}
+    for label, (_, shape, ranks) in SERVE_CASES.items():  # collective: every rank, one order
+        meshes[label] = _mesh(shape, list(ranks))
+    out = {}
+    for label, (model, shape, ranks) in SERVE_CASES.items():
+        if rank not in ranks:
+            continue
+        cfg = payload["cfgs"][model]
+        mesh = meshes[label]
+        res = serve_greedy(make_prefill, make_decode_step, cfg, payload["params"][model],
+                           payload["prompts"][model], payload["n_decode"], payload["max_len"][model], mesh=mesh)
+        res["coords"] = SH.coordinates(mesh)
+        out[label] = res
+        if label == "granite_1x2":
+            with mock.patch.object(A, "_row_ranges", lambda: None):
+                own = serve_greedy(make_prefill, make_decode_step, cfg, payload["params"][model],
+                                   payload["prompts"][model], 0, payload["max_len"][model], mesh=mesh)
+            out["own_heads"] = own["prefill"]
+    return out
+
+
+def card_serve_worker(rank: int, world: int, payload):
+    """Two ranks on one card (gloo): ``payload["cfg"]`` over a 1x2 mesh, a
+    prefill and greedy steps of ``payload["prompts"]`` through the sharded
+    steps, results on the host."""
+    from repro_torch.runtime import sharding as SH
+    from repro_torch.runtime.serve_loop import make_decode_step, make_prefill
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = _mesh((1, 2), [0, 1])
+    params = _to(payload["params"], dev)
+    res = serve_greedy(make_prefill, make_decode_step, payload["cfg"], params,
+                       payload["prompts"], payload["n_decode"], payload["max_len"], device=dev, mesh=mesh)
+    res["coords"] = SH.coordinates(mesh)
+    return _to(res, "cpu")
+
+
+def _to(tree_, device):
+    """A tree of dicts, lists and tuples with its tensors on ``device``."""
+    if isinstance(tree_, torch.Tensor):
+        return tree_.to(device)
+    if isinstance(tree_, dict):
+        return {k: _to(v, device) for k, v in tree_.items()}
+    if isinstance(tree_, (list, tuple)):
+        return type(tree_)(_to(v, device) for v in tree_)
+    return tree_
