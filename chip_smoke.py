@@ -325,9 +325,20 @@ Phases (each prints its own lines):
    their collectives (mode ``graph``), replays bitwise the unmeshed
    ``CompiledStep``'s, the device work the collectives add to an eager
    step found in a profiled replay (NCCL over one rank copies device to
-   device: graph memcpy nodes).  Then K1, K3 and
-   the scores kernel at the local shapes against their plain versions,
-   timed (their ``sharded`` entries).
+   device: graph memcpy nodes).  [20e] deepseek-v2-lite-16b at full width
+   on phase 8's 4 layers (the ``"Md"`` layer and 3 ``"Mm"``), W1A8
+   ``pallas``, in the same two ranks: over 1x2 (the latent cache's columns
+   and the routed experts over ``model``: 32 K1 launches a routed-expert
+   site), over 2x1 (the batch over ``data``, each MoE layer routing the
+   global batch: capacity 1 at the 4-row decode step), and over 1x2 with
+   ``attn.qk_latent -> binary`` (the scores kernel on a rank's 256 latent
+   columns, 8 words); against the unmeshed steps as [20a]-[20c] are, also
+   each MoE layer's routes, ``keep`` and ``dest``, and every K1 call's
+   (M, K, N).  Then K1 (granite's 1x2 sites at 4 and 512 rows, every
+   (M, K, N) of deepseek's prefill and decode over 1x2 and 2x1, and the
+   expert loop at 32 experts), K3 and the scores
+   kernel at the local shapes against their plain versions, timed (their
+   ``sharded`` entries).
 11. (printed last) one JSON line of per-kernel numbers, the ``nvidia-smi``
    line, and last ``{"ok": true, "device": {...}}``.  Each kernel's
    ``launches`` is its wrapper's count over its main path's run alone
@@ -1519,12 +1530,13 @@ def k1_per_forward(cfg, prefill: bool) -> int:
     return sum(attn + (moe if kind == "Mm" else 3) for kind in cfg.layer_kinds)
 
 
-def check_expert_loop(gen: torch.Generator, n_experts: int) -> list:
+def check_expert_loop(gen: torch.Generator, n_experts: int, cases=None, phase: str = "8") -> list:
     """The routed experts' integer product as the MoE runs it on the card
     (``moe._experts_k1``: one K1 launch per expert into its slice of one
     (E, C, N) int32 buffer) against the plain version expert by expert,
-    bitwise; timed beside its bound, the plain loop and one batched
-    PyTorch product on pre-unpacked operands."""
+    bitwise, at ``cases`` (C, K, N) (``EXPERT_CASES`` by default); timed
+    beside its bound, the plain loop and one batched PyTorch product on
+    pre-unpacked operands."""
     from repro_torch.core import packing
     from repro_torch.core import quantization as Q
     from repro_torch.kernels import ref
@@ -1532,7 +1544,7 @@ def check_expert_loop(gen: torch.Generator, n_experts: int) -> list:
 
     dev = gen.device
     rows = []
-    for c, k, n in EXPERT_CASES:
+    for c, k, n in EXPERT_CASES if cases is None else cases:
         kw = packing.packed_len(k, 1)
         w_bytes = 4 * n_experts * kw * n
         a = torch.randint(-128, 128, (n_experts, c, k), generator=gen, device=dev, dtype=torch.int8)
@@ -1563,7 +1575,7 @@ def check_expert_loop(gen: torch.Generator, n_experts: int) -> list:
             library_ms=device_ms([lambda: torch.bmm(a32, w32)], 20),
         ))
         r = rows[-1]
-        log(f"[8]   expert loop {n_experts} x {(c, k, n)}: {n_experts} binary_qmm launches equal to the "
+        log(f"[{phase}]   expert loop {n_experts} x {(c, k, n)}: {n_experts} binary_qmm launches equal to the "
             f"plain version, expert by expert; ms={r['ms']:.4f} eager_ms={r['eager_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) plain_ms={r['plain_ms']:.3f} "
             f"library_ms={r['library_ms']:.4f} [{r['library']}]")
@@ -4696,16 +4708,124 @@ TP_ROWS = (4, 512)
 TP_SCORES_CASES = [
     ("bit-bert TP prefill", (4, 6, 128), (4, 6, 128), 64, False),
     ("bit-bert TP decode", (4, 6, 1), (4, 6, 512), 64, False),
+    ("deepseek TP latent decode", (4, 16, 1), (4, 1, 512), 256, False),
 ]
+# [20e]: deepseek-v2-lite-16b's decode steps of the binary latent case (the
+# 1x2 and 2x1 cases take TP_STEPS), and the routed experts' K1 loop at a
+# rank's 32 of 64 experts, capacity 1 (a 4-row decode) and 60 (a 4 x 128
+# prefill: 1.25 x 512 x 6 / 64)
+TP_MOE_BIN_STEPS = 8
+TP_EXPERT_CASES = [(1, 2048, 1408), (1, 1408, 2048), (60, 2048, 1408), (60, 1408, 2048)]
 
 
-def _tp_cases(granite_cfg, bert_cfg) -> dict:
-    """[20a]-[20c]: tag -> (config, mesh shape, K1 / K3 launches a forward)."""
+def _tp_cases(granite_cfg, bert_cfg, deepseek_cfg) -> dict:
+    """Phase 20's cases: tag -> (config, mesh shape, decode steps)."""
     g = with_backend(granite_cfg, "pallas")
     b = _with_qk(with_backend(bert_cfg, "pallas"), "binary")
-    return {"20a": (g, (1, 2), SITES_PER_LAYER * g.n_layers),
-            "20b": (b, (1, 2), BERT_SITES_PER_LAYER * b.n_layers),
-            "20c": (dataclasses.replace(g, n_layers=TP_DP_LAYERS), (2, 1), SITES_PER_LAYER * TP_DP_LAYERS)}
+    d = with_backend(deepseek_cfg, "pallas")
+    d_bin = dataclasses.replace(d, quant=dataclasses.replace(d.quant, backend_overrides=(("attn.qk_latent", "binary"),)))
+    return {"20a": (g, (1, 2), TP_STEPS), "20b": (b, (1, 2), TP_STEPS),
+            "20c": (dataclasses.replace(g, n_layers=TP_DP_LAYERS), (2, 1), TP_STEPS),
+            "20e-1x2": (d, (1, 2), TP_STEPS), "20e-2x1": (d, (2, 1), TP_STEPS),
+            "20e-bin": (d_bin, (1, 2), TP_MOE_BIN_STEPS)}
+
+
+def _moe_tag(tag: str) -> bool:
+    return tag.startswith("20e")
+
+
+def _tp_dense_calls(cfg, shape, steps: int) -> Counter:
+    """(M, K, N) -> K1 (K3 for bit-bert) calls of [20a]-[20c]'s prefill and
+    ``steps`` decode steps on a rank of ``shape``: each layer's
+    column-parallel q, k, v, up (and gate) on the rank's columns and the
+    row-parallel o and down."""
+    n_data, m = shape
+    d = cfg.d_model
+    q, kv, ff = cfg.n_heads * cfg.d_head // m, cfg.n_kv_heads * cfg.d_head // m, cfg.d_ff // m
+    gated = cfg.ffn_type.endswith("glu")
+    layer = Counter([(d, q), (d, kv), (d, kv), (q, d), (d, ff), (ff, d)] + [(d, ff)] * gated)
+    out = Counter()
+    for rows, n in ((TP_BATCH * TP_PROMPT // n_data, 1), (TP_BATCH // n_data, steps)):
+        for kn, c in layer.items():
+            out[(rows,) + kn] += c * n * cfg.n_layers
+    return out
+
+
+def _tp_moe_calls(cfg, shape, steps: int, routed: bool = True) -> Counter:
+    """(M, K, N) -> K1 launches of [20e]'s prefill and ``steps`` decode steps
+    on a rank of ``shape``: each MLA layer's column-parallel q (or q_down /
+    q_up), kv_down and k_rope on the rank's columns (k_up and v_up in the
+    prefill, on its heads) and the row-parallel o; the dense layer's FFN
+    and each MoE layer's shared experts on the rank's FFN columns; with
+    ``routed``, each MoE layer's routed experts up / gate / down, one
+    launch per expert of the rank's ``E / m``, at the global batch's
+    capacity."""
+    n_data, m = shape
+    mla, e, d = cfg.mla, cfg.moe, cfg.d_model
+    h, r = cfg.n_heads // m, mla.kv_lora_rank
+
+    def forward(rows: int, prefill: bool, tokens: int) -> Counter:
+        cap = int(max(1, round(e.capacity_factor * tokens * e.top_k / e.n_routed)))
+        c = Counter()
+        for kind in cfg.layer_kinds:
+            qd = h * (mla.qk_nope_dim + mla.qk_rope_dim)
+            if mla.q_lora_rank:
+                c[(rows, d, mla.q_lora_rank // m)] += 1
+                c[(rows, mla.q_lora_rank, qd)] += 1
+            else:
+                c[(rows, d, qd)] += 1
+            c[(rows, d, r // m)] += 1
+            c[(rows, d, mla.qk_rope_dim // m)] += 1
+            if prefill:
+                c[(rows, r, h * mla.qk_nope_dim)] += 1
+                c[(rows, r, h * mla.v_head_dim)] += 1
+            c[(rows, h * mla.v_head_dim, d)] += 1
+            ff = (e.shared_ff if kind == "Mm" else cfg.d_ff) // m
+            c[(rows, d, ff)] += 2
+            c[(rows, ff, d)] += 1
+            if kind == "Mm" and routed:
+                c[(cap, d, e.d_expert_ff)] += 2 * e.n_routed // m
+                c[(cap, e.d_expert_ff, d)] += e.n_routed // m
+        return c
+
+    out = forward(TP_BATCH * TP_PROMPT // n_data, True, TP_BATCH * TP_PROMPT)
+    for _ in range(steps):
+        out += forward(TP_BATCH // n_data, False, TP_BATCH)
+    return out
+
+
+class _EagerStep:
+    """An unmeshed serving step run eagerly (``model_zoo.prefill`` /
+    ``decode_step``), called as a ``CompiledStep`` is: its Python runs on
+    every call, so [20e]'s route spies see every call, as they do in the
+    ranks' eager steps."""
+
+    mode = "eager"
+
+    def __init__(self, fn, cfg):
+        self.fn, self.cfg = fn, cfg
+
+    def __call__(self, params, tokens, cache):
+        return self.fn(params, tokens, self.cfg, cache)
+
+
+def _tp_routes(M, seen: list):
+    """Patches that record each MoE layer's routes (``_route``'s experts)
+    and dispatch (``_dispatch``'s token of each sorted route, ``keep`` and
+    ``dest``) on the host, in call order."""
+    route, dispatch = M._route, M._dispatch
+
+    def spy_route(*a, **k):
+        out = route(*a, **k)
+        seen.append({"experts": out[1].cpu()})
+        return out
+
+    def spy_dispatch(*a, **k):
+        out = dispatch(*a, **k)
+        seen[-1].update(st=out[1].cpu(), keep=out[2].cpu(), dest=out[3].cpu())
+        return out
+
+    return mock.patch.object(M, "_route", spy_route), mock.patch.object(M, "_dispatch", spy_dispatch)
 
 
 def _tp_sites(cfg, m: int) -> list:
@@ -4778,6 +4898,7 @@ def _tp_rank(rank: int, world: int, tmp: str, plan: dict) -> None:
     from repro_torch.kernels import popcount_qmm as K3
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import model_zoo as Z
+    from repro_torch.models import moe as M
     from repro_torch.runtime import collectives as C
     from repro_torch.runtime import sharding as SH
     from repro_torch.runtime.serve_loop import make_decode_step, make_prefill
@@ -4790,14 +4911,14 @@ def _tp_rank(rank: int, world: int, tmp: str, plan: dict) -> None:
     try:
         meshes = {(1, 2): make_host_mesh(1, 2, device=str(device)), (2, 1): make_host_mesh(2, 1, device=str(device))}
         kernels = (K1.binary_qmm, K3.popcount_qmm, K5.binary_attn_scores_planes)
-        out = {}
-        for tag, (cfg, shape, _) in plan["cases"].items():
-            seen = []
+        out, whole = {}, {}
+        for tag, (cfg, shape, steps) in plan["cases"].items():
+            seen, routes = [], []
             k1, k3 = ops.binary_qmm_int, ops.popcount_qmm_int
 
-            def spy_k1(a, w, k, o=None):
+            def spy_k1(a, w, k, out=None):
                 seen.append(("binary_qmm", a.shape[0], k, w.shape[1]))
-                return k1(a, w, k, o)
+                return k1(a, w, k, out)
 
             def spy_k3(a, b):
                 seen.append(("popcount_qmm", a.shape[0], 32 * a.shape[1], b.shape[1]))
@@ -4809,28 +4930,38 @@ def _tp_rank(rank: int, world: int, tmp: str, plan: dict) -> None:
             if device.type == "cuda":
                 torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            with mock.patch.object(ops, "binary_qmm_int", spy_k1), mock.patch.object(ops, "popcount_qmm_int", spy_k3):
-                run = _tp_serve(Z, make_prefill, make_decode_step, cfg, device, mesh=meshes[shape])
+            moe = _moe_tag(tag)
+            if moe and cfg.name not in whole:  # one build of the whole params serves [20e]'s cases
+                whole[cfg.name] = Z.init_serving_params(0, cfg, device=device)
+            spies = _tp_routes(M, routes) if moe else ()
+            with mock.patch.object(ops, "binary_qmm_int", spy_k1), mock.patch.object(ops, "popcount_qmm_int", spy_k3), \
+                    contextlib.ExitStack() as stack:
+                for spy in spies:
+                    stack.enter_context(spy)
+                run = _tp_serve(Z, make_prefill, make_decode_step, cfg, device, mesh=meshes[shape],
+                                params=whole.get(cfg.name) if moe else None, steps=steps)
             prefill, step = run.pop("steps")
             del run["params"]
-            out[tag] = dict(run, s=time.perf_counter() - t0, launches=_counts(kernels), calls=seen,
+            out[tag] = dict(run, s=time.perf_counter() - t0, launches=_counts(kernels), calls=seen, routes=routes,
                             modes=(prefill.mode, step.mode), coords=SH.coordinates(meshes[shape]),
                             staged=dict(C.STAGED), staged_s=dict(C.STAGED_S), bytes=dict(C.BYTES),
                             peak=torch.cuda.max_memory_allocated() if device.type == "cuda" else 0)
             del prefill, step, run
             torch.cuda.empty_cache()
+        del whole
         torch.save(out, Path(tmp) / f"rank{rank}.part")
         os.replace(Path(tmp) / f"rank{rank}.part", Path(tmp) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
-def _tp_check(SH, tag: str, cfg, shape, want: dict, got: dict, rank: int, per_forward: int, kernel: int,
-              expect_calls: set) -> dict:
+def _tp_check(SH, tag: str, cfg, shape, want: dict, got: dict, rank: int, launches: list,
+              calls: Counter) -> dict:
     """Hold one rank's run to the unmeshed one: every cache leaf its shard's
     bits after the prefill and at the end, the greedy tokens, the logits
-    within ``TP_LOGITS_RTOL``, each wrapper's launches and each K1 / K3
-    call's (M, K, N).  Returns the numbers the phase logs."""
+    within ``TP_LOGITS_RTOL``, the K1 / K3 / scores wrappers' ``launches``
+    and the K1 / K3 ``calls`` by (M, K, N).  Returns the numbers the phase
+    logs."""
     from repro_torch.core import tree
     from repro_torch.launch.mesh import abstract_mesh
 
@@ -4852,20 +4983,46 @@ def _tp_check(SH, tag: str, cfg, shape, want: dict, got: dict, rank: int, per_fo
         raise AssertionError(f"[{tag}] rank {rank}: logits gap {gap:.3g} > {TP_LOGITS_RTOL} x {scale:.3g} "
                              f"(or not finite / of the wrong shape)")
     launched = got["launches"]
-    want_launches = [0, 0, 0]
-    want_launches[kernel] = per_forward * (TP_STEPS + 1)
-    if kernel == 1:  # the scores kernel: one launch a layer
-        want_launches[2] = cfg.n_layers * (TP_STEPS + 1)
-    if launched != want_launches:
-        raise AssertionError(f"[{tag}] rank {rank}: K1, K3, scores launches {launched}, expected {want_launches}")
-    calls = {c[1:] for c in got["calls"]}
-    if calls != expect_calls:
-        raise AssertionError(f"[{tag}] rank {rank}: (M, K, N) of the calls {sorted(calls)}, expected "
-                             f"{sorted(expect_calls)}")
+    if launched != launches:
+        raise AssertionError(f"[{tag}] rank {rank}: K1, K3, scores launches {launched}, expected {launches}")
+    seen = Counter(c[1:] for c in got["calls"])
+    if seen != calls:
+        raise AssertionError(f"[{tag}] rank {rank}: calls by (M, K, N) {sorted(seen.items())}, expected "
+                             f"{sorted(calls.items())}")
     return dict(gap=gap, scale=scale, launches=launched)
 
 
-def serve_sharded(Z, granite_cfg, bert_cfg, device, make_prefill, make_decode_step, smi,
+def _tp_moe_check(SH, tag: str, cfg, shape, steps: int, want: dict, got: dict, rank: int) -> dict:
+    """[20e]: one rank's run held to the unmeshed one as ``_tp_check`` holds
+    [20a]-[20c] (cache shards, tokens, logits), and each MoE layer's
+    routes, ``keep`` and ``dest`` to the unmeshed step's for this rank's
+    tokens; K1's calls by (M, K, N) (``_tp_moe_calls``), no K3, and the
+    scores kernel one launch a layer a decode step where the latent scores
+    are binary."""
+    binary = cfg.quant.backend_for("attn.qk_latent") == "binary"
+    calls = _tp_moe_calls(cfg, shape, steps)
+    launches = [sum(calls.values()), 0, cfg.n_layers * steps if binary else 0]
+    nums = _tp_check(SH, tag, cfg, shape, want, got, rank, launches, calls)
+    n = shape[0]
+    d = got["coords"]["data"]
+    if len(got["routes"]) != len(want["routes"]):
+        raise AssertionError(f"[{tag}] rank {rank}: {len(got['routes'])} MoE layer calls, unmeshed "
+                             f"{len(want['routes'])}")
+    for i, (g, w) in enumerate(zip(got["routes"], want["routes"])):
+        t = w["experts"].shape[0] // n
+        mine = w["st"] // t == d
+        same = (torch.equal(g["experts"], w["experts"][d * t:(d + 1) * t]) and torch.equal(g["keep"], w["keep"][mine])
+                and torch.equal(g["dest"], w["dest"][mine]))
+        if not same:
+            raise AssertionError(f"[{tag}] rank {rank}: MoE call {i}'s routes, keep or dest differ from the "
+                                 f"unmeshed step's for this rank's tokens")
+    dropped = sum(int((~w["keep"]).sum()) for w in want["routes"])
+    routes = sum(w["keep"].numel() for w in want["routes"])
+    return dict(nums, moe_calls=len(want["routes"]), dropped=dropped, routes=routes,
+                experts_a_site=cfg.moe.n_routed // shape[1])
+
+
+def serve_sharded(Z, granite_cfg, bert_cfg, deepseek_cfg, device, make_prefill, make_decode_step, smi,
                   workdir: Path) -> dict:
     """Phase 20.  Returns the ``sharded`` entries of K1, K3 and the scores
     kernel: the ranks' launches at the local shapes and the kernels held to
@@ -4879,8 +5036,10 @@ def serve_sharded(Z, granite_cfg, bert_cfg, device, make_prefill, make_decode_st
     from repro_torch.runtime import collectives as C
     from repro_torch.runtime import sharding as SH
 
+    from repro_torch.models import moe as M
+
     t_phase = time.perf_counter()
-    cases = _tp_cases(granite_cfg, bert_cfg)
+    cases = _tp_cases(granite_cfg, bert_cfg, deepseek_cfg)
     tmp = workdir / "ranks"
     tmp.mkdir()
     plan = dict(device=str(device), cases=cases)
@@ -4890,19 +5049,35 @@ def serve_sharded(Z, granite_cfg, bert_cfg, device, make_prefill, make_decode_st
         p.start()
     try:
         # while the ranks run: the unmeshed steps on the same params
-        want = {}
+        want, deepseek_params = {}, None
         with mock.patch.dict(os.environ, {"REPRO_QMM_AUTOTUNE": "0"}):
-            for tag, (cfg, _, _) in cases.items():
-                run = _tp_serve(Z, make_prefill, make_decode_step, cfg, device,
-                                snap_at=(TP_NCCL_STEPS,) if tag == "20c" else ())
+            for tag, (cfg, shape, n) in cases.items():
+                if tag == "20e-2x1":  # the same unmeshed run as 20e-1x2's
+                    want[tag] = want["20e-1x2"]
+                    continue
+                routes, makers = [], (make_prefill, make_decode_step)
+                with contextlib.ExitStack() as stack:
+                    if _moe_tag(tag):  # eager, so that the route spies see every call
+                        for spy in _tp_routes(M, routes):
+                            stack.enter_context(spy)
+                        if deepseek_params is None:
+                            deepseek_params = Z.init_serving_params(0, cfg, device=device)
+                        makers = (lambda c, *a, **k: _EagerStep(Z.prefill, c),
+                                  lambda c, *a, **k: _EagerStep(Z.decode_step, c))
+                    run = _tp_serve(Z, *makers, cfg, device,
+                                    params=deepseek_params if _moe_tag(tag) else None,
+                                    steps=n,
+                                    snap_at=(TP_NCCL_STEPS,) if tag == "20c" else ())
                 steps = run.pop("steps")
                 if tag == "20c":
                     granite_params, granite_step = run.pop("params"), steps[1]
                 else:
                     del run["params"]
+                want[tag] = dict(run, routes=routes, mode=steps[1].mode if _moe_tag(tag) else "CompiledStep")
                 del steps
-                want[tag] = run
                 torch.cuda.empty_cache()
+        del deepseek_params
+        torch.cuda.empty_cache()
         t_want = time.perf_counter() - t_phase
 
         # [20d] one NCCL rank, mesh 1x1 ([20c]'s 4 layers): the steps
@@ -4983,11 +5158,11 @@ def serve_sharded(Z, granite_cfg, bert_cfg, device, make_prefill, make_decode_st
         # the dry-run's plan of each case's steps (launch/dryrun.py, on meta):
         # a prefill and TP_STEPS decode steps
         plans = {}
-        for tag, (cfg, shape, _) in cases.items():
+        for tag, (cfg, shape, n) in cases.items():
             mesh = abstract_mesh(shape, ("data", "model"))
             plan = [dryrun.serving_counts(cfg, InputShape(tag, seq, TP_BATCH, kind), mesh)["collectives"]
                     for kind, seq in (("prefill", TP_PROMPT), ("decode", TP_MAX_LEN))]
-            plans[tag] = {op.replace("-", "_"): plan[0][op]["bytes"] + TP_STEPS * plan[1][op]["bytes"]
+            plans[tag] = {op.replace("-", "_"): plan[0][op]["bytes"] + n * plan[1][op]["bytes"]
                           for op in ("all-reduce", "all-gather")}
 
         for p in procs:
@@ -5011,44 +5186,58 @@ def serve_sharded(Z, granite_cfg, bert_cfg, device, make_prefill, make_decode_st
     log("[20] the kernels at the sharded steps' local shapes (M, K, N) against their plain versions:")
     k1_shapes = [(m, k, n) for m in TP_ROWS for k, n in _tp_sites(cases["20a"][0], 2)]
     k3_shapes = [(m, k, n) for m in TP_ROWS for k, n in _tp_sites(cases["20b"][0], 2)]
-    rows = {"binary_qmm": check_kernels(gen, [], k1_shapes)["binary_qmm"],
+    # every (M, K, N) of deepseek's prefill and decode sites on a rank of
+    # 1x2 and of 2x1 but the routed experts' (their loop follows): q,
+    # kv_down, k_rope, k_up / v_up (prefill), o, the dense layer's FFN and
+    # the shared experts'
+    dcfg = cases["20e-1x2"][0]
+    k1_deepseek = sorted(set(_tp_moe_calls(dcfg, (1, 2), 1, routed=False))
+                         | set(_tp_moe_calls(dcfg, (2, 1), 1, routed=False)))
+    rows = {"binary_qmm": check_kernels(gen, [], k1_shapes + k1_deepseek)["binary_qmm"],
             "popcount_qmm": check_bit_kernels(gen, k3_shapes, [])["popcount_qmm"],
             "binary_attn_scores_planes": check_binary_attn(gen, TP_SCORES_CASES)}
+    rows["binary_qmm"] += check_expert_loop(gen, dcfg.moe.n_routed // 2, TP_EXPERT_CASES, phase="20e")
     t_kernels = time.perf_counter() - t_phase
     launches = {}
-    for tag, (cfg, shape, per_forward) in cases.items():
+    for tag, (cfg, shape, steps) in cases.items():
         planned = plans[tag]
         for r in range(2):
             if runs[r][tag]["bytes"] != planned:
                 raise AssertionError(f"[{tag}] rank {r}: collectives' bytes {runs[r][tag]['bytes']} against the "
                                      f"dry-run's plan {planned}")
-        kernel = 1 if tag == "20b" else 0
-        rows_a = TP_BATCH * TP_PROMPT // shape[0]
-        expect = {(m, k, n) for m in (rows_a, TP_BATCH // shape[0]) for k, n in _tp_sites(cfg, shape[1])}
-        checks = [_tp_check(SH, tag, cfg, shape, want[tag], runs[r][tag], r, per_forward, kernel, expect)
-                  for r in range(2)]
+        if _moe_tag(tag):
+            checks = [_tp_moe_check(SH, tag, cfg, shape, steps, want[tag], runs[r][tag], r) for r in range(2)]
+            what = (f"{checks[0]['moe_calls']} MoE layer calls' routes, keep and dest equal ({checks[0]['dropped']} "
+                    f"of {checks[0]['routes']} routes dropped at capacity in the unmeshed run), K1 {checks[0]['experts_a_site']} "
+                    f"expert launches a routed-expert site")
+        else:
+            calls = _tp_dense_calls(cfg, shape, steps)
+            n = sum(calls.values())
+            expect = [0, n, cfg.n_layers * (steps + 1)] if tag == "20b" else [n, 0, 0]
+            checks = [_tp_check(SH, tag, cfg, shape, want[tag], runs[r][tag], r, expect, calls)
+                      for r in range(2)]
+            what = f"{n // (steps + 1)} a forward x {steps + 1}"
         launches[tag] = runs[0][tag]["launches"]
         for r in range(2):
             g = runs[r][tag]
             ms = g["ms"]
             log(f"[{tag}] rank {r} {cfg.name} ({cfg.n_layers} layers) mesh {shape[0]}x{shape[1]} {g['coords']} "
                 f"mode {g['modes'][0]}: prefill {TP_BATCH} x {TP_PROMPT} {ms[0]:.1f} ms, decode step median "
-                f"{float(np.median(ms[1:])):.1f} ms (unmeshed CompiledStep {want[tag]['ms'][0]:.1f} / "
-                f"{float(np.median(want[tag]['ms'][1:])):.1f} ms); cache shards bitwise, {TP_STEPS} greedy "
+                f"{float(np.median(ms[1:])):.1f} ms (unmeshed {want[tag]['mode']} {want[tag]['ms'][0]:.1f} / "
+                f"{float(np.median(want[tag]['ms'][1:])):.1f} ms); cache shards bitwise, {steps} greedy "
                 f"tokens equal, logits gap {checks[r]['gap']:.3g} (largest |logit| {checks[r]['scale']:.3g}); "
-                f"launches K1 / K3 / scores {checks[r]['launches']} = {per_forward} a forward x "
-                f"{TP_STEPS + 1}; collectives bytes {g['bytes']} (the dry-run's plan), staged calls "
-                f"{g['staged']}, staged s "
+                f"launches K1 / K3 / scores {checks[r]['launches']}, {what}; collectives bytes {g['bytes']} "
+                f"(the dry-run's plan), staged calls {g['staged']}, staged s "
                 + ", ".join(f"{op} {v:.2f}" for op, v in sorted(g["staged_s"].items()))
                 + f"; {g['s']:.1f} s; peak allocated {g['peak'] / 1e9:.2f} GB | {smi}")
     log(f"[20] phase 20 took {time.perf_counter() - t_phase:.1f} s (beside the ranks: the unmeshed runs to "
         f"{t_want:.1f} s, [20d] to {t_nccl:.1f} s; the ranks joined, then the kernels, to {t_kernels:.1f} s)")
     return {
-        "binary_qmm": dict(launches={t: launches[t][0] for t in ("20a", "20c")}, shapes=rows["binary_qmm"],
-                           equal_to_plain=True),
+        "binary_qmm": dict(launches={t: launches[t][0] for t in ("20a", "20c", "20e-1x2", "20e-2x1", "20e-bin")},
+                           shapes=rows["binary_qmm"], equal_to_plain=True),
         "popcount_qmm": dict(launches={"20b": launches["20b"][1]}, shapes=rows["popcount_qmm"],
                              equal_to_plain=True),
-        "binary_attn_scores_planes": dict(launches={"20b": launches["20b"][2]},
+        "binary_attn_scores_planes": dict(launches={t: launches[t][2] for t in ("20b", "20e-bin")},
                                           shapes=rows["binary_attn_scores_planes"], equal_to_plain=True),
     }
 
@@ -5306,7 +5495,8 @@ def run(device: torch.device, model_cfg, bert_cfg, gemma3_cfg, deepseek_cfg, rec
 
     # ---- phase 20: the serving steps over a (data, model) mesh
     with tempfile.TemporaryDirectory(prefix="chip_smoke_20_") as workdir:
-        sharded = serve_sharded(Z, model_cfg, bert_cfg, device, make_prefill, make_decode_step, smi, Path(workdir))
+        sharded = serve_sharded(Z, model_cfg, bert_cfg, deepseek_cfg, device, make_prefill, make_decode_step, smi,
+                                Path(workdir))
     for path, name in ((k1, "binary_qmm"), (k3, "popcount_qmm"), (k5, "binary_attn_scores_planes")):
         path["sharded"] = sharded[name]
 

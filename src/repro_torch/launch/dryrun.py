@@ -10,8 +10,10 @@ counts what one rank of the production mesh (``launch/mesh.py``:
   * ``memory.argument_size_in_bytes`` -- rank (0, 0)'s shards of the step's
     arguments under the sharding rules (``runtime/sharding.py``): the
     params (``params_shardings``, FSDP in training), the AdamW state in
-    training, the cache in serving (``cache_shardings``) and the batch
-    (``batch_shardings``); ``memory.arguments`` gives each part;
+    training, the cache in serving (``cache_shardings``) and the whole
+    copies a serving rank holds beside its shards
+    (``serve_loop.whole_copies``), and the batch (``batch_shardings``);
+    ``memory.arguments`` gives each part;
   * ``collectives`` -- training: the bytes the mesh step's gather and
     reduce-scatter move a step, by op, from its ``_TreePlan``
     (``runtime/train_loop.py``), with the bytes gathered into the rank by
@@ -38,8 +40,16 @@ layer's experts over the global microbatch's ``E * C`` buffer rows (every
 rank runs the experts over the whole buffer).  Serving runs the sharded
 step (``runtime/serve_loop.py::MeshStep``): a rank's rows of the batch
 over the data axes and its heads, FFN columns and vocabulary shard over
-``model``, so a serving cell's ``flops`` and ``collectives`` are that
-step's, the live code path run on ``meta``.  XLA's temporary and
+``model``, MLA's latent columns and the routed experts over ``model`` and
+an MoE layer's routing over the data ranks, so a serving cell's ``flops``
+and ``collectives`` are that step's, the live code path run on ``meta``.
+At the production meshes the step counts gemma3-27b's and
+deepseek-v3-671b's serving cells (every width divides over 16 model
+ranks); it refuses granite-8b's, mistral-nemo-12b's, qwen3-32b's and
+bit-bert-base's (their kv heads do not split over 16: ROADMAP item 7.8,
+follow-up 5), deepseek-v2-lite-16b's (its dense ``d_ff`` of 10,944 does
+not split over 16 ranks on 32-bit words), the recurrent and encoder
+families' (follow-ups 3 and 4) and the smoke arch's (one kv head).  XLA's temporary and
 generated-code sizes have no counterpart and are not written.  A cell
 whose step cannot run records ``status: "error"`` with the reason (a pod
 axis in training, a batch that does not split over the data ranks -- the
@@ -102,8 +112,9 @@ META = torch.device("meta")
 COMPUTE = ("one rank: its data index's rows of the batch; training over the whole (gathered) model, "
            "computed replicated over 'model' (no tensor-parallel training compute, ROADMAP item 7.7), an "
            "MoE layer routing the global microbatch and running its experts over the whole E x C buffer; "
-           "serving over its heads, FFN columns and vocabulary shard on 'model' (the sharded step, "
-           "Megatron-style, integer partial sums all-reduced in int32)")
+           "serving over its heads, FFN columns, vocabulary shard, MLA latent columns and routed experts on "
+           "'model' (the sharded step, Megatron-style, integer partial sums all-reduced in int32), an MoE "
+           "layer routing the global batch")
 
 OPT_TRANSFORMS = {
     "scores_bf16": dict(attn_scores_dtype="bf16"),
@@ -166,11 +177,13 @@ def _data_ranks(mesh) -> int:
 def argument_bytes(cfg: ArchConfig, shape: InputShape, mesh) -> dict:
     """Rank (0, 0)'s bytes of the step's arguments by part: ``params``,
     ``opt_state`` (training: AdamW's two float32 moments and its step),
-    ``cache`` (serving) and ``batch``."""
+    ``cache`` and ``whole_copies`` (serving: the leaves a rank holds whole
+    beside its shards, ``serve_loop.whole_copies``) and ``batch``."""
     from repro_torch.models import model_zoo as Z
     from repro_torch.optim import adamw
     from repro_torch.runtime import sharding as SH
     from repro_torch.runtime import train_loop as TL
+    from repro_torch.runtime.serve_loop import whole_copies
 
     specs = input_specs(cfg, shape)
     out = {"batch": _local_bytes(specs, SH.batch_shardings(specs, mesh))}
@@ -182,7 +195,9 @@ def argument_bytes(cfg: ArchConfig, shape: InputShape, mesh) -> dict:
         return out
     params = Z.prepare_serving_params(Z.init_params(0, cfg, device=META), cfg)
     cache = Z.init_cache(shape.global_batch, shape.seq_len, cfg, device=META)
+    copies = whole_copies(params, SH.mesh_axes(mesh).get("model", 1))
     out["params"] = _local_bytes(params, SH.params_shardings(params, mesh, cfg))
+    out["whole_copies"] = sum(t.numel() * t.element_size() for c in copies for t in tree.leaves(c))
     out["cache"] = _local_bytes(cache, SH.cache_shardings(cache, mesh, shape.global_batch, cfg))
     return out
 

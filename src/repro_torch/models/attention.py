@@ -39,6 +39,25 @@ of a batch row (the cache's per-row affines, the query's grid, the binary
 grids: ``_row_ranges``) reduces its ranges over the model ranks, so the
 int8 and packed cache bits are the one-card step's.
 
+MLA over the model ranks holds the latent cache's columns ``[r R/m,
+(r+1) R/m)`` and the whole ``k_rope``, as the reference's cache rule
+splits them.  ``kv_down`` and ``k_rope`` (and deepseek-v3's ``q_down``)
+are column-parallel: their outputs are gathered whole (copies) before the
+rmsnorm and rope, which need every column, and the per-row cache affine
+then runs on the whole latent with nothing to reduce; each rank writes its
+columns' int8 mantissas.  The prefill's decompressed form runs the rank's
+heads (``k_up`` / ``v_up`` column-parallel over heads, the whole latent
+their K) into the row-parallel ``attn.o``.  The absorbed decode gathers
+the query heads and computes ``q_abs`` and the context's unfolding for ALL
+heads through whole copies of ``k_up`` / ``v_up`` (``w_uk`` / ``w_uv``,
+``serve_loop.whole_copies``): on a rank's heads alone cuBLAS sums those
+float32 products in another order at some shapes.  The latent scores then
+run on the rank's columns: their int32 product, row and column sums (the
+1-bit path's AND-popcount counts and popcounts) are summed over the ranks
+before the one epilogue with the global ``R``; the rope scores and the
+softmax run on all heads; the P.V product on the rank's columns is exact
+as it stands (its K is T), and its columns are gathered back.
+
 Unlike the reference, the cache is updated IN PLACE (``index_copy_`` /
 ``index_put_``): prefill and decode return the same dict they were given.
 
@@ -195,11 +214,13 @@ def _row_ranges():
     return None if tp is None else tp.ranges
 
 
-def _calibrate_rows(x: torch.Tensor):
-    """Per-row min / (max-min)/255 over every axis but the batch row."""
+def _calibrate_rows(x: torch.Tensor, whole: bool = False):
+    """Per-row min / (max-min)/255 over every axis but the batch row;
+    ``whole``: ``x`` holds the whole row on every model rank (nothing to
+    reduce)."""
     x32 = x.to(torch.float32).reshape(x.shape[0], -1)
     off, hi = x32.amin(dim=-1), x32.amax(dim=-1)
-    reduce = _row_ranges()
+    reduce = None if whole else _row_ranges()
     if reduce is not None:
         off, hi = reduce(off, hi)
     sc = torch.clamp((hi - off) / 255.0, min=1e-8)
@@ -320,10 +341,12 @@ def _cache_binary(cache: Optional[dict], dh: int) -> bool:
             and cache["k"].shape[-1] == packing.packed_len(dh, 1))
 
 
-def _binarize_rows(x: torch.Tensor) -> Q.QuantTensor:
+def _binarize_rows(x: torch.Tensor, whole: bool = False) -> Q.QuantTensor:
     """Per-row elastic 1-bit grid (BiT), min / max over every axis but the
-    batch row: co-batched requests never share a grid."""
-    return Q.quantize_activation(x.to(torch.float32), 1, per_channel_axis=0, range_reduce=_row_ranges())
+    batch row: co-batched requests never share a grid.  ``whole``: ``x``
+    holds the whole row on every model rank (nothing to reduce)."""
+    return Q.quantize_activation(x.to(torch.float32), 1, per_channel_axis=0,
+                                 range_reduce=None if whole else _row_ranges())
 
 
 def _binarize_to_cache(k: torch.Tensor, scale, offset) -> torch.Tensor:
@@ -341,8 +364,8 @@ def _pack_q_heads(bits: torch.Tensor) -> torch.Tensor:
 
 
 def _plane_popcounts(planes: torch.Tensor) -> torch.Tensor:
-    """Set bits of each packed row, float32 (exact: packing zeroes the tail)."""
-    return packing.popcount32(planes).sum(dim=-1, dtype=torch.int32).to(torch.float32)
+    """Set bits of each packed row, int32 (exact: packing zeroes the tail)."""
+    return packing.popcount32(planes).sum(dim=-1, dtype=torch.int32)
 
 
 def _scores_binary(q, k_planes_t, k_scale, k_offset, dh: int, backend: str):
@@ -366,9 +389,9 @@ def _scores_binary(q, k_planes_t, k_scale, k_offset, dh: int, backend: str):
     counts = K_ops.binary_attn_scores(
         q_planes, k_planes_t, dh=dh, backend=_scores_core(backend)
     ).to(torch.float32)
-    row = _plane_popcounts(q_planes)[..., None]  # (B,H,S,1)
+    row = _plane_popcounts(q_planes).to(torch.float32)[..., None]  # (B,H,S,1)
     kvh, t = k_planes_t.shape[1], k_planes_t.shape[2]
-    col = _plane_popcounts(k_planes_t)[:, :, None, :].expand(b, kvh, g, t).reshape(b, h, 1, t)
+    col = _plane_popcounts(k_planes_t).to(torch.float32)[:, :, None, :].expand(b, kvh, g, t).reshape(b, h, 1, t)
     a1 = qq.scale.reshape(b, 1, 1, 1)
     g1 = qq.offset.reshape(b, 1, 1, 1)
     a2 = _per_row(k_scale, 4)
@@ -376,24 +399,39 @@ def _scores_binary(q, k_planes_t, k_scale, k_offset, dh: int, backend: str):
     return counts * (a1 * a2) + (a1 * g2) * row + (g1 * a2) * col + g1 * g2 * dh
 
 
+def _latent_part(x1: torch.Tensor, ckv_m: torch.Tensor):
+    """Inside a tensor-parallel step whose rank holds the latent columns
+    ``ckv_m`` of the whole ``R`` (the last axis of ``x1``): the rank's
+    model split and its columns of ``x1``; else (None, ``x1``)."""
+    if ckv_m.shape[-1] == x1.shape[-1]:
+        return None, x1
+    tp = TP.split()
+    return tp, x1[..., tp.cols(x1.shape[-1])]
+
+
 def _scores_binary_latent(q_abs, ckv_m, ckv_scale, ckv_offset, backend: str):
     """Bitwise absorbed-MLA scores against the int8 latent cache, which
     keeps its layout (it feeds the P.V product too): each mantissa is
     re-binarized at its grid midpoint, ``bit = (m >= 0)``, with the induced
     affine ``ak = 128*sc``, ``gk = off + 64*sc``.  q_abs (B,S,H,R) float;
-    returns float32 (B,H,S,T)."""
+    returns float32 (B,H,S,T).  On a rank holding the latent's columns
+    (``_latent_part``) the counts and popcounts of those columns are
+    summed over the ranks in int32 before the epilogue with the global R."""
     b, s, h, r = q_abs.shape
-    qq = _binarize_rows(q_abs)
+    qq = _binarize_rows(q_abs, whole=True)
     if site_log.is_recording():
         site_log.record(kind="attn", site="attn.qk_latent", bits=1,
                         mantissa_dtype=site_log.dtype_name(qq.mantissa.dtype), backend=backend)
-    q_planes = _pack_q_heads(qq.mantissa)  # (B,H,S,rw)
+    tp, q_bits = _latent_part(qq.mantissa, ckv_m)
+    q_planes = _pack_q_heads(q_bits)  # (B,H,S,rw)
     k_planes = packing.pack_bits(ckv_m >= 0, 1, axis=-1)[:, None]  # (B,1,T,rw)
-    counts = K_ops.binary_attn_scores(
-        q_planes, k_planes, dh=r, backend=_scores_core(backend)
-    ).to(torch.float32)
-    row = _plane_popcounts(q_planes)[..., None]  # (B,H,S,1)
-    col = _plane_popcounts(k_planes)[:, :, None, :]  # (B,1,1,T)
+    counts = K_ops.binary_attn_scores(q_planes, k_planes, dh=ckv_m.shape[-1], backend=_scores_core(backend))
+    ones = [_plane_popcounts(x) for x in (q_planes, k_planes)]
+    if tp is not None:  # the rank's columns: sum the int32 partials over the ranks
+        counts, *ones = tp.sum_ints(counts, *ones)
+    counts = counts.to(torch.float32)
+    row = ones[0].to(torch.float32)[..., None]  # (B,H,S,1)
+    col = ones[1].to(torch.float32)[:, :, None, :]  # (B,1,1,T)
     sc = ckv_scale.to(torch.float32)
     off = ckv_offset.to(torch.float32)
     a1 = qq.scale.reshape(b, 1, 1, 1)
@@ -689,11 +727,13 @@ def init_mla_cache(batch: int, max_len: int, cfg: ArchConfig, device="cuda") -> 
     }
 
 
-def _mla_q(p, x, cfg: ArchConfig, positions, mode: str = "serve"):
-    """Queries -> (q_nope (B,S,H,dn), q_rope (B,S,H,dr) rotated)."""
+def _mla_q(p, x, cfg: ArchConfig, positions, mode: str = "serve", qc=None):
+    """Queries -> (q_nope (B,S,H,dn), q_rope (B,S,H,dr) rotated).  ``qc``:
+    ``q_down``'s output where the caller has it (gathered whole)."""
     m, h = cfg.mla, cfg.n_heads
     if m.q_lora_rank:
-        qc = L.qlinear(p["q_down"], x, cfg.quant, mode=mode, name="attn.q_down")
+        if qc is None:
+            qc = L.qlinear(p["q_down"], x, cfg.quant, mode=mode, name="attn.q_down")
         qc = L.rmsnorm(p["q_norm_lora"], qc, cfg.norm_eps)
         q = L.qlinear(p["q_up"], qc, cfg.quant, mode=mode, name="attn.q_up")
     else:
@@ -714,6 +754,18 @@ def _serving_dense(p: dict, k: int, quant: QuantConfig) -> torch.Tensor:
     return m * wq.scale.to(torch.float32) + wq.offset.to(torch.float32)
 
 
+def _absorb_query(q_nope: torch.Tensor, w_uk: torch.Tensor) -> torch.Tensor:
+    """The absorbed query ``q_abs (B,S,H,R) = q_nope (B,S,H,dn) . w_uk
+    (R,H,dn)``, float32."""
+    return torch.einsum("bshd,rhd->bshr", q_nope.to(torch.float32), w_uk)
+
+
+def _unfold_context(ctx_lat: torch.Tensor, w_uv: torch.Tensor) -> torch.Tensor:
+    """The context ``(B,S,H,dv) = ctx_lat (B,S,H,R) . w_uv (R,H,dv)``,
+    float32."""
+    return torch.einsum("bshr,rhd->bshd", ctx_lat, w_uv)
+
+
 def _scores_int_latent(q_abs, ckv_m, ckv_scale, ckv_offset, attn_bits: int, backend: str = "auto"):
     """Absorbed scores as one act x act integer product against the
     head-shared latent cache, heads folded into M: ``(b, s*h, r) x (b, r,
@@ -727,15 +779,20 @@ def _scores_int_latent(q_abs, ckv_m, ckv_scale, ckv_offset, attn_bits: int, back
     if site_log.is_recording():
         site_log.record(kind="attn", site="attn.qk_latent", bits=attn_bits,
                         mantissa_dtype=site_log.dtype_name(qr.mantissa.dtype), backend=backend)
-    x1 = qr.mantissa.reshape(b, s * h, r)
+    tp, x1 = _latent_part(qr.mantissa.reshape(b, s * h, r), ckv_m)
     x2 = ckv_m.transpose(-1, -2)  # (b, r, t)
-    xy = FA.default_int_matmul(x1, x2, attn_bits, 8).to(torch.float32)
+    xy = FA.default_int_matmul(x1, x2, attn_bits, 8)
+    row = torch.sum(x1, dim=-1, dtype=torch.int32)
+    col = torch.sum(x2, dim=-2, dtype=torch.int32)
+    if tp is not None:  # the rank's columns: sum the int32 partials over the ranks
+        xy, row, col = tp.sum_ints(xy, row, col)
+    xy = xy.to(torch.float32)
     a1 = qr.scale.reshape(b, 1, 1)
     g1 = qr.offset.reshape(b, 1, 1)
     a2 = _per_row(ckv_scale, 3)
     g2 = _per_row(ckv_offset, 3) + 128.0 * a2  # cache mantissa re-centered by 128
-    row = torch.sum(x1, dim=-1, dtype=torch.int32)[..., None].to(torch.float32)
-    col = torch.sum(x2, dim=-2, dtype=torch.int32)[..., None, :].to(torch.float32)
+    row = row[..., None].to(torch.float32)
+    col = col[..., None, :].to(torch.float32)
     out = xy * (a1 * a2) + (a1 * g2) * row + (g1 * a2) * col + g1 * g2 * r
     return out.reshape(b, s, h, t).permute(0, 2, 1, 3)
 
@@ -839,10 +896,19 @@ def mla_attention(
     qd = m.qk_nope_dim + m.qk_rope_dim
     scale = torch.div(scalar(1.0, torch.float32, dev), torch.sqrt(scalar(float(qd), torch.float32, dev)))
 
-    q_nope, q_rope = _mla_q(p, x, cfg, positions, mode)
-    ckv = L.qlinear(p["kv_down"], x, quant, mode=mode, name="attn.kv_down")
+    tp = None if train else TP.split()
+    if tp is None:
+        q_nope, q_rope = _mla_q(p, x, cfg, positions, mode)
+        ckv = L.qlinear(p["kv_down"], x, quant, mode=mode, name="attn.kv_down")
+        k_rope = L.qlinear(p["k_rope"], x, quant, mode=mode, name="attn.k_rope")  # (B, S, dr)
+    else:  # column-parallel: every rank's columns gathered whole before the norms and rope
+        cols = [L.qlinear(p["q_down"], x, quant, name="attn.q_down")] if m.q_lora_rank else []
+        cols += [L.qlinear(p["kv_down"], x, quant, name="attn.kv_down"),
+                 L.qlinear(p["k_rope"], x, quant, name="attn.k_rope")]
+        cols = tp.gather_cols(*cols)
+        ckv, k_rope = cols[-2:]
+        q_nope, q_rope = _mla_q(p, x, cfg, positions, mode, qc=cols[0] if m.q_lora_rank else None)
     ckv = L.rmsnorm(p["kv_norm"], ckv, cfg.norm_eps)
-    k_rope = L.qlinear(p["k_rope"], x, quant, mode=mode, name="attn.k_rope")  # (B, S, dr)
     k_rope = L.rope(k_rope, positions, cfg.rope_theta)
     if train:
         ctx = _mla_decompressed(p, x, ckv, q_nope, q_rope, k_rope, cfg, scale, mode)
@@ -853,24 +919,30 @@ def mla_attention(
         c_m = ckv.to(cache["ckv"].dtype)
     else:
         if s > 1:
-            sc, off = _calibrate_rows(ckv)
+            sc, off = _calibrate_rows(ckv, whole=True)  # the whole latent on every rank
             cache["ckv_scale"].copy_(sc)
             cache["ckv_offset"].copy_(off)
         else:
             sc, off = cache["ckv_scale"], cache["ckv_offset"]
         c_m = _quantize_to_cache(ckv, sc, off)
+    if tp is not None:  # the rank's columns of the latent cache
+        c_m = c_m[..., tp.cols(m.kv_lora_rank)]
     _write_latent(cache, c_m, k_rope.to(cache["k_rope"].dtype), s)
 
     if s == 1:
         # ---- absorbed decode over the latent cache
         t = cache["ckv"].shape[1]
+        if tp is not None:  # every head's query, for the products over all heads
+            q_nope, q_rope = (g.reshape(b, s, -1, q.shape[-1]) for q, g in zip(
+                (q_nope, q_rope), tp.gather_cols(q_nope.reshape(b, s, -1), q_rope.reshape(b, s, -1))))
+            h = q_nope.shape[2]
         w_uk, w_uv = (
             (p[n]["w"] if "w" in p[n] else _serving_dense(p[n], m.kv_lora_rank, quant)).to(torch.float32)
-            for n in ("k_up", "v_up")
+            for n in (("w_uk", "w_uv") if tp is not None else ("k_up", "v_up"))
         )
         w_uk = w_uk.reshape(m.kv_lora_rank, h, m.qk_nope_dim)
         w_uv = w_uv.reshape(m.kv_lora_rank, h, m.v_head_dim)
-        q_abs = torch.einsum("bshd,rhd->bshr", q_nope.to(torch.float32), w_uk)
+        q_abs = _absorb_query(q_nope, w_uk)
         use_int = quantized and quant.quantize_attention
         lat_backend = _binary_scores_site(quant, "attn.qk_latent")
         if use_int and lat_backend is not None:
@@ -895,7 +967,12 @@ def mla_attention(
             ctx_lat = _pv_int_latent(probs, cache["ckv"], sc, off)
         else:
             ctx_lat = torch.einsum("bhst,btr->bshr", probs, ckv_all)
-        ctx = torch.einsum("bshr,rhd->bshd", ctx_lat, w_uv)
+        if tp is not None:  # the rank's latent columns of the context, gathered whole
+            (ctx_lat,) = tp.gather_cols(ctx_lat)
+        ctx = _unfold_context(ctx_lat, w_uv)
+        if tp is not None:  # the rank's heads into the row-parallel attn.o
+            h = cfg.n_heads
+            ctx = ctx[:, :, tp.cols(h * tp.size)]
     else:
         ctx = _mla_decompressed(p, x, ckv, q_nope, q_rope, k_rope, cfg, scale, mode)
     ctx = ctx.reshape(b, s, h * m.v_head_dim).to(x.dtype)

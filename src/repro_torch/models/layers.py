@@ -422,4 +422,4 @@ def unembed(p: dict, x: torch.Tensor, tied: bool, dtype=torch.float32) -> torch.
     else:
         logits = float_einsum("...d,vd->...v", x.to(dtype), table.to(dtype))
     tp = TP.current()
-    return logits if tp is None else tp.gather_last(logits)
+    return logits if tp is None else tp.gather_cols(logits)[0]

@@ -26,11 +26,12 @@ returns the reference's Switch-style load-balance loss.  Nothing on the
 autograd path is written in place.
 
 **Over data ranks** (``routing_global``, entered by the mesh training
-step): the reference's SPMD step routes the global microbatch, so its
-capacity, positions, drops, expert buffer and balance loss span every data
-rank's rows.  Rank ``r`` of ``n`` holds the ``t`` contiguous tokens
-``[r t, (r+1) t)`` of the microbatch's ``n t``, so its stable sort by
-expert is the global sort restricted to its routes: a route's global
+step and by the serving step over a mesh, ``serve_loop.MeshStep``): the
+reference's SPMD step routes the global microbatch (in serving, the global
+batch), so its capacity, positions, drops, expert buffer and balance loss
+span every data rank's rows.  Rank ``r`` of ``n`` holds the ``t``
+contiguous tokens ``[r t, (r+1) t)`` of the microbatch's ``n t``, so its
+stable sort by expert is the global sort restricted to its routes: a route's global
 position within its expert is its local one plus the routes the ranks
 before ``r`` sent to that expert (one all-gather of the ``(n, E)``
 counts).  Every rank then builds the global ``(E, C, D)`` buffer from the
@@ -38,14 +39,26 @@ ranks' rows and destinations (one all-gather; rows are copied, so the
 buffer equals the 1-rank step's bit for bit, ``-0.0`` included, where an
 all-reduce of the ranks' disjoint buffers would turn ``-0.0`` into
 ``+0.0`` and carry ``k`` times the capacity factor as many rows: 7.5x at
-deepseek-v2-lite's top-6 and 1.25), runs the experts over all of it
-(replicated, as the step is over ``model``) and combines only its own
-routes.  Its backward moves nothing: a rank's rows
-get their gradient from its own combine alone.  The balance loss takes
-the global counts (the gathered ones, summed) and the all-reduced sum of
-the router's probabilities, whose backward all-reduces the gradient (the
-step averages the ranks' gradients, and every rank's loss holds the global
-aux term).
+deepseek-v2-lite's top-6 and 1.25), runs the experts over it and combines
+only its own routes.  The training step runs every expert (replicated over
+``model``); its backward moves nothing: a rank's rows get their gradient
+from its own combine alone.  The balance loss takes the global counts (the
+gathered ones, summed) and the all-reduced sum of the router's
+probabilities, whose backward all-reduces the gradient (the step averages
+the ranks' gradients, and every rank's loss holds the global aux term).
+
+**Over model ranks** (``tensor_parallel.sharded``, the serving step over a
+mesh): the experts split over ``model`` (expert parallelism, the
+reference's rule: the stacks' E over ``model``).  Model rank ``i`` of
+``m`` holds experts ``[i E/m, (i+1) E/m)`` and runs them on their rows of
+the whole buffer (``E/m`` K1 launches a site), and their ``(E/m, C, D)``
+outputs are gathered over ``model`` in rank order
+(``tensor_parallel.gather_rows``: copies).  The router stays replicated
+over ``model``, so every model rank routes alike; the buffer is already
+whole on every model rank, so an all-to-all of the routed rows would move
+no fewer bytes than this gather, and the gather keeps every row a copy.
+The shared experts are a dense FFN (``ffn.*`` sites), column- and
+row-parallel over ``model`` as the dense blocks' FFN is.
 """
 
 from __future__ import annotations
@@ -62,6 +75,7 @@ from repro_torch.core import quantization as Q
 from repro_torch.core.constants import scalar
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import tensor_parallel as TP
 
 __all__ = ["init_experts", "init_moe", "pack_experts_for_serving", "expert_qlinear", "moe_ffn",
            "GlobalRouting", "routing_global", "ROUTING", "ROUTING_OPS", "clear_routing_traffic",
@@ -123,10 +137,11 @@ _routing = None
 
 @contextlib.contextmanager
 def routing_global(routing: GlobalRouting):
-    """Within the block every train-mode ``moe_ffn`` routes the global
-    microbatch of ``routing.n`` ranks' rows (capacity, positions, drops,
-    buffer and balance loss), in the forward and in remat's recompute
-    alike, as ``quantization.ranges_reduced`` does for the ranges."""
+    """Within the block every ``moe_ffn`` routes the global microbatch (in
+    serving, the global batch) of ``routing.n`` ranks' rows (capacity,
+    positions, drops, buffer and, in training, balance loss), in the
+    forward and in remat's recompute alike, as
+    ``quantization.ranges_reduced`` does for the ranges."""
     global _routing
     prev, _routing = _routing, routing
     try:
@@ -424,12 +439,15 @@ class _ScaleRoutes(torch.autograd.Function):
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, mode: str = "serve"):
     """The MoE FFN of ``x`` (B, S, D) -> (B, S, D).  Serving computes no
     load-balance loss (the reference's aux term is for training); train mode
-    returns ``(out, aux)``, aux the float32 balance loss, and within
-    ``routing_global`` routes the global microbatch of which ``x`` is this
-    rank's rows."""
+    returns ``(out, aux)``, aux the float32 balance loss.  Within
+    ``routing_global`` it routes the global batch of which ``x`` is this
+    rank's rows; inside a tensor-parallel serving step
+    (``tensor_parallel.sharded``) it runs this model rank's experts and
+    gathers every rank's outputs."""
     e, quant = cfg.moe, cfg.quant
     train = mode == "train"
-    glob = _routing if train else None
+    glob = _routing
+    tp = None if train else TP.split()
     b, s, d = x.shape
     t = b * s
     dev = x.device
@@ -441,11 +459,15 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, mode: str = "serve"):
     drop = e.n_routed * capacity
     sw = weights.reshape(-1)[order].to(x.dtype)  # combine weights ride in bf16
     h_in = buf[:drop].reshape(e.n_routed, capacity, d)
+    if tp is not None:  # this model rank's experts
+        h_in = h_in[tp.cols(e.n_routed)]
 
     up = expert_qlinear(p["up"], h_in, quant, d, mode=mode)
     gate = expert_qlinear(p["gate"], h_in, quant, d, mode=mode)
     h = L._act("silu", gate.to(torch.float32)).to(x.dtype) * up
     out_e = expert_qlinear(p["down"], h, quant, e.d_expert_ff, mode=mode)
+    if tp is not None:  # every rank's experts' rows, in rank order
+        out_e = tp.gather_rows(out_e)
 
     # combine: each token adds its k contributions in bf16 one at a time, in
     # the order of the sorted routes (ascending expert), as the reference's

@@ -23,7 +23,18 @@ block the layers read ``current()`` where a rank's part is not the whole:
 * the vocabulary-sharded embedding takes each token's row from the rank
   that owns it (``lookup``: gathered and selected, never summed, which
   would turn a ``-0.0`` into ``+0.0``), and the unembedding's logits are
-  gathered along the vocabulary (``gather_last``).
+  gathered along the vocabulary (``gather_cols``);
+* MLA (``attention.mla_attention``) holds the latent cache's columns
+  ``[r R/m, (r+1) R/m)`` and the whole rope key: the column-parallel
+  ``kv_down`` / ``k_rope`` (and ``q_down``) outputs are gathered whole
+  (``gather_cols``) before their rmsnorm and rope, the absorbed decode's
+  query heads too; its latent scores' int32 product, row and column sums
+  are summed over the ranks before the one epilogue (``sum_ints``), and
+  the context's latent columns gathered back (``gather_cols``);
+* an MoE layer (``moe.moe_ffn``) runs experts ``[r E/m, (r+1) E/m)`` over
+  the whole ``(E, C, D)`` buffer and their outputs are gathered in rank
+  order (``gather_rows``: copies, never a sum of zero-padded buffers); the
+  shared experts are a dense FFN, column- and row-parallel as above.
 
 ``ModelParallel.comm`` carries the collectives: ``all_reduce(t, op,
 axis)`` and ``all_gather(t, axis)`` (stacked on a new leading axis in
@@ -41,7 +52,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 
-__all__ = ["ROW_SITES", "ModelParallel", "sharded", "current", "local_config"]
+__all__ = ["ROW_SITES", "ModelParallel", "sharded", "current", "split", "local_config"]
 
 #: the sites whose weights are split along K over ``model``
 #: (``runtime/sharding.py``'s row-parallel owners, as the dense blocks name them)
@@ -68,16 +79,47 @@ class ModelParallel:
     def sum_partials(self, xy: torch.Tensor, row: torch.Tensor, k: int):
         """A row-parallel site's int32 product and row sums summed over the
         model ranks (one int32 all-reduce), and the global K."""
-        if xy.dtype != torch.int32 or row.dtype != torch.int32:
-            raise TypeError(f"row-parallel partial sums must be int32, got {xy.dtype} / {row.dtype}")
-        n = xy.numel()
-        both = self.comm.all_reduce(torch.cat([xy.reshape(-1), row.reshape(-1)]), "sum", "model")
-        return both[:n].reshape(xy.shape), both[n:].reshape(row.shape), k * self.size
+        xy, row = self.sum_ints(xy, row)
+        return xy, row, k * self.size
 
-    def gather_last(self, t: torch.Tensor) -> torch.Tensor:
-        """Every model rank's ``t`` joined along its last axis, in rank order."""
-        g = self.comm.all_gather(t.contiguous(), "model")  # (size, ..., n)
-        return g.movedim(0, -2).reshape(*t.shape[:-1], -1)
+    def gather_cols(self, *ts: torch.Tensor) -> list:
+        """Each of ``ts`` (one leading shape) joined along its last axis over
+        the model ranks, in rank order: one all-gather of their bytes, so
+        every value is a copy (``-0.0`` included)."""
+        lead = ts[0].shape[:-1]
+        parts = [t.contiguous().view(torch.uint8).reshape(*lead, -1) for t in ts]
+        g = self.comm.all_gather(parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1), "model")
+        out, o = [], 0
+        for t in ts:
+            nb = t.shape[-1] * t.element_size()
+            piece = g[..., o:o + nb].movedim(0, -2).reshape(*lead, -1).contiguous()
+            out.append(piece.view(t.dtype))
+            o += nb
+        return out
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every model rank's ``t`` stacked along its first axis, in rank
+        order (one all-gather of its bytes: copies)."""
+        g = self.comm.all_gather(t.contiguous().view(torch.uint8), "model")
+        return g.view(t.dtype).reshape((-1,) + tuple(t.shape[1:]))
+
+    def sum_ints(self, *ts: torch.Tensor) -> list:
+        """Int32 partial sums summed over the model ranks (one int32
+        all-reduce): exact in any order."""
+        bad = [t.dtype for t in ts if t.dtype != torch.int32]
+        if bad:
+            raise TypeError(f"partial sums over 'model' must be int32, got {bad}")
+        both = self.comm.all_reduce(torch.cat([t.reshape(-1) for t in ts]), "sum", "model")
+        out, o = [], 0
+        for t in ts:
+            out.append(both[o:o + t.numel()].reshape(t.shape))
+            o += t.numel()
+        return out
+
+    def cols(self, n: int) -> slice:
+        """This rank's columns of a width ``n`` split evenly over the ranks."""
+        k = n // self.size
+        return slice(self.index * k, (self.index + 1) * k)
 
     def lookup(self, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         """Rows of a vocabulary-sharded ``table`` (this rank holds rows
@@ -111,8 +153,18 @@ def current() -> Optional[ModelParallel]:
     return _current
 
 
+def split() -> Optional[ModelParallel]:
+    """The split over more than one model rank, or None: MLA and the MoE
+    experts compute on a model axis of one rank as on one card."""
+    return _current if _current is not None and _current.size > 1 else None
+
+
 def local_config(cfg: ArchConfig, size: int) -> ArchConfig:
     """``cfg`` with a rank's heads and FFN width over ``size`` model ranks
-    (``d_head`` stays: the heads split, not their width)."""
-    return dataclasses.replace(cfg, n_heads=cfg.n_heads // size, n_kv_heads=cfg.n_kv_heads // size,
-                               d_ff=cfg.d_ff // size)
+    (``d_head`` stays: the heads split, not their width).  MLA's heads split
+    the same way; its ``kv_lora_rank`` / ``q_lora_rank`` stay the global
+    widths that the weights' rows have (the cache's latent columns are
+    split apart from them), and ``moe`` stays whole: the router and the
+    capacity see every expert."""
+    kv = cfg.n_heads // size if cfg.mla is not None else cfg.n_kv_heads // size  # MLA's cache has no kv heads
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // size, n_kv_heads=kv, d_ff=cfg.d_ff // size)

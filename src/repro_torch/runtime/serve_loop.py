@@ -13,7 +13,11 @@ Over a mesh (``MeshStep``) a rank holds its shards of the serving params
 (``serving_params_shardings``) and of the cache (``cache_shardings``),
 takes its data index's rows of the batch, and computes the dense
 attention decoders Megatron-style over ``model``
-(``models/tensor_parallel.py``): every integer result and cache leaf is
+(``models/tensor_parallel.py``); the deepseek family's MLA with the latent
+cache's columns split over ``model`` (the absorbed decode's latent scores
+summed in int32 over the ranks) and its MoE layers with the routed
+experts split over ``model`` and the batch routed globally over the data
+ranks (``moe.routing_global``).  Every integer result and cache leaf is
 the one-card step's bit for bit, and every rank returns the whole batch's
 logits, as the reference's ``out_shardings=(None, ...)`` does.  What the
 step does not compute, ``sharding.serve_mesh_refusal`` refuses.  As in the
@@ -55,6 +59,7 @@ that changes.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import operator
 import os
@@ -79,6 +84,7 @@ __all__ = [
     "make_decode_step",
     "CompiledStep",
     "MeshStep",
+    "whole_copies",
     "Request",
     "ServeEngine",
     "serve_sequential",
@@ -284,9 +290,12 @@ class MeshStep(CompiledStep):
     all-gather a step), so each rank's copy stays whole.  The step's
     collectives: ``comm`` (the mesh's process groups by default; the
     dry-run passes a counting stand-in on an abstract mesh with
-    ``coords``).  On NCCL groups it is captured as a CUDA graph with its
-    collectives; on gloo groups it runs eagerly (``mode``), as gloo's
-    collectives are host calls.  A config or mesh that
+    ``coords``).  An MoE model over more than one data rank routes the
+    global batch (``moe.routing_global`` over the data axes: the ``(n, E)``
+    counts and the expert buffer gathered), as the reference's SPMD step
+    does, and runs its model rank's experts.  On NCCL groups it is
+    captured as a CUDA graph with its collectives; on gloo groups it runs
+    eagerly (``mode``), as gloo's collectives are host calls.  A config or mesh that
     ``sharding.serve_mesh_refusal`` names raises ``NotImplementedError``."""
 
     def __init__(self, step: Callable, cfg: ArchConfig, mesh, batch: int, max_len: int,
@@ -320,11 +329,16 @@ class MeshStep(CompiledStep):
             raise NotImplementedError(f"whole-batch cache leaves of dtypes {bad}: their rows are gathered as "
                                       "32-bit words")
         eager = not isinstance(mesh, AbstractMesh) and _gloo(mesh)
+        from repro_torch.models import moe as M
+
+        glob = None
+        if cfg.moe is not None and n > 1:  # serving computes no balance loss: nothing to all-reduce
+            glob = M.GlobalRouting(n=n, r=r, all_gather=lambda t: self._gather_rows(t[None]), all_reduce=None)
 
         def run(params, tokens, _cfg, cache, *extra):
             leaves = tree.leaves_with_paths(cache)
             mine = tree.unflatten(cache, [t[rows] if path in whole else t for path, t in leaves])
-            with TP.sharded(self.model):
+            with TP.sharded(self.model), contextlib.nullcontext() if glob is None else M.routing_global(glob):
                 logits, _ = step(params, tokens[rows], self.local_cfg, mine, *extra)
             self._share_rows([t for path, t in leaves if path in whole], rows)
             return self._gather_rows(logits), cache
@@ -352,10 +366,14 @@ class MeshStep(CompiledStep):
 
     def shard_params(self, params: dict) -> dict:
         """This rank's shards of the whole serving params (each leaf by the
-        rules at its path, ``serving_params_shardings``)."""
+        rules at its path, ``serving_params_shardings``), and the whole
+        copies that ``whole_copies`` names."""
         from repro_torch.runtime import sharding as SH
 
-        return SH.shard_tree(params, SH.params_shardings(params, self.mesh, self.cfg), self.coords)
+        out = SH.shard_tree(params, SH.params_shardings(params, self.mesh, self.cfg), self.coords)
+        for mine, extra in zip(out["layers"], whole_copies(params, self.model.size)):
+            mine["attn"].update(extra)
+        return out
 
     def shard_cache(self, cache: dict) -> dict:
         """This rank's shards of a whole ``(batch, max_len)`` cache
@@ -365,9 +383,31 @@ class MeshStep(CompiledStep):
         return SH.shard_tree(cache, SH.cache_shardings(cache, self.mesh, self.batch, self.cfg), self.coords)
 
     def init_cache(self, device=None) -> dict:
-        """This rank's shards of an empty cache."""
-        return self.shard_cache(Z.init_cache(self.batch, self.max_len, self.cfg,
-                                             device=self.device if device is None else device))
+        """This rank's shards of an empty cache, made at their own shapes
+        (an MLA layer's ``ckv`` ``(B/d, T, R/m)``, its ``k_rope`` ``(B/d,
+        T, dr)``): the whole cache is never built.  Each leaf's fill (zeros,
+        or an affine's ones) is read from a one-row cache on the host."""
+        dev = self.device if device is None else device
+        shards = self.shard_cache(Z.init_cache(self.batch, self.max_len, self.cfg, device="meta"))
+        fills = [t.reshape(-1)[0].item() for t in tree.leaves(Z.init_cache(1, 1, self.cfg, device="cpu"))]
+        return tree.unflatten(shards, [torch.full(t.shape, f, dtype=t.dtype, device=dev)
+                                       for t, f in zip(tree.leaves(shards), fills)])
+
+
+def whole_copies(params: dict, model_size: int) -> list:
+    """Each layer's leaves that a rank over ``model_size`` model ranks holds
+    whole beside its shards: over more than one, an MLA layer's packed
+    ``k_up`` / ``v_up`` as ``w_uk`` / ``w_uv`` (its attention's own).  The
+    absorbed decode folds every head's query and context through them
+    (``attention.mla_attention``): cuBLAS sums those float32 products over
+    a rank's heads alone in another order at some shapes (ROADMAP section
+    3).  ``launch/dryrun.py::argument_bytes`` counts them."""
+    copies = []
+    for layer in params["layers"]:
+        attn = layer.get("attn", {})
+        mla = model_size > 1 and "kv_down" in attn
+        copies.append({"w_uk": attn["k_up"], "w_uv": attn["v_up"]} if mla else {})
+    return copies
 
 
 def make_prefill(cfg: ArchConfig, batch: int, prompt_len: int, max_len: int,

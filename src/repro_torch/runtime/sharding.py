@@ -341,23 +341,23 @@ def cache_shardings(cache, mesh, batch: int, cfg):
 
 #: the qlinear sites of a dense block (``models/attention.py``, ``models/layers.py::ffn``)
 _DENSE_SITES = ("attn.q", "attn.k", "attn.v", "attn.o", "ffn.up", "ffn.gate", "ffn.down")
+#: MLA's own qlinear sites (``attention.mla_attention``)
+_MLA_SITES = ("attn.q_down", "attn.q_up", "attn.kv_down", "attn.k_rope", "attn.k_up", "attn.v_up")
 
 
 def serve_mesh_refusal(cfg, mesh, batch: int) -> Optional[str]:
     """Why a serving step cannot run ``cfg`` over ``mesh`` (any mesh,
     abstract or not) at ``batch`` rows, or None.  The sharded step
     (``runtime/serve_loop.py``) computes the dense attention decoders
-    Megatron-style over ``model`` and splits the batch over the data axes;
-    what it does not compute it refuses, never computing replicated."""
+    Megatron-style over ``model``, MLA with its latent cache's columns over
+    ``model`` and MoE layers with their routed experts over ``model``, and
+    splits the batch over the data axes; what it does not compute it
+    refuses, never computing replicated."""
     sizes = mesh_axes(mesh)
     m = sizes.get("model", 1)
     kinds = set(cfg.layer_kinds)
-    if cfg.mla is not None or kinds & {"Md", "Mm"}:
-        return ("MLA's latent cache over 'model' is not split by the sharded serving step "
-                "(ROADMAP item 7.8, follow-up 1: the latent over 'model')")
-    if cfg.moe is not None:
-        return ("MoE layers over a serving mesh need expert parallelism, the (E, C, D) buffer's experts "
-                "split over 'model' (ROADMAP item 7.8, follow-up 2)")
+    mla = cfg.mla is not None and bool(kinds & {"Md", "Mm"})
+    moe = cfg.moe is not None and "Mm" in kinds
     if kinds & {"r", "s"}:
         return ("SSM and RG-LRU state over 'model' is not split by the sharded serving step "
                 "(ROADMAP item 7.8, follow-up 3)")
@@ -366,24 +366,38 @@ def serve_mesh_refusal(cfg, mesh, batch: int) -> Optional[str]:
     if not cfg.quant.enabled:
         return ("quantization is off: a row-parallel float product summed over 'model' is not the "
                 "one-card product, so only the integer datapath is served over a mesh")
-    widths = {"n_kv_heads": cfg.n_kv_heads, "n_heads": cfg.n_heads, "d_ff": cfg.d_ff,
-              "vocab_size": cfg.vocab_size}
+    widths = {} if mla else {"n_kv_heads": cfg.n_kv_heads}  # an MLA cache has no kv heads
+    widths.update({"n_heads": cfg.n_heads, "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size})
+    if mla:
+        widths.update({"kv_lora_rank": cfg.mla.kv_lora_rank, "qk_rope_dim": cfg.mla.qk_rope_dim})
+        if cfg.mla.q_lora_rank:
+            widths["q_lora_rank"] = cfg.mla.q_lora_rank
+    if moe:
+        widths["n_routed"] = cfg.moe.n_routed
+        if cfg.moe.n_shared:
+            widths["moe.shared_ff"] = cfg.moe.shared_ff
     for name, n in widths.items():
         if n % m:
             why = (" (the cache rule would split d_head instead, which the sharded step does not compute: "
                    "ROADMAP item 7.8, follow-up 5)" if name == "n_kv_heads" else "")
             return f"{name} {n} does not split over {m} 'model' ranks" + why
-    for name, k in (("attn.o", cfg.n_heads * cfg.d_head), ("ffn.down", cfg.d_ff)):
+    row_ks = {"attn.o": cfg.n_heads * (cfg.mla.v_head_dim if mla else cfg.d_head), "ffn.down": cfg.d_ff}
+    if moe and cfg.moe.n_shared:
+        row_ks["the shared experts' ffn.down"] = cfg.moe.shared_ff
+    for name, k in row_ks.items():
         if m > 1 and k % (32 * m):
             return (f"{name}'s K of {k} does not split over {m} 'model' ranks on 32-bit word boundaries "
                     "(its packed weight is split along its words)")
+    if mla and m > 1 and not (cfg.quant.quantize_attention and cfg.quant.kv_cache_bits in (4, 8)):
+        return ("MLA's latent cache split over 'model' needs quantized attention over the int8 latent "
+                "cache: the float latent scores would sum a float product over the split latent")
     dp = data_axes(mesh)
     n = _prod(sizes[a] for a in dp) if dp else 1
     if batch % n:
         return (f"a batch of {batch} rows does not split over {n} data ranks (the port has no sequence "
                 "parallelism)")
     if m > 1:
-        for site in _DENSE_SITES:
+        for site in _DENSE_SITES + (_MLA_SITES if mla else ()):
             b = cfg.quant.backend_for(site)
             if b in ("fused", "auto"):
                 return (f"backend {b!r} at {site} over {m} 'model' ranks: "

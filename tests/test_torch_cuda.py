@@ -1421,6 +1421,77 @@ def test_sharded_serving_two_ranks_on_one_card(dev, tmp_path):
                 assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
 
 
+def _tp_deepseek(binary: bool = False):
+    cfg = smoke_variant(get_config("deepseek-v2-lite-16b"))
+    quant = dataclasses.replace(cfg.quant, backend="pallas")
+    if binary:
+        quant = dataclasses.replace(quant, backend_overrides=(("attn.qk_latent", "binary"),))
+    return dataclasses.replace(cfg, quant=quant)
+
+
+@pytest.mark.parametrize("shape,binary", [((1, 2), False), ((2, 1), False), ((1, 2), True)])
+def test_sharded_mla_moe_serving_two_ranks_on_one_card(dev, tmp_path, shape, binary):
+    """deepseek-v2-lite smoke over a 1x2 mesh (the latent cache's columns
+    and the routed experts over ``model``; with ``attn.qk_latent ->
+    binary`` the scores kernel on a rank's 8 latent columns) and over 2x1
+    (each MoE layer routing the global batch) in two gloo ranks on the
+    card: each rank's cache its shard of the unmeshed step's bit for bit,
+    after the prefill and at the end, the greedy tokens equal and the
+    logits within 1e-5 of their largest."""
+    import sys
+
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parent))
+    from torch_dist_workers import run_ranks, serve_greedy
+
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.runtime import sharding as SH
+    from repro_torch.runtime.serve_loop import make_decode_step, make_prefill
+
+    cfg = _tp_deepseek(binary)
+    params = Z.init_serving_params(0, cfg, device="cpu")
+    prompts = np.random.default_rng(8).integers(0, cfg.vocab_size, size=(4, 9))
+    want = serve_greedy(make_prefill, make_decode_step, cfg, _to(params, dev), prompts, 4, 32, device=dev)
+    out = run_ranks("card_serve_worker", 2, tmp_path, {"cfg": cfg, "params": params, "prompts": prompts,
+                                                       "n_decode": 4, "max_len": 32, "shape": shape})
+    mesh = abstract_mesh(shape, ("data", "model"))
+    for got in out:
+        assert got["modes"] == ("eager", "eager")
+        assert [t.tolist() for t in got["fed"]] == [t.cpu().tolist() for t in want["fed"]]
+        scale = max(float(w.abs().max()) for w in want["logits"])
+        for g, w in zip(got["logits"], want["logits"]):
+            assert float((g - w.cpu()).abs().max()) <= 1e-5 * scale
+        for when in ("prefill", "end"):
+            whole = want[when]
+            shard = SH.shard_tree(whole, SH.cache_shardings(whole, mesh, 4, cfg), got["coords"])
+            for a, b in zip(tree.leaves(shard), tree.leaves(got[when])):
+                assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("r,ranks", [(512, 2), (16, 2), (512, 16)])
+def test_binary_attn_at_a_ranks_latent_columns(dev, r, ranks):
+    """The scores kernel on one model rank's latent columns, as the absorbed
+    decode packs them (the whole 1-bit query's column slice; the int8
+    cache's columns re-binarized), equals its plain version at dh = R / m,
+    and the ranks' counts summed in int32 are the whole latent's."""
+    from repro_torch.kernels import binary_attn as K5
+    from repro_torch.models import attention as A
+
+    g = torch.Generator(device=dev).manual_seed(r + ranks)
+    b, h, t, part = 4, 16, 512, r // ranks
+    q_bits = torch.randint(0, 2, (b, 1, h, r), generator=g, device=dev, dtype=torch.int8)
+    ckv = torch.randint(-128, 128, (b, t, r), generator=g, device=dev, dtype=torch.int8)
+    whole = ref.binary_attn_scores_ref(A._pack_q_heads(q_bits), packing.pack_bits(ckv >= 0, 1)[:, None], r)
+    total = torch.zeros_like(whole)
+    for i in range(ranks):
+        cols = slice(i * part, (i + 1) * part)
+        q = A._pack_q_heads(q_bits[..., cols])
+        k = packing.pack_bits(ckv[..., cols].contiguous() >= 0, 1, axis=-1)[:, None]
+        got = K5.binary_attn_scores_planes(q, k, dh=part)
+        assert torch.equal(got, ref.binary_attn_scores_ref(q, k, part))
+        total += got
+    assert torch.equal(total, whole)
+
+
 def test_one_nccl_rank_captures_the_mesh_step(dev, tmp_path):
     """A world of one NCCL rank, mesh 1x1: ``make_prefill`` /
     ``make_decode_step`` with the mesh are captured with their collectives
@@ -1449,3 +1520,25 @@ def test_one_nccl_rank_captures_the_mesh_step(dev, tmp_path):
     assert got["modes"] == ("graph", "graph")
     assert all(torch.equal(a, b) for a, b in zip(got["logits"], want["logits"]))
     assert Z.caches_equal(got["prefill"], want["prefill"]) and Z.caches_equal(got["end"], want["end"])
+
+
+SMOKE_MLA = dict(dn=16, dr=8, r=16, dv=16)
+
+
+@pytest.mark.parametrize("b,h,ranks,widths", [(4, 16, 2, {}), (2, 16, 2, {}), (4, 128, 16, {}),
+                                              (4, 4, 2, SMOKE_MLA), (2, 4, 2, SMOKE_MLA)])
+def test_absorbed_products_on_a_ranks_heads(dev, b, h, ranks, widths):
+    """The absorbed decode's float32 products on the card, as a model rank
+    runs them, against all heads at once: deepseek-v2-lite's 16 heads over
+    2 ranks at [20e]'s 4 local rows and a 2x2 mesh's 2, deepseek-v3's 128
+    over 16, and the smokes' 4 heads over 2.  The form ``MeshStep`` runs
+    (every head's query gathered, folded through the whole ``k_up``) is
+    the one-card step's bit for bit.  The products on a rank's heads alone
+    are printed: cuBLAS sums ``q_abs`` over a rank's heads in another order
+    at some of these shapes (ROADMAP section 3), which is why the step
+    holds whole copies of the up-projections."""
+    from torch_dist_workers import absorbed_products_by_heads
+
+    got = absorbed_products_by_heads(b, h, ranks, device=dev, **widths)
+    print(f"absorbed products b={b} h={h} ranks={ranks} on {torch.cuda.get_device_name(0)}: bitwise {got}")
+    assert got["q_gathered"]

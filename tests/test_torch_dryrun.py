@@ -160,13 +160,26 @@ def test_kernel_wrappers_give_shapes_on_meta():
     assert got.shape == (m, n) and (K1.binary_qmm.launches, K3.popcount_qmm.launches) == before
 
 
-@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
-def test_skips_are_the_references(shape):
-    rec = dryrun.run_cell("smoke", shape, "single")
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k", "deepseek-v3-671b:decode_32k"])
+def test_skips_are_the_references(shape, tmp_path, capsys):
+    arch, shape = shape.split(":") if ":" in shape else ("smoke", shape)
+    if arch != "smoke":  # served over the production mesh, as the reference lowers it; cached
+        args = ["--arch", arch, "--shape", shape, "--out", str(tmp_path)]
+        dryrun.main(args)
+        with open(dryrun.cell_path(str(tmp_path), arch, shape, "single")) as f:
+            rec = json.load(f)
+        assert rec["status"] == "ok" and rec["data_ranks"] == 16 and rec["flops"] > 0
+        assert rec["collectives"]["total_bytes"] > 0
+        capsys.readouterr()
+        dryrun.main(args)
+        assert f"[cached] {arch} {shape} single: ok" in capsys.readouterr().out
+        return
+    rec = dryrun.run_cell(arch, shape, "single")
     if shape == "long_500k":  # granite is not sub-quadratic
         assert rec["status"] == "skip" and "sub-quadratic" in rec["reason"]
     else:  # not skipped: counted, and refused by the sharded serving step (one kv head over 16)
         assert rec["status"] == "error" and "does not split over 16 'model' ranks" in rec["error"]
+        assert "ROADMAP item 7.8, follow-up 5" in rec["error"]
 
 
 def test_mesh_step_refuses_a_pod_axis():

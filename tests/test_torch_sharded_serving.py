@@ -21,8 +21,10 @@ decode steps.  What must hold:
 Also: calibrating attention on a rank's own heads would change the int8
 cache (the all-reduce is what keeps the bits); a rank's query heads meet
 the kv heads they meet on one card; every refusal of
-``sharding.serve_mesh_refusal``; the dry-run's planned serving
-collectives equal the live 2x2 step's bytes.
+``sharding.serve_mesh_refusal`` (the deepseek family's widths among them:
+its MLA and MoE layers are served over a mesh,
+``tests/test_torch_sharded_serving_mla_moe.py``); the dry-run's planned
+serving collectives equal the live 2x2 step's bytes.
 """
 
 import dataclasses
@@ -240,12 +242,24 @@ def _quant(cfg, **changes):
     return dataclasses.replace(cfg, quant=dataclasses.replace(cfg.quant, **changes))
 
 
+def _deepseek(name="deepseek-v2-lite-16b", mla=(), moe=()):
+    """A deepseek smoke config with its MLA / MoE widths changed."""
+    cfg = tsmoke(tget(name))
+    return dataclasses.replace(cfg, mla=dataclasses.replace(cfg.mla, **dict(mla)),
+                               moe=dataclasses.replace(cfg.moe, **dict(moe)))
+
+
 #: (config, mesh shape, batch, words of the reason)
 REFUSALS = {
-    "mla": (lambda: tsmoke(tget("deepseek-v2-lite-16b")), (1, 2), 2, "MLA's latent cache over 'model'"),
-    "moe": (lambda: dataclasses.replace(tsmoke(tget("deepseek-v2-lite-16b")), mla=None,
-                                        prefix_layers=(), pattern_period=("g",), n_layers=1),
-            (1, 2), 2, "expert parallelism"),
+    "mla": (lambda: _deepseek(mla=dict(kv_lora_rank=17)), (1, 2), 2, "kv_lora_rank 17 does not split over 2"),
+    "moe": (lambda: _deepseek(moe=dict(n_routed=9)), (1, 2), 2, "n_routed 9 does not split over 2"),
+    "rope": (lambda: _deepseek(mla=dict(qk_rope_dim=6)), (1, 4), 4, "qk_rope_dim 6 does not split over 4"),
+    "q_lora": (lambda: _deepseek("deepseek-v3-671b", mla=dict(q_lora_rank=9), moe=dict(d_shared_ff=64)),
+               (1, 2), 2, "q_lora_rank 9 does not split over 2"),
+    "shared_words": (lambda: _deepseek("deepseek-v3-671b"), (1, 2), 2,
+                     "the shared experts' ffn.down's K of 32 does not split over 2 'model' ranks on 32-bit word"),
+    "mla_float_scores": (lambda: _quant(_deepseek(), quantize_attention=False), (1, 2), 2,
+                         "MLA's latent cache split over 'model' needs quantized attention"),
     "ssm": (lambda: tsmoke(tget("mamba2-130m")), (1, 2), 2, "SSM and RG-LRU state"),
     "rglru": (lambda: tsmoke(tget("recurrentgemma-2b")), (1, 2), 2, "SSM and RG-LRU state"),
     "encoder": (lambda: tsmoke(tget("whisper-tiny")), (1, 2), 2, "encoder frontend"),
@@ -263,7 +277,7 @@ REFUSALS = {
              "ranks that time their candidates apart"),
 }
 #: the ROADMAP item 7.8 follow-up that each family or width refusal names
-FOLLOW_UPS = {"mla": 1, "moe": 2, "ssm": 3, "rglru": 3, "encoder": 4, "kv_heads": 5, "fused": 6, "auto": 6}
+FOLLOW_UPS = {"ssm": 3, "rglru": 3, "encoder": 4, "kv_heads": 5, "fused": 6, "auto": 6}
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
@@ -280,7 +294,8 @@ def test_serve_mesh_refusals(case):
         assert f"ROADMAP item 7.8, follow-up {FOLLOW_UPS[case]}" in reason
     with pytest.raises(NotImplementedError, match=words.replace("(", r"\(").replace(")", r"\)")):
         make_decode_step(cfg, batch, 8, device="cpu", mesh=mesh)
-    if case in ("kv_heads", "heads", "d_ff", "vocab", "words", "fused", "auto"):
+    if case in ("kv_heads", "heads", "d_ff", "vocab", "words", "fused", "auto", "mla", "moe", "rope", "q_lora",
+                "shared_words", "mla_float_scores"):
         assert SH.serve_mesh_refusal(cfg, abstract_mesh((1, 1), ("data", "model")), batch) is None
 
 

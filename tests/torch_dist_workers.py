@@ -481,16 +481,85 @@ def serve_worker(rank: int, world: int, payload):
     return out
 
 
+#: the deepseek family's sharded serving scenarios: label -> (model, mesh
+#: shape, the ranks of its mesh); 1x2 on ranks 0-1 beside 2x1 on ranks 2-3
+MLA_MOE_CASES = {
+    "v2_1x2": ("v2", (1, 2), (0, 1)),
+    "v2_2x1": ("v2", (2, 1), (2, 3)),
+    "v3_1x2": ("v3", (1, 2), (0, 1)),
+    "v3_2x1": ("v3", (2, 1), (2, 3)),
+    "v2bin_1x2": ("v2bin", (1, 2), (0, 1)),
+    "v2bin_2x1": ("v2bin", (2, 1), (2, 3)),
+    "v2_2x2": ("v2", (2, 2), (0, 1, 2, 3)),
+    "v3_2x2": ("v3", (2, 2), (0, 1, 2, 3)),
+}
+
+
+@contextlib.contextmanager
+def latent_spy(seen: list):
+    """Record the whole query ``q_abs`` that each absorbed decode's latent
+    scores take (int8 or 1-bit), in call order."""
+    from unittest import mock
+
+    from repro_torch.models import attention as A
+
+    def wrap(fn):
+        def spy(q_abs, *a, **k):
+            seen.append(q_abs.detach().clone())
+            return fn(q_abs, *a, **k)
+        return spy
+
+    with mock.patch.object(A, "_scores_int_latent", wrap(A._scores_int_latent)), \
+            mock.patch.object(A, "_scores_binary_latent", wrap(A._scores_binary_latent)):
+        yield seen
+
+
+def mla_moe_serve_worker(rank: int, world: int, payload):
+    """Every scenario of ``tests/test_torch_sharded_serving_mla_moe.py`` in
+    one group of 4 gloo ranks: each of ``MLA_MOE_CASES`` this rank is on,
+    with every MoE layer's routing (``moe_spy``) and every absorbed
+    decode's ``q_abs`` (``latent_spy``) recorded; on the 2x1 meshes the
+    same run again with each data rank routing its own rows alone."""
+    from unittest import mock
+
+    from repro_torch.models import moe as M
+    from repro_torch.runtime import sharding as SH
+    from repro_torch.runtime.serve_loop import make_decode_step, make_prefill
+
+    meshes = {label: _mesh(shape, list(ranks)) for label, (_, shape, ranks) in MLA_MOE_CASES.items()}
+    out = {}
+    for label, (model, shape, ranks) in MLA_MOE_CASES.items():
+        if rank not in ranks:
+            continue
+        cfg, mesh = payload["cfgs"][model], meshes[label]
+
+        def run(n_decode):
+            return serve_greedy(make_prefill, make_decode_step, cfg, payload["params"][model],
+                                payload["prompts"][model], n_decode, payload["max_len"], mesh=mesh)
+
+        routes, lat = [], []
+        with moe_spy(routes), latent_spy(lat):
+            res = run(payload["n_decode"])
+        res.update(coords=SH.coordinates(mesh), routes=routes, q_abs=lat)
+        out[label] = res
+        if shape == (2, 1) and model != "v2bin":  # each data rank's rows routed alone
+            alone = []
+            with moe_spy(alone), mock.patch.object(M, "routing_global", lambda glob: contextlib.nullcontext()):
+                res = run(payload["n_decode"])
+            out[label + "_alone"] = dict(res, routes=alone)
+    return out
+
+
 def card_serve_worker(rank: int, world: int, payload):
-    """Two ranks on one card (gloo): ``payload["cfg"]`` over a 1x2 mesh, a
-    prefill and greedy steps of ``payload["prompts"]`` through the sharded
-    steps, results on the host."""
+    """Two ranks on one card (gloo): ``payload["cfg"]`` over a 1x2 mesh (or
+    ``payload["shape"]``), a prefill and greedy steps of
+    ``payload["prompts"]`` through the sharded steps, results on the host."""
     from repro_torch.runtime import sharding as SH
     from repro_torch.runtime.serve_loop import make_decode_step, make_prefill
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    mesh = _mesh((1, 2), [0, 1])
+    mesh = _mesh(payload.get("shape", (1, 2)), [0, 1])
     params = _to(payload["params"], dev)
     res = serve_greedy(make_prefill, make_decode_step, payload["cfg"], params,
                        payload["prompts"], payload["n_decode"], payload["max_len"], device=dev, mesh=mesh)
@@ -507,3 +576,43 @@ def _to(tree_, device):
     if isinstance(tree_, (list, tuple)):
         return type(tree_)(_to(v, device) for v in tree_)
     return tree_
+
+
+def absorbed_products_by_heads(b: int, h: int, ranks: int, device="cpu", dn=128, dr=64, r=512, dv=128,
+                               seed=0) -> dict:
+    """The absorbed decode's float32 products (``attention._absorb_query``
+    and ``_unfold_context``) as a model rank could run them, against all
+    ``h`` heads at once as the one-card step does (deepseek-v2-lite's
+    widths by default), with the operands in the layouts the steps give
+    them.  Returns whether each is the one-card step's bit for bit:
+
+    * ``q_heads`` / ``ctx_heads``: one flag a rank for the products on the
+      rank's ``h / ranks`` heads alone (its query heads, its own copy of
+      the up-projection's columns);
+    * ``q_gathered``: the form ``MeshStep`` runs, every rank's query heads
+      gathered (a contiguous copy) and folded through the whole ``k_up``
+      (the context is unfolded from the whole latent through the whole
+      ``v_up``, the one-card product itself)."""
+    from repro_torch.models import attention as A
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    hr, qd = h // ranks, dn + dr
+    q = torch.randn(b, 1, h * qd, generator=g, device=device)
+    w_uk = torch.randn(r, h * dn, generator=g, device=device)
+    w_uv = torch.randn(r, h * dv, generator=g, device=device)
+    ctx_lat = torch.randn(b, 1, h, r, generator=g, device=device)
+    q_abs = A._absorb_query(q.reshape(b, 1, h, qd)[..., :dn], w_uk.reshape(r, h, dn))
+    ctx = A._unfold_context(ctx_lat, w_uv.reshape(r, h, dv))
+    out = {"q_heads": [], "ctx_heads": []}
+    q_parts = []
+    for i in range(ranks):
+        heads = slice(i * hr, (i + 1) * hr)
+        q_i = q[..., i * hr * qd:(i + 1) * hr * qd].contiguous().reshape(b, 1, hr, qd)[..., :dn]
+        q_parts.append(q_i.reshape(b, 1, -1))
+        uk = w_uk[:, i * hr * dn:(i + 1) * hr * dn].contiguous().reshape(r, hr, dn)
+        uv = w_uv[:, i * hr * dv:(i + 1) * hr * dv].contiguous().reshape(r, hr, dv)
+        out["q_heads"].append(torch.equal(A._absorb_query(q_i, uk), q_abs[:, :, heads]))
+        out["ctx_heads"].append(torch.equal(A._unfold_context(ctx_lat[:, :, heads], uv), ctx[:, :, heads]))
+    q_all = torch.cat(q_parts, dim=-1).reshape(b, 1, h, dn)
+    out["q_gathered"] = torch.equal(A._absorb_query(q_all, w_uk.reshape(r, h, dn)), q_abs)
+    return out
